@@ -1,0 +1,78 @@
+"""Build a CUDA source of ``tinyedm_tpu_torch/csrc`` into a shared library
+with a plain C interface, and load it with ctypes.
+
+Nothing is built at import: the first call of ``load_library(name)`` runs
+``nvcc`` for ``sm_90a`` into ``tinyedm_tpu_torch/build/`` (listed in
+``.gitignore``). The library's file name carries a hash of its source, so an
+edited source is rebuilt and a stale library is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (neither on PATH nor under $CUDA_HOME/bin)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str, ptxas_verbose: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library already exists; returns
+    the library path. ``ptxas_verbose`` prints registers, shared memory and
+    spills of each kernel."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a temporary name and rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+           "-o", tmp, str(CSRC / f"{name}.cu")]
+    try:
+        subprocess.run(cmd, check=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _loaded[name] = lib
+    return lib
