@@ -31,7 +31,9 @@ from tinyedm_tpu_torch.configs import build_model  # noqa: E402
 # kernel-name substrings -> group, first match wins
 GROUPS = [
     ("attention kernel", ("cosine_attention_fwd",)),
-    ("conv (cuDNN)", ("conv", "fprop", "implicit", "nchw", "nhwc", "winograd", "dgrad")),
+    ("attention bwd kernel", ("attn_bwd_",)),
+    ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
+    ("conv (cuDNN)", ("conv", "fprop", "implicit", "nchw", "nhwc", "winograd", "dgrad", "wgrad")),
     ("gemm (cuBLAS)", ("gemm", "cutlass", "sm90_")),
     ("reduction", ("reduce",)),
     ("copy / cat / layout", ("copy", "cat", "transpose", "permute")),
@@ -51,16 +53,42 @@ def device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def summarize(prof, n: int, unit: str, wall_ms: float, profiled_ms: float) -> None:
+    """Print device time per ``unit`` (a forward, a step) over ``n`` profiled
+    units: busy time, idle share against ``wall_ms``, kernels, groups, top
+    kernels."""
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device time: time with CUDA events instead")
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in kernels) / n
+    by_group = defaultdict(float)
+    for e in kernels:
+        by_group[group_of(e.key)] += device_us(e) / 1e3 / n
+    print(f"wall {wall_ms:.3f} ms/{unit} (profiler off), {profiled_ms:.3f} ms (profiler on); "
+          f"device kernels {busy_ms:.3f} ms/{unit}; device idle share {1 - busy_ms / wall_ms:.3f} "
+          f"(profiler off); {launches:.0f} kernels/{unit}")
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:22s} {ms:8.3f} ms/{unit}  {ms / busy_ms:6.1%} of device time")
+    print(f"top kernels (device ms per {unit}, launches per {unit}):")
+    for e in sorted(kernels, key=device_us, reverse=True)[:12]:
+        print(f"  {device_us(e) / 1e3 / n:8.3f}  {e.count / n:5.0f}  {e.key[:110]}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--forwards", type=int, default=3)
     args = parser.parse_args()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = card()
     model = build_model("cifar10", "cuda", seed=0)
     with torch.no_grad():
         model.denoiser.gain_out.fill_(1.0)
@@ -88,26 +116,10 @@ def main() -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled_ms = timed(args.forwards)
 
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise SystemExit("the profiler recorded no device time: time with CUDA events instead")
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / args.forwards
-    launches = sum(e.count for e in kernels) / args.forwards
-    by_group = defaultdict(float)
-    for e in kernels:
-        by_group[group_of(e.key)] += device_us(e) / 1e3 / args.forwards
-
     print(f"card: {smi}")
     print(f"CIFAR-10 EDM forward, batch {args.batch}, bf16, fused attention, "
           f"{args.forwards} profiled forwards")
-    print(f"wall {wall_ms:.3f} ms/forward (profiler off), {profiled_ms:.3f} ms (profiler on); "
-          f"device kernels {busy_ms:.3f} ms/forward; device idle share {1 - busy_ms / wall_ms:.3f} "
-          f"(profiler off); {launches:.0f} kernels/forward")
-    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {group:22s} {ms:8.3f} ms/forward  {ms / busy_ms:6.1%} of device time")
-    print("top kernels (device ms per forward, launches per forward):")
-    for e in sorted(kernels, key=device_us, reverse=True)[:12]:
-        print(f"  {device_us(e) / 1e3 / args.forwards:8.3f}  {e.count / args.forwards:5.0f}  {e.key[:110]}")
+    summarize(prof, args.forwards, "forward", wall_ms, profiled_ms)
 
 
 if __name__ == "__main__":

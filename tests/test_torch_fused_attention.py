@@ -86,10 +86,10 @@ def test_cuda_kernel_matches_plain(n, heads, dtype):
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     t, _ = _qkv(n, heads, dtype)
     t = t.cuda()
-    before = fa.launch_counts[n]
+    before = fa.launch_counts["fwd", n]
     out = fa.cosine_attention_qkv(t, heads)
     torch.cuda.synchronize()
-    assert fa.launch_counts[n] == before + 1
+    assert fa.launch_counts["fwd", n] == before + 1
     ref = fa.cosine_attention_qkv_plain(t, heads)
     tol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)

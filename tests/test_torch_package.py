@@ -48,7 +48,8 @@ def test_port_imports_no_jax():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, tinyedm_tpu_torch, tinyedm_tpu_torch.generate, "
-        "tinyedm_tpu_torch.utils.interop\n"
+        "tinyedm_tpu_torch.utils.interop, tinyedm_tpu_torch.training.train_step, "
+        "tinyedm_tpu_torch.data.datamodules, tinyedm_tpu_torch.diffusion.loss\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'flax', 'tinyedm_tpu'})\n"
         "assert not bad, bad\n"
     )

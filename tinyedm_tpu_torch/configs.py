@@ -1,9 +1,11 @@
-"""Model configurations of the port, as Python constants.
+"""Model and training configurations of the port, as Python constants.
 
-Each entry is the ``model`` block (``embedding`` and ``denoiser`` keywords)
-of a config in ``experiments/conf/``, with interpolations resolved and
-``_target_`` dropped; a CPU test holds each constant equal to its YAML file.
-The port reads no YAML: the machine with the card has no YAML parser.
+Each entry of ``CONFIGS`` is the ``model`` block (``embedding`` and
+``denoiser`` keywords) of a config in ``experiments/conf/``, with
+interpolations resolved and ``_target_`` dropped; ``TRAINING`` holds the
+training recipe of a config beside it. A CPU test holds each constant equal
+to its YAML file. The port reads no YAML: the machine with the card has no
+YAML parser.
 """
 
 from __future__ import annotations
@@ -12,9 +14,12 @@ from typing import Optional
 
 import torch
 
+from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
 from tinyedm_tpu_torch.models.edm import EDM, init_weights
 from tinyedm_tpu_torch.models.layers import Embedding
 from tinyedm_tpu_torch.models.unet import Denoiser
+from tinyedm_tpu_torch.training.ema import EMAConfig
+from tinyedm_tpu_torch.training.train_step import OptimizerConfig
 from tinyedm_tpu_torch.utils.cuda import resolve_device
 
 # experiments/conf/cifar10.yaml:20-45 (the reference FID-4.0 recipe, 35.62 M
@@ -64,6 +69,26 @@ SMOKE = {
 
 CONFIGS = {"cifar10": CIFAR10, "smoke": SMOKE}
 
+# experiments/conf/cifar10.yaml: the training recipe around the model block
+# (datamodule batch, the model block's diffuser and optimizer/EMA keys, the
+# trainer's accumulation). Adam's betas and eps are EDMSpec's and
+# OptimizerConfig's defaults, which the YAML does not override.
+CIFAR10_TRAINING = {
+    "seed": 42,
+    "batch_size": 256,
+    "accumulate_grad_batches": 1,
+    "diffuser": {"P_std": 1.2, "P_mean": -1.2},
+    "use_uncertainty": False,
+    "lr": 0.02,
+    "steady_steps": 200,
+    "rampup_steps": 200,  # counted in epochs (the YAML's scheduler_interval)
+    "use_ema": True,
+    "ema_length": 0.13,
+    "every_n_steps": 1,
+}
+
+TRAINING = {"cifar10": CIFAR10_TRAINING}
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -78,16 +103,43 @@ def build_model(
     """The named config's EDM in eval mode on ``device`` (the card unless
     ``"cpu"`` is asked for), with weights drawn from ``seed``.
 
-    ``dtype`` overrides the config's compute dtype. Dropout is a training
-    feature and is not built."""
+    ``dtype`` overrides the config's compute dtype. The config's dropout
+    rate is built in; dropout runs only in a forward with ``train=True``."""
     dev = resolve_device(device)
     cfg = CONFIGS[name]
     den_kwargs = dict(cfg["denoiser"])
-    den_kwargs.pop("dropout_rate")
     config_dtype = _DTYPES[den_kwargs.pop("dtype")]
+    use_uncertainty = TRAINING.get(name, {}).get("use_uncertainty", False)
     model = EDM(
         Embedding(**cfg["embedding"]),
         Denoiser(**den_kwargs, dtype=dtype or config_dtype, fused=fused),
+        use_uncertainty=use_uncertainty,
     )
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def build_training(
+    name: str,
+    device: Optional[str | torch.device] = None,
+    dtype: Optional[torch.dtype] = None,
+    *,
+    fused: str = "auto",
+    seed: int = 0,
+) -> tuple[EDM, Diffuser, OptimizerConfig, Optional[EMAConfig], int]:
+    """(model, diffuser, optimizer config, EMA config, batch size) of the
+    named config's training recipe; the model as ``build_model`` makes it."""
+    t = TRAINING[name]
+    model = build_model(name, device, dtype, fused=fused, seed=seed)
+    opt_cfg = OptimizerConfig(
+        lr=t["lr"],
+        rampup_steps=t["rampup_steps"],
+        steady_steps=t["steady_steps"],
+        accum_steps=t["accumulate_grad_batches"],
+    )
+    ema_cfg = (
+        EMAConfig(sigma_rels=(t["ema_length"],), every_n_steps=t["every_n_steps"])
+        if t["use_ema"]
+        else None
+    )
+    return model, Diffuser(**t["diffuser"]), opt_cfg, ema_cfg, t["batch_size"]

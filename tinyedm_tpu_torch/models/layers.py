@@ -1,4 +1,4 @@
-"""Magnitude-preserving layers, inference side.
+"""Magnitude-preserving layers.
 
 Counterpart of ``tinyedm_tpu/models/layers.py``. Activations are NCHW and
 conv weights OIHW; stored weights are fp32 and every forward recomputes the
@@ -89,6 +89,26 @@ def downsample_2x(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2)
 
 
+class UncertaintyNet(nn.Module):
+    """EDM2 multi-task uncertainty head on the fp32 Fourier embedding:
+    ``gain * linear_out(mp_silu(linear(concat(x, 1))))``, ``gain`` made 0."""
+
+    def __init__(self, in_features: int, hidden_features: int):
+        super().__init__()
+        self.linear = WNLinear(in_features + 1, hidden_features)
+        self.linear_out = WNLinear(hidden_features, 1)
+        self.gain = nn.Parameter(torch.empty(()))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.gain.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        x = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+        return self.gain * self.linear_out(mp_silu(self.linear(x)))
+
+
 class ScaleLong(nn.Module):
     """Learned skip-connection gain: skip (B, C, H, W) -> gain (B, C, 1, 1)."""
 
@@ -148,6 +168,7 @@ class Embedding(nn.Module):
         add_factor: float = 0.5,
     ):
         super().__init__()
+        self.fourier_dim = fourier_dim
         self.num_classes = num_classes
         self.add_factor = add_factor
         self.fourier_embed = FourierEmbedding(fourier_dim)

@@ -1,4 +1,4 @@
-"""EDM2 magnitude-preserving U-Net denoiser, unrolled, forward only.
+"""EDM2 magnitude-preserving U-Net denoiser, unrolled.
 
 Counterpart of ``tinyedm_tpu/models/unet.py::Denoiser``: NCHW activations,
 compute in ``dtype`` with fp32 preconditioning and an fp32 output combine.
@@ -6,7 +6,7 @@ compute in ``dtype`` with fp32 preconditioning and an fp32 output combine.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -42,6 +42,7 @@ class Denoiser(nn.Module):
         encoder_out_channels: Sequence[int] = default_encoder_out_channels(),
         decoder_out_channels: Sequence[int] = default_decoder_out_channels(),
         skip_connections: Sequence[bool] = default_skip_connections(),
+        dropout_rate: float = 0.0,
         sigma_data: float = 0.5,
         encoder_add_factor: float = 0.3,
         decoder_add_factor: float = 0.3,
@@ -68,6 +69,7 @@ class Denoiser(nn.Module):
             dtype=dtype,
             use_pallas_attention=use_pallas_attention,
             fused=fused,
+            dropout_rate=dropout_rate,
         )
         self.conv_in = WNConv(in_channels + 1, encoder_out_channels[0], 3, dtype=dtype)
         ch = encoder_out_channels[0]
@@ -98,17 +100,24 @@ class Denoiser(nn.Module):
             self.gain_out.zero_()
 
     def forward(
-        self, noisy_image: torch.Tensor, sigma: torch.Tensor, embedding: torch.Tensor
+        self,
+        noisy_image: torch.Tensor,
+        sigma: torch.Tensor,
+        embedding: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """``train`` turns dropout on; its bits come from ``generator``, drawn
+        block by block in module order."""
         noisy32 = noisy_image.float()
         c = edm_precond(sigma, self.sigma_data)
         x = c.c_in * noisy32
         x = self.conv_in(torch.cat([x, torch.ones_like(x[:, :1])], dim=1))
         skips = [x]
         for block in self.encoder_blocks:
-            x = block(x, embedding)
+            x = block(x, embedding, train, generator)
             skips.append(x)
         for block, has_skip in zip(self.decoder_blocks, self.skip_connections):
-            x = block(x, embedding, skips.pop() if has_skip else None)
+            x = block(x, embedding, skips.pop() if has_skip else None, train, generator)
         out = self.conv_out(x).float() * self.gain_out
         return out * c.c_out + noisy32 * c.c_skip

@@ -3,8 +3,9 @@ with a plain C interface, and load it with ctypes.
 
 Nothing is built at import: the first call of ``load_library(name)`` runs
 ``nvcc`` for ``sm_90a`` into ``tinyedm_tpu_torch/build/`` (listed in
-``.gitignore``). The library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded.
+``.gitignore``). The library's file name carries a hash of its source and of
+the headers beside it, so an edited source is rebuilt and a stale library is
+never loaded.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    blob = b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(blob).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

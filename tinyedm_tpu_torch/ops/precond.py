@@ -1,4 +1,5 @@
-"""EDM preconditioning coefficients (Karras et al. 2022, Table 1), in fp32.
+"""EDM preconditioning coefficients (Karras et al. 2022, Table 1) and the
+EDM loss weight, in fp32.
 
 Counterpart of ``tinyedm_tpu/ops/precond.py``. sigma arrives per sample as
 ``(B,)``; the coefficients broadcast over NCHW images as ``(B, 1, 1, 1)``.
@@ -34,3 +35,11 @@ def edm_precond(sigma: torch.Tensor, sigma_data: float) -> PrecondCoeffs:
     c_noise = torch.log(sigma) / 4.0
     bcast = lambda c: c.reshape(c.shape + (1, 1, 1))  # noqa: E731
     return PrecondCoeffs(bcast(c_skip), bcast(c_out), bcast(c_in), c_noise)
+
+
+def edm_loss_weight(sigma: torch.Tensor, sigma_data: float) -> torch.Tensor:
+    """lambda(sigma) = (sigma^2 + sigma_data^2) / (sigma * sigma_data)^2, (B,) fp32."""
+    sigma = sigma.float()
+    sd = float(np.float32(sigma_data))
+    sd2 = float(np.float32(sd) * np.float32(sd))  # rounded to fp32, as the JAX package squares it
+    return (sigma**2 + sd2) / (sigma * sd) ** 2
