@@ -1,9 +1,11 @@
 """Where a Heun forward's time goes on the card, for the PyTorch port.
 
-    python experiments/torch_profile_heun.py [--batch 128] [--forwards 3]
+    python experiments/torch_profile_heun.py [--config cifar10] [--batch N] [--forwards 3]
 
-Builds the CIFAR-10 model of tinyedm_tpu_torch (seeded weights, gain_out = 1,
-bf16, fused attention) and runs the forward a Heun step makes, at sigma = 80:
+Builds a model of tinyedm_tpu_torch (``--config cifar10``, batch 128 by
+default, or ``imagenet512``, the 64x64x4 latent model at batch 32 with seeded
+labels; seeded weights, gain_out = 1, bf16, fused attention) and runs the
+forward a Heun step makes, at sigma = 80:
 two warm-up forwards, then ``--forwards`` timed with CUDA events, then as
 many under torch.profiler. Prints the wall time per forward with the
 profiler off and on, the device kernel time per forward, the device's idle
@@ -30,6 +32,7 @@ from tinyedm_tpu_torch.configs import build_model  # noqa: E402
 
 # kernel-name substrings -> group, first match wins
 GROUPS = [
+    ("flash attention kernels", ("flash_",)),
     ("attention kernel", ("cosine_attention_fwd",)),
     ("attention bwd kernel", ("attn_bwd_",)),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
@@ -39,6 +42,10 @@ GROUPS = [
     ("copy / cat / layout", ("copy", "cat", "transpose", "permute")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 ]
+
+
+# per config: image side, default batch, classes (None: unconditional)
+PATHS = {"cifar10": (32, 128, None), "imagenet512": (64, 32, 1000)}
 
 
 def group_of(name: str) -> str:
@@ -84,20 +91,25 @@ def summarize(prof, n: int, unit: str, wall_ms: float, profiled_ms: float) -> No
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--batch", type=int, default=128)
+    parser.add_argument("--config", choices=sorted(PATHS), default="cifar10")
+    parser.add_argument("--batch", type=int, default=None, help="default: 128 (cifar10), 32 (imagenet512)")
     parser.add_argument("--forwards", type=int, default=3)
     args = parser.parse_args()
+    side, default_batch, classes = PATHS[args.config]
+    batch = args.batch or default_batch
 
     smi = card()
-    model = build_model("cifar10", "cuda", seed=0)
+    model = build_model(args.config, "cuda", seed=0)
     with torch.no_grad():
         model.denoiser.gain_out.fill_(1.0)
+    channels = model.denoiser.conv_in.weight.shape[1] - 1
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((args.batch, 3, 32, 32), generator=g, device="cuda") * 80.0
-    sigma = torch.full((args.batch,), 80.0, device="cuda")
+    x = torch.randn((batch, channels, side, side), generator=g, device="cuda") * 80.0
+    sigma = torch.full((batch,), 80.0, device="cuda")
+    labels = torch.randint(0, classes, (batch,), generator=g, device="cuda") if classes else None
 
     def forward():
-        return model(x, sigma)
+        return model(x, sigma, labels)
 
     def timed(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -117,7 +129,7 @@ def main() -> None:
             profiled_ms = timed(args.forwards)
 
     print(f"card: {smi}")
-    print(f"CIFAR-10 EDM forward, batch {args.batch}, bf16, fused attention, "
+    print(f"{args.config} EDM forward, batch {batch}, bf16, fused attention, "
           f"{args.forwards} profiled forwards")
     summarize(prof, args.forwards, "forward", wall_ms, profiled_ms)
 

@@ -1,11 +1,14 @@
-"""Where a CIFAR-10 train step's time goes on the card, for the PyTorch port.
+"""Where a train step's time goes on the card, for the PyTorch port.
 
-    python experiments/torch_profile_train.py [--steps 5] [--recompute-island]
+    python experiments/torch_profile_train.py [--config cifar10] [--steps 5] [--recompute-island]
 
-Builds the CIFAR-10 training recipe of tinyedm_tpu_torch (seeded weights,
-bf16, dropout 0.13, fused attention, batch 256, seeded synthetic images
-already on the card), runs three warm-up steps at the recipe's steady lr,
-then ``--steps`` timed with CUDA events, then as many under torch.profiler.
+Builds a training recipe of tinyedm_tpu_torch (``--config cifar10``: bf16,
+dropout 0.13, batch 256; or ``imagenet512``: 64x64x4 latents with 1000
+classes, batch 128 in 4 microbatches, the uncertainty loss, two EMA
+profiles; seeded weights, fused attention, seeded synthetic data already on
+the card), runs three warm-up steps at the recipe's full lr (the schedule's
+count ticking per step where the recipe says so), then ``--steps`` timed
+with CUDA events, then as many under torch.profiler.
 Prints the wall time per step with the profiler off and on, samples/s, peak
 device memory, the device kernel time per step, the device's idle share,
 kernels launched per step, device time by kernel group and the top kernels.
@@ -38,7 +41,9 @@ from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_s
 from torch_profile_heun import card, summarize  # noqa: E402
 
 WARMUP_STEPS = 3
-STEADY_EPOCH = 200  # the recipe's lr schedule count at which the full lr applies
+# per config: image side, classes, and a count of the lr schedule at which
+# the recipe's full lr applies (epochs for cifar10, steps for imagenet512)
+PATHS = {"cifar10": (32, 10, 200), "imagenet512": (64, 1000, 10000)}
 
 
 @contextlib.contextmanager
@@ -62,34 +67,41 @@ def recompute_islands():
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", choices=sorted(PATHS), default="cifar10")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--recompute-island", action="store_true")
     args = parser.parse_args()
     with recompute_islands() if args.recompute_island else contextlib.nullcontext():
-        run(args.steps, args.recompute_island)
+        run(args.config, args.steps, args.recompute_island)
 
 
-def run(steps: int, recompute_island: bool) -> None:
+def run(config: str, steps: int, recompute_island: bool) -> None:
     smi = card()
-    model, diffuser, opt_cfg, ema_cfg, batch = build_training("cifar10", "cuda", seed=0)
+    side, classes, sched = PATHS[config]
+    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", seed=0)
     n_batches = WARMUP_STEPS + 2 * steps
-    data = SyntheticDataModule(batch, num_samples=batch * n_batches, seed=0)
+    data = SyntheticDataModule(batch, image_size=side, num_channels=model.denoiser.conv_in.weight.shape[1] - 1,
+                               num_samples=batch * n_batches, num_classes_=classes, seed=0)
     batches = iter([to_device(x, y, "cuda") for x, y in data.train_batches(0)])
     state = init_train_state(model, opt_cfg, ema_cfg)
     step = make_train_step(model, diffuser, opt_cfg, ema_cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
+    def one_step():
+        count = sched + state.step if interval == "step" else sched
+        step(state, next(batches), gen, count)
+
     def timed(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(n):
-            step(state, next(batches), gen, STEADY_EPOCH)
+            one_step()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / n
 
     for _ in range(WARMUP_STEPS):
-        step(state, next(batches), gen, STEADY_EPOCH)
+        one_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wall_ms = timed(steps)  # profiler off
@@ -98,7 +110,8 @@ def run(steps: int, recompute_island: bool) -> None:
         profiled_ms = timed(steps)
 
     print(f"card: {smi}")
-    print(f"CIFAR-10 train step, batch {batch}, bf16, dropout 0.13, fused attention, "
+    print(f"{config} train step, batch {batch} ({opt_cfg.accum_steps} microbatches), bf16, "
+          f"dropout {model.denoiser.encoder_blocks[0].dropout_rate}, fused attention, "
           f"fp32 island {'recomputed' if recompute_island else 'saved'}, {steps} profiled steps: "
           f"{batch / wall_ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB")
     summarize(prof, steps, "step", wall_ms, profiled_ms)

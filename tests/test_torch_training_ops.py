@@ -225,11 +225,11 @@ def test_training_recipe_equals_yaml():
         "accumulate_grad_batches": cfg["trainer"]["accumulate_grad_batches"],
         "diffuser": {k: v for k, v in m["diffuser"].items() if k != "_target_"},
         **{k: m[k] for k in ("use_uncertainty", "lr", "steady_steps", "rampup_steps",
-                             "use_ema", "ema_length", "every_n_steps")},
+                             "scheduler_interval", "use_ema", "ema_length", "every_n_steps")},
     }
     assert CIFAR10_TRAINING == expected
-    assert m["scheduler_interval"] == "epoch"  # the caller ticks the schedule per epoch
-    model, diffuser, opt_cfg, ema_cfg, batch = build_training("cifar10", "cpu")
+    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training("cifar10", "cpu")
+    assert interval == "epoch"  # the caller ticks the schedule per epoch
     assert (diffuser.P_mean, diffuser.P_std, batch) == (-1.2, 1.2, 256)
     assert (opt_cfg.lr, opt_cfg.betas, opt_cfg.eps) == (0.02, (0.9, 0.999), 1e-8)
     assert ema_cfg.sigma_rels == (0.13,)

@@ -67,7 +67,43 @@ SMOKE = {
     },
 }
 
-CONFIGS = {"cifar10": CIFAR10, "smoke": SMOKE}
+# experiments/conf/imagenet512.yaml:30-44 (the ImageNet-512 latent recipe,
+# 272.95 M parameters: 64x64x4 latents, 1000 classes, bf16 compute, the
+# flash-attention route for any attention layer at n >= 1024). The YAML
+# leaves the topology to the Denoiser's defaults, the EDM2 ImageNet-64
+# topology of tinyedm_tpu/models/topology.py:14-56, written out here.
+IMAGENET512 = {
+    "embedding": {"fourier_dim": 192, "embedding_dim": 768, "num_classes": 1000},
+    "denoiser": {
+        "in_channels": 4,
+        "out_channels": 4,
+        "sigma_data": 0.5,
+        "embedding_dim": 768,
+        "encoder_block_types": [
+            "Enc", "Enc", "Enc", "EncD", "Enc", "Enc", "Enc", "EncD",
+            "EncA", "EncA", "EncA", "EncD", "EncA", "EncA", "EncA",
+        ],
+        "decoder_block_types": [
+            "DecA", "Dec", "DecA", "DecA", "DecA", "DecA",
+            "DecU", "DecA", "DecA", "DecA", "DecA",
+            "DecU", "Dec", "Dec", "Dec", "Dec",
+            "DecU", "Dec", "Dec", "Dec", "Dec",
+        ],
+        "encoder_out_channels": [192] * 4 + [384] * 4 + [576] * 4 + [768] * 3,
+        "decoder_out_channels": [768] * 6 + [576] * 5 + [384] * 6 + [192] * 4,
+        "skip_connections": [
+            False, False, True, True, True, True,
+            False, True, True, True, True,
+            False, True, True, True, True,
+            False, True, True, True, True,
+        ],
+        "dropout_rate": 0.0,
+        "dtype": "bfloat16",
+        "use_pallas_attention": True,
+    },
+}
+
+CONFIGS = {"cifar10": CIFAR10, "smoke": SMOKE, "imagenet512": IMAGENET512}
 
 # experiments/conf/cifar10.yaml: the training recipe around the model block
 # (datamodule batch, the model block's diffuser and optimizer/EMA keys, the
@@ -82,12 +118,32 @@ CIFAR10_TRAINING = {
     "lr": 0.02,
     "steady_steps": 200,
     "rampup_steps": 200,  # counted in epochs (the YAML's scheduler_interval)
+    "scheduler_interval": "epoch",
     "use_ema": True,
     "ema_length": 0.13,
     "every_n_steps": 1,
 }
 
-TRAINING = {"cifar10": CIFAR10_TRAINING}
+# experiments/conf/imagenet512.yaml: the uncertainty-weighted loss, a
+# per-step lr schedule, 4-way gradient accumulation and two tracked EMA
+# profiles (ema_lengths replaces ema_length, as EDMSpec.build_ema_config does)
+IMAGENET512_TRAINING = {
+    "seed": 42,
+    "batch_size": 128,
+    "accumulate_grad_batches": 4,
+    "diffuser": {"P_std": 1.0, "P_mean": -0.4},
+    "use_uncertainty": True,
+    "lr": 0.008,
+    "steady_steps": 70000,
+    "rampup_steps": 2000,
+    "scheduler_interval": "step",
+    "use_ema": True,
+    "ema_length": 0.13,
+    "ema_lengths": [0.05, 0.13],
+    "every_n_steps": 1,
+}
+
+TRAINING = {"cifar10": CIFAR10_TRAINING, "imagenet512": IMAGENET512_TRAINING}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -104,19 +160,28 @@ def build_model(
     ``"cpu"`` is asked for), with weights drawn from ``seed``.
 
     ``dtype`` overrides the config's compute dtype. The config's dropout
-    rate is built in; dropout runs only in a forward with ``train=True``."""
+    rate and ``use_pallas_attention`` are built in; dropout runs only in a
+    forward with ``train=True``."""
     dev = resolve_device(device)
+    model = model_from_config(name, dtype, fused=fused)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+def model_from_config(name: str, dtype: Optional[torch.dtype] = None, *,
+                      fused: str = "auto") -> EDM:
+    """The named config's EDM with its parameters allocated but not drawn:
+    under ``torch.device("meta")`` it allocates nothing, which is how a
+    caller counts the parameters of a model too large to draw on the CPU."""
     cfg = CONFIGS[name]
     den_kwargs = dict(cfg["denoiser"])
     config_dtype = _DTYPES[den_kwargs.pop("dtype")]
     use_uncertainty = TRAINING.get(name, {}).get("use_uncertainty", False)
-    model = EDM(
+    return EDM(
         Embedding(**cfg["embedding"]),
         Denoiser(**den_kwargs, dtype=dtype or config_dtype, fused=fused),
         use_uncertainty=use_uncertainty,
     )
-    init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval()
 
 
 def build_training(
@@ -126,9 +191,13 @@ def build_training(
     *,
     fused: str = "auto",
     seed: int = 0,
-) -> tuple[EDM, Diffuser, OptimizerConfig, Optional[EMAConfig], int]:
-    """(model, diffuser, optimizer config, EMA config, batch size) of the
-    named config's training recipe; the model as ``build_model`` makes it."""
+) -> tuple[EDM, Diffuser, OptimizerConfig, Optional[EMAConfig], int, str]:
+    """(model, diffuser, optimizer config, EMA config, batch size, schedule
+    interval) of the named config's training recipe; the model as
+    ``build_model`` makes it. The interval says what the lr schedule's count
+    ticks with, which the caller passes to the train step: ``"epoch"`` or
+    ``"step"``. The EMA tracks every profile of ``ema_lengths`` where the
+    recipe gives them, else ``ema_length``."""
     t = TRAINING[name]
     model = build_model(name, device, dtype, fused=fused, seed=seed)
     opt_cfg = OptimizerConfig(
@@ -138,8 +207,10 @@ def build_training(
         accum_steps=t["accumulate_grad_batches"],
     )
     ema_cfg = (
-        EMAConfig(sigma_rels=(t["ema_length"],), every_n_steps=t["every_n_steps"])
+        EMAConfig(sigma_rels=tuple(t.get("ema_lengths") or (t["ema_length"],)),
+                  every_n_steps=t["every_n_steps"])
         if t["use_ema"]
         else None
     )
-    return model, Diffuser(**t["diffuser"]), opt_cfg, ema_cfg, t["batch_size"]
+    return (model, Diffuser(**t["diffuser"]), opt_cfg, ema_cfg, t["batch_size"],
+            t["scheduler_interval"])

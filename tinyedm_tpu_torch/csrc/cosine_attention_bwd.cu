@@ -59,18 +59,6 @@ constexpr int kPairs = kOwn * kStream / kThreads;  // (own, streamed) pairs per 
 constexpr int kPairStep = kThreads / kStream;      // own-row step between them
 static_assert(kPairs * kPairStep == kOwn, "pair tiling");
 
-// Loads rows [row0, row0 + rows) of an (n, width) slab's channels
-// [col, col + hd) as fp32 into dst (row stride `stride`), zeros past n.
-template <typename T>
-__device__ void load_rows(const T* __restrict__ slab, int n, int row0, int rows, int width,
-                          int col, int hd, float* __restrict__ dst, int stride) {
-  for (int idx = threadIdx.x; idx < rows * hd; idx += kThreads) {
-    const int r = idx / hd, c = idx % hd;
-    const int row = row0 + r;
-    dst[r * stride + c] = row < n ? to_float(slab[(size_t)row * width + col + c]) : 0.f;
-  }
-}
-
 // The pixel-norm VJP of rows [row0, row0 + rows) of one head's channels at
 // `col` of the (n, c3) slab: recomputes the fp32 norm s and divisor D of each
 // row of x, takes gy (fp32, row stride gy_stride) and writes T(dx) to the same

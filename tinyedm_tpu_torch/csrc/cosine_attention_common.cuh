@@ -1,6 +1,6 @@
-// Helpers shared by the fused cosine-attention kernels
-// (cosine_attention_fwd.cu, cosine_attention_bwd.cu): type conversions with
-// the rounding of the tensor's type, and pixel-normalized row loads.
+// Helpers shared by the attention kernels (cosine_attention_{fwd,bwd}.cu,
+// flash_attention_{fwd,bwd}.cu): type conversions with the rounding of the
+// tensor's type, plain and pixel-normalized row loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +26,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 // the value a tensor of type T holds after storing x
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+
+// Loads rows [row0, row0 + rows) of an (n, width) slab's channels
+// [col, col + hd) as fp32 into dst (row stride `stride`), zeros past n.
+template <typename T>
+__device__ void load_rows(const T* __restrict__ slab, int n, int row0, int rows, long long width,
+                          int col, int hd, float* __restrict__ dst, int stride) {
+  for (int idx = threadIdx.x; idx < rows * hd; idx += kThreads) {
+    const int r = idx / hd, c = idx % hd;
+    const int row = row0 + r;
+    dst[r * stride + c] = row < n ? to_float(slab[(size_t)row * width + col + c]) : 0.f;
+  }
+}
 
 // Loads rows [row0, row0 + rows) of one head's hd channels, starting at
 // channel `col` of the (n, c3) slab of one sample, pixel-normalizes each row

@@ -1,14 +1,21 @@
 """Generation CLI: Heun samples from random noise, written as PNGs.
 
 Counterpart of ``tinyedm_tpu/generate.py`` with its flag names where they
-apply (``--output_dir --num_samples --image_size --batch_size --num_steps
---seed --mean --std --solver_dtype``), plus ``--config`` (a name in
-``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
+apply (``--output_dir --num_samples --image_size --num_classes --batch_size
+--num_steps --seed --mean --std --solver_dtype``), plus ``--config`` (a name
+in ``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
 ``utils.interop.save_weights``; without it the weights are a seeded init) and
-``--device`` (the card unless ``cpu`` is asked for). Example:
+``--device`` (the card unless ``cpu`` is asked for). ``--num_classes`` has
+the JAX meaning (0: unconditional, else the class count) and must agree with
+the model; left out, the model's own count is taken. Examples:
 
     python -m tinyedm_tpu_torch.generate --config cifar10 --output_dir samples \
         --num_samples 128 --batch_size 128 --num_steps 32
+    python -m tinyedm_tpu_torch.generate --config imagenet512 --num_classes 1000 \
+        --image_size 64 --mean 5.81 3.25 0.12 -2.15 --std 4.17 4.62 3.71 3.28 \
+        --output_dir latents --num_samples 32 --batch_size 32 --num_steps 32
+
+A 4-channel (latent) sample is written as an RGBA PNG, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ CIFAR10_STD = (0.24703223, 0.24348513, 0.26158784)
 
 # flags of the JAX CLI whose features later slices port (ROADMAP.md section 1)
 _NOT_PORTED = (
-    "ckpt_path", "load_ema", "ckpt_step", "ema_index", "num_classes", "model_parallel",
+    "ckpt_path", "load_ema", "ckpt_step", "ema_index", "model_parallel",
     "S_churn", "S_noise", "S_min", "S_max", "solver",
     "guidance_scale", "guide_ckpt_path", "guide_ckpt_step", "guide_ema_index",
     "guidance_sigma_min", "guidance_sigma_max",
@@ -62,12 +69,15 @@ def generate(
     std: Sequence[float] = CIFAR10_STD,
     solver_dtype: Optional[str] = None,
     seed: int = 0,
+    num_classes: Optional[int] = None,
     fused: str = "auto",
     keep_samples: bool = False,
 ) -> dict:
     """Sample ``num_samples`` images with Heun and write them as PNGs.
 
     ``weights`` replaces ``config`` by the config name stored with them.
+    ``num_classes``: 0 for an unconditional model, else its class count
+    (labels are drawn from that many classes); None takes the model's.
     ``fused="off"`` runs the attention unfused (the comparison path).
     Returns the image count, seconds, img/s, the device's peak memory (None
     on the CPU) and, with ``keep_samples``, the fp32 NHWC samples."""
@@ -78,12 +88,18 @@ def generate(
     model = build_model(config, dev, fused=fused, seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict)
+    model_classes = model.embedding.num_classes if model.conditional else 0
+    if num_classes is not None and num_classes != model_classes:
+        raise ValueError(
+            f"num_classes={num_classes} but the {config} model has "
+            f"{model_classes or 'no'} classes (0 means unconditional)"
+        )
     solver = DeterministicSolver(num_steps=num_steps, dtype=solver_dtype)
     datamodule = RandomNoiseDataModule(
         batch_size=batch_size,
         image_size=image_size,
         num_samples=num_samples,
-        num_classes=model.embedding.num_classes,
+        num_classes=model_classes,
         num_channels=model.denoiser.conv_in.weight.shape[1] - 1,
         seed=seed,
     )
@@ -135,6 +151,8 @@ def main(argv=None) -> None:
     parser.add_argument("--output_dir", type=str, required=True)
     parser.add_argument("--num_samples", type=int, required=True)
     parser.add_argument("--image_size", type=int, default=32)
+    parser.add_argument("--num_classes", type=int, default=None,
+                        help="0 = unconditional, else the class count (default: the model's)")
     parser.add_argument("--batch_size", type=int, required=True)
     parser.add_argument("--num_steps", type=int, default=32)
     parser.add_argument("--mean", type=float, nargs="+", default=list(CIFAR10_MEAN))
@@ -164,6 +182,7 @@ def main(argv=None) -> None:
         std=tuple(args.std),
         solver_dtype=args.solver_dtype,
         seed=args.seed,
+        num_classes=args.num_classes,
     )
 
 

@@ -17,16 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinyedm_tpu_torch.ops.fused_attention import (
-    MAX_FUSED_TOKENS,
-    cosine_attention_qkv,
-    cosine_logits,
-)
-from tinyedm_tpu_torch.ops.mp import mp_add, mp_silu, weight_normalize
-
-# token count from which the JAX package's use_pallas_attention reaches its
-# flash kernel (tinyedm_tpu/ops/attention.py MIN_PALLAS_TOKENS)
-FLASH_MIN_TOKENS = 1024
+from tinyedm_tpu_torch.ops.attention import flash_attention, xla_attention
+from tinyedm_tpu_torch.ops.fused_attention import MAX_FUSED_TOKENS, cosine_attention_qkv
+from tinyedm_tpu_torch.ops.mp import mp_add, mp_silu, pixel_norm, weight_normalize
 
 
 class WNLinear(nn.Module):
@@ -194,11 +187,14 @@ class CosineAttention(nn.Module):
     """Cosine self-attention over the H*W tokens, with a residual
     ``mp_add(x, out_conv(attention(qkv_conv(x))), 0.5)``.
 
-    ``fused="auto"`` sends n <= MAX_FUSED_TOKENS through
-    ``cosine_attention_qkv`` (the CUDA kernel on the card); ``"off"`` runs
-    the unfused softmax path of the JAX package's XLA branch, kept for parity
-    checks and for larger n. The 1x1 convs run as GEMMs on the (b, n, C)
-    token view, so the qkv tensor comes out (b, n, 3C) contiguous."""
+    The JAX module's order of branches: ``fused="auto"`` sends n <=
+    MAX_FUSED_TOKENS through ``cosine_attention_qkv`` (the fused CUDA kernels
+    on the card); otherwise q, k and v are pixel-normed over the head dim and
+    ``use_pallas`` sends them through ``flash_attention`` (the flash CUDA
+    kernels at n >= 1024, ``xla_attention`` below), else through
+    ``xla_attention``, the JAX package's XLA branch. ``fused="off"`` is kept
+    for parity checks. The 1x1 convs run as GEMMs on the (b, n, C) token
+    view, so the qkv tensor comes out (b, n, 3C) contiguous."""
 
     def __init__(
         self,
@@ -225,14 +221,6 @@ class CosineAttention(nn.Module):
         self.qkv_conv = WNConv(channels, 3 * channels, 1, dtype=dtype)
         self.out_conv = WNConv(channels, channels, 1, dtype=dtype)
 
-    def _unfused(self, qkv: torch.Tensor) -> torch.Tensor:
-        """The JAX package's XLA path: softmax with the max subtracted,
-        weights rounded to the compute dtype, then the PV product."""
-        b, n, c3 = qkv.shape
-        v, logits = cosine_logits(qkv, self.num_heads)
-        weights = torch.softmax(logits, dim=-1).to(self.dtype)
-        return torch.matmul(weights, v).transpose(1, 2).reshape(b, n, c3 // 3)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         n = h * w
@@ -242,13 +230,11 @@ class CosineAttention(nn.Module):
         qkv = torch.matmul(tokens, w_qkv.t())  # (b, n, 3C), contiguous
         if self.fused == "auto" and n <= MAX_FUSED_TOKENS:
             y = cosine_attention_qkv(qkv, self.num_heads)
-        elif self.use_pallas and n >= FLASH_MIN_TOKENS:
-            raise NotImplementedError(
-                f"flash attention at n={n} (use_pallas_attention) is not ported yet; "
-                "see the flash kernel item in ROADMAP.md section 2"
-            )
         else:
-            y = self._unfused(qkv)
+            heads = self.num_heads
+            q, k, v = pixel_norm(qkv.reshape(b, n, 3, heads, c // heads), dim=-1).unbind(2)
+            attend = flash_attention if self.use_pallas else xla_attention
+            y = attend(q, k, v).reshape(b, n, c)
         w_out = self.out_conv.effective_weight().to(self.dtype)[:, :, 0, 0]
         y = torch.matmul(y, w_out.t()).transpose(1, 2).reshape(b, c, h, w)
         return mp_add(x, y, 0.5)

@@ -20,18 +20,24 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(image: np.ndarray) -> bytes:
-    """8-bit PNG of a (H, W) grey, (H, W, 1) grey or (H, W, 3) RGB uint8 image."""
+    """8-bit PNG of a (H, W) grey, (H, W, 1) grey, (H, W, 3) RGB or
+    (H, W, 4) RGBA uint8 image: the color types PIL writes for those shapes
+    (0, 2 and 6), so a 4-channel latent sample is written as RGBA, as the
+    JAX package's PreditionWriter writes it."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
         raise ValueError(f"encode_png takes uint8, got {image.dtype}")
     if image.ndim == 3 and image.shape[-1] == 1:
         image = image[..., 0]
+    color_types = {3: 2, 4: 6}
     if image.ndim == 2:
         color_type = 0
-    elif image.ndim == 3 and image.shape[-1] == 3:
-        color_type = 2
+    elif image.ndim == 3 and image.shape[-1] in color_types:
+        color_type = color_types[image.shape[-1]]
     else:
-        raise ValueError(f"encode_png takes (H, W), (H, W, 1) or (H, W, 3), got {image.shape}")
+        raise ValueError(
+            f"encode_png takes (H, W), (H, W, 1), (H, W, 3) or (H, W, 4), got {image.shape}"
+        )
     h, w = image.shape[:2]
     rows = np.ascontiguousarray(image).reshape(h, -1)
     # filter type 0 (none) in front of every scanline
