@@ -55,7 +55,36 @@ with a non-zero exit code:
 12. ImageNet-512 training: the recipe's step (batch 128 in 4 microbatches
     of 32, uncertainty loss, two EMA profiles, per-step lr count in the
     steady range), as phase 9, with 60 forward and 60 backward fused calls
-    per step and finite uncertainty.
+    per step and finite uncertainty;
+13. block kernels vs plain: the whole-block attention forward and backward
+    kernels (CosineAttention(fused="block")) against their plain versions
+    at the CIFAR-10 attention widths (C 256, 4 heads of 64, n = 256 and 64;
+    batch 128 forward, 256 backward), bf16 (forward relative L2 <= 1e-3 and
+    every element within three bf16 ulps, 2.4e-2 of max(1, |ref|); dx, dWqkv
+    and dWout relative L2 <= 1e-3) and fp32 (forward atol = rtol = 1e-5,
+    backward relative L2 <= 1e-5), plus odd shapes (n = 1, 49, 300; heads
+    1 and 3; C = 192 and 768 at head dim 192); times beside the bound, the
+    plain versions and the split route (cuBLAS GEMMs around the fused
+    kernels of phases 3-4);
+14. block layer check: CosineAttention(fused="block") in bf16 at
+    (8, 256, 16, 16) and (8, 768, 8, 8), forward and backward against
+    fused="off" with the same weights (output relative L2 <= 1e-2, input
+    gradient <= 2e-2), with exactly one block forward and one block backward
+    call at C = 256 and no kernel call at C = 768, where the JAX package's
+    block_kernel_fits sends the layer down the unfused route;
+15. CIFAR-10 forward with fused="block", as phase 7: exactly 11 block
+    forward launches and no fused-attention launch;
+16. CIFAR-10 training with fused="block", as phase 9, beside phase 9's
+    numbers: exactly 11 block forward and 11 block backward calls per step;
+17. Winograd: the F(2x2,3x3) conv kernel against its plain version and
+    against F.conv2d at the CIFAR-10 model's 3x3 conv shapes (batch 128;
+    32x32, 16x16 and 8x8 at 256 -> 256, 32x32 at 4 -> 256), bf16 (relative
+    L2 <= 1e-3 against the plain version, <= 2e-2 against the fp32 direct
+    conv) and fp32 (atol = rtol = 2e-5 against both, TF32 off), plus odd
+    shapes; then winograd_conv3x3 once at each CIFAR-10 shape, the op's
+    path, one launch each; times beside the bound (the kernel's own
+    operations: the 16 component products and the fp32 transform adds; the
+    direct conv's count beside it), the plain version and F.conv2d.
 
 Then one JSON line of per-kernel numbers, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -102,7 +131,21 @@ BWD_TOL = {"bfloat16": 1e-3, "float32": 1e-5}  # relative L2
 ODD_SHAPES = [(3, 1, 1, 64), (4, 56, 4, 64), (2, 300, 2, 32), (2, 97, 2, 128), (2, 65, 1, 256), (2, 33, 3, 20)]
 FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20),
              (1, 1100, 3, 144), (1, 1030, 1, 192), (3, 1024, 1, 33)]
-KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd")
+KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd",
+           "attention_block_fwd", "attention_block_bwd", "winograd_fwd")
+# the whole-block kernels at the CIFAR-10 attention widths: (batch, n) per
+# direction, the sampling batch forward and the training batch backward
+BLOCK_C = 256
+BLOCK_SHAPES = [("fwd", 128, 256), ("fwd", 128, 64), ("bwd", 256, 256), ("bwd", 256, 64)]
+BLOCK_REPLACES = {"fwd": f"{FUSED_FWD}:429", "bwd": f"{FUSED_FWD}:461"}
+# odd block shapes (batch, n, heads, C): head dims 64, 32, 64, 192 and 192
+BLOCK_ODD = [(2, 1, 1, 64), (3, 49, 3, 96), (2, 300, 4, 256), (2, 64, 4, 768), (2, 300, 1, 192)]
+BLOCK_LAYERS = [(8, 256, 16), (8, 768, 8)]  # (batch, channels, side): compile_check's shapes
+# (batch, side, Ci, Co) of the CIFAR-10 model's 3x3 convs, and odd shapes
+# (batch, H, W, Ci, Co)
+WINO_SHAPES = [(128, 32, 256, 256), (128, 16, 256, 256), (128, 8, 256, 256), (128, 32, 4, 256)]
+WINO_ODD = [(2, 2, 2, 24, 3), (2, 6, 6, 3, 20), (1, 4, 8, 20, 24), (3, 6, 4, 24, 20)]
+WINO_REPLACES = "tinyedm_tpu/ops/winograd.py:73"
 LATENT_MEAN = (5.81, 3.25, 0.12, -2.15)  # experiments/conf/imagenet512.yaml:74-75
 LATENT_STD = (4.17, 4.62, 3.71, 3.28)
 # per config: (sampling batch, image side, classes, Heun batch size, kernel
@@ -195,9 +238,16 @@ def _cotangent(b, n, heads, hd, dtype, seed):
     return (torch.randn((b, n, heads * hd), generator=g, device="cuda") * 0.5).to(dtype)
 
 
-def _bound(nbytes: int, flops: int, dtype_name: str) -> tuple[float, str]:
-    """The least time the card could take, in ms, and what bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+def _bound(nbytes: int, flops: int, dtype_name: str, fp32_flops: int = 0) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it.
+    ``flops`` are products in ``dtype_name``; ``fp32_flops`` other fp32
+    operations (Winograd's transforms), on the CUDA cores beside bf16
+    products on the tensor cores, on the same cores as fp32 products."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    if dtype_name == "float32":
+        t_ops = (flops + fp32_flops) / PEAK_FLOPS["float32"]
+    else:
+        t_ops = max(flops / PEAK_FLOPS[dtype_name], fp32_flops / PEAK_FLOPS["float32"])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -498,15 +548,15 @@ def phase_flash_layer() -> dict[tuple[str, int], int]:
     return calls
 
 
-def _seeded_models(config: str):
+def _seeded_models(config: str, fused_form: str = "auto"):
     """The config's model with seeded weights and gain_out = 1 (at its init
-    value 0 the output is c_skip * x whatever the network computes), in its
-    fused and unfused attention forms with the same weights."""
+    value 0 the output is c_skip * x whatever the network computes), in the
+    attention form ``fused_form`` and unfused, with the same weights."""
     import torch
 
     from tinyedm_tpu_torch.configs import build_model, model_from_config
 
-    fused = build_model(config, "cuda", seed=0)
+    fused = build_model(config, "cuda", seed=0, fused=fused_form)
     with torch.no_grad():
         fused.denoiser.gain_out.fill_(1.0)
     with torch.device("cuda"):
@@ -529,7 +579,10 @@ def _clear_counts() -> None:
     fl.launch_counts.clear()
 
 
-def phase_forward(tag: str, config: str, fused, unfused) -> None:
+def phase_forward(tag: str, config: str, fused, unfused, kind: str = "fwd") -> None:
+    """One forward of the model, whose attention launches ``kind`` kernels
+    ("fwd": the fused attention; "block_fwd": the whole block), against the
+    unfused model."""
     import torch
 
     from tinyedm_tpu_torch.ops import fused_attention as fa
@@ -550,13 +603,13 @@ def phase_forward(tag: str, config: str, fused, unfused) -> None:
         torch.cuda.synchronize()
         counts, flash = dict(fa.launch_counts), _flash_calls()
         ref = unfused(x, sigma, labels)
-    expected = {("fwd", n): c for n, c in p["calls"].items()}
+    expected = {(kind, n): c for n, c in p["calls"].items()}
     if counts != expected or flash:
         fail(f"one {config} forward launched {counts} and flash {flash}, expected {expected} and none")
     if out.shape != x.shape or not torch.isfinite(out).all():
         fail(f"forward output {tuple(out.shape)} not finite or not {tuple(x.shape)}")
     err = rel_l2(out, ref)
-    print(f"[{tag} forward] {config} EDM b={b} bf16: {sum(counts.values())} launches {_fmt(counts)}, "
+    print(f"[{tag} forward] {config} EDM b={b} bf16, {kind} route: {sum(counts.values())} launches {_fmt(counts)}, "
           f"flash launches 0 (the default topology attends at 16x16 and 8x8 only, n <= 256); "
           f"fused vs unfused rel L2 {err:.3g} (<= 1e-2)", flush=True)
     if not err <= 1e-2:
@@ -603,9 +656,12 @@ def phase_heun(tag: str, config: str, fused) -> dict[tuple[str, int], int]:
     return counts
 
 
-def phase_train(tag: str, config: str) -> dict[tuple[str, int], int]:
+def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None = None) -> dict:
     """The config's recipe train step at full width on seeded synthetic
-    data; returns the kernel calls of the warm-up and timed steps."""
+    data, its attention in the form ``fused`` ("auto" or "block"); returns
+    the kernel calls of the warm-up and timed steps, ms/step, samples/s and
+    the peak memory. ``beside``: another form's numbers from this run, printed
+    beside these."""
     import torch
 
     from tinyedm_tpu_torch.configs import build_training, model_from_config
@@ -619,7 +675,8 @@ def phase_train(tag: str, config: str) -> dict[tuple[str, int], int]:
     )
 
     p = PATHS[config]
-    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", seed=0)
+    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", seed=0,
+                                                                        fused=fused)
     a = opt_cfg.accum_steps
     steps = p["warmup"] + p["timed"]
     channels = model.denoiser.conv_in.weight.shape[1] - 1
@@ -653,7 +710,8 @@ def phase_train(tag: str, config: str) -> dict[tuple[str, int], int]:
     seconds = time.perf_counter() - t0
     counts, flash = dict(fa.launch_counts), _flash_calls()
     peak = torch.cuda.max_memory_allocated()
-    expected = {(d, n): a * c * steps for n, c in p["calls"].items() for d in ("fwd", "bwd")}
+    kinds = ("fwd", "bwd") if fused == "auto" else (f"{fused}_fwd", f"{fused}_bwd")
+    expected = {(d, n): a * c * steps for n, c in p["calls"].items() for d in kinds}
     if counts != expected or flash:
         fail(f"{steps} train steps made {counts} and flash {flash}, expected {expected} and none")
     losses = torch.stack([m["train_loss"] for m in metrics_seen]).float().cpu()
@@ -671,11 +729,16 @@ def phase_train(tag: str, config: str) -> dict[tuple[str, int], int]:
             if not torch.allclose(rms, torch.ones_like(rms), atol=1e-3):
                 fail(f"{k}: per-output RMS {rms.min().item()}..{rms.max().item()} after the step, not 1")
     ms = 1e3 * seconds / p["timed"]
-    print(f"[{tag} train] {config} recipe b={batch} ({a} x {batch // a}) bf16, {len(state.ema)} EMA "
+    result = dict(counts=counts, ms=ms, samples_per_s=batch / ms * 1e3, peak_gib=peak / 2**30)
+    other = ""
+    if beside:
+        other = (f"; the fused=\"auto\" route in this run (phase 9): {beside['ms']:.3f} ms/step, "
+                 f"{beside['samples_per_s']:.2f} samples/s, peak {beside['peak_gib']:.3f} GiB")
+    print(f"[{tag} train] {config} recipe b={batch} ({a} x {batch // a}) bf16 fused={fused!r}, {len(state.ema)} EMA "
           f"profile(s), lr schedule count {count(0)} ({interval}): {p['warmup']} warm-up steps in "
           f"{time.perf_counter() - t_warm - seconds:.3f} s, {p['timed']} timed steps {ms:.3f} ms/step, "
           f"{batch / ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB; calls {_fmt(counts)}, flash 0; "
-          f"losses {losses[0]:.4f} .. {losses[-1]:.4f}{uncertainty}", flush=True)
+          f"losses {losses[0]:.4f} .. {losses[-1]:.4f}{uncertainty}{other}", flush=True)
 
     # one step's gradients, fused against fused="off", from the same state
     with torch.device("cuda"):
@@ -695,13 +758,309 @@ def phase_train(tag: str, config: str) -> dict[tuple[str, int], int]:
     err = rel_l2(torch.cat([g.reshape(-1) for g, _ in pairs]), torch.cat([u.reshape(-1) for _, u in pairs]))
     worst = max(rel_l2(g, u) for g, u in pairs)
     print(f"[{tag} train] one step's gradients of the {len(names)} WN weights "
-          f"({sum(g.numel() for g, _ in pairs)} values), fused vs unfused attention: rel L2 {err:.3g} "
+          f"({sum(g.numel() for g, _ in pairs)} values), fused={fused!r} vs unfused attention: rel L2 {err:.3g} "
           f"(<= 2e-2), worst single weight {worst:.3g}; all {len(grads)} parameters "
           f"{rel_l2(torch.cat([g.reshape(-1) for g in grads]), torch.cat([u.reshape(-1) for u in ugrads])):.3g}",
           flush=True)
     if not err <= 2e-2:
-        fail(f"fused vs unfused WN weight gradients rel L2 {err} > 2e-2")
-    return counts
+        fail(f"fused={fused!r} vs unfused WN weight gradients rel L2 {err} > 2e-2")
+    return result
+
+
+def _block_inputs(b, n, c, dtype, seed):
+    """x, the effective weights wqkv and wout (unit-RMS rows / sqrt(C), as
+    weight normalization leaves them), and a cotangent g."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, n, c), generator=gen, device="cuda").to(dtype)
+    wq = (torch.randn((c, 3 * c), generator=gen, device="cuda") / c**0.5).to(dtype)
+    wo = (torch.randn((c, c), generator=gen, device="cuda") / c**0.5).to(dtype)
+    g = (torch.randn((b, n, c), generator=gen, device="cuda") * 0.5).to(dtype)
+    return x, wq, wo, g
+
+
+def _check_block(x, wq, wo, g, heads: int, dtype_name: str, what: str) -> tuple[float, float, float]:
+    """Both block kernels against the plain versions: (forward max abs,
+    backward max abs over dx, dWqkv and dWout, their worst relative L2). The
+    bf16 forward is held to phase 4's relative L2 of 1e-3 and, element by
+    element, to three bf16 ulps (2.4e-2 of max(1, |ref|)): the out GEMM's fp32
+    sums, taken in another order than cuBLAS's, can round T(out) to its
+    neighbour, and the residual's four bf16 roundings (out - x, * t, x + .,
+    * s) carry that one ulp of out into up to two ulps of the output."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+
+    out = fa.attention_block_cuda(x, wq, wo, heads)
+    torch.cuda.synchronize()
+    ref = fa.attention_block_plain(x, wq, wo, heads)
+    if dtype_name == "float32":
+        fwd_err = _check(out, ref, dtype_name, f"block fwd {what}")
+    else:
+        if not torch.isfinite(out.float()).all():
+            fail(f"block fwd {what}: non-finite kernel output")
+        diff = (out.float() - ref.float()).abs()
+        fwd_err, rel = float(diff.max()), rel_l2(out, ref)
+        scaled = float((diff / ref.float().abs().clamp(min=1.0)).max())
+        if not (rel <= BWD_TOL[dtype_name] and scaled <= 3 * 2.0**-7):
+            fail(f"block fwd {what}: rel L2 {rel} (<= {BWD_TOL[dtype_name]}), max abs {fwd_err}, "
+                 f"{scaled} of max(1, |ref|) (<= {3 * 2.0**-7})")
+    grads = fa.attention_block_bwd_cuda(x, wq, wo, g, heads)
+    torch.cuda.synchronize()
+    refs = fa.attention_block_bwd_plain(x, wq, wo, g, heads)
+    errs = [_check_bwd(d, r, dtype_name, f"block bwd {what} {label}")
+            for d, r, label in zip(grads, refs, ("dx", "dwqkv", "dwout"))]
+    return fwd_err, max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def _split_route(x, wq, wo, heads: int):
+    """The block as the fused="auto" layer computes it: cuBLAS GEMMs around
+    the fused attention kernels (phases 3-4). Returns (forward, backward)
+    callables; the backward takes the forward's saved qkv and y, as autograd
+    would, and returns dx, dWqkv and dWout."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.ops.mp import in_dtype, mp_add
+
+    b, n, c = x.shape
+    ts = in_dtype(0.5 / (0.5**0.5), x.dtype)
+
+    def forward():
+        qkv = torch.matmul(x, wq)
+        y = fa.cosine_attention_qkv_cuda(qkv, heads)
+        return mp_add(x, torch.matmul(y, wo), 0.5), qkv, y
+
+    def backward(g, qkv, y):
+        gout = g * ts
+        dwo = torch.matmul(y.reshape(b * n, c).t(), gout.reshape(b * n, c))
+        dqkv = fa.cosine_attention_qkv_bwd_cuda(qkv, torch.matmul(gout, wo.t()), y, heads)
+        dwq = torch.matmul(x.reshape(b * n, c).t(), dqkv.reshape(b * n, 3 * c))
+        return torch.matmul(dqkv, wq.t()) + gout, dwq, dwo
+
+    return forward, backward
+
+
+def phase_block_kernels() -> list[dict]:
+    """The whole-block kernels against their plain versions; times at the
+    CIFAR-10 attention widths of the kernels, the plain versions and the
+    split route on the same inputs. No single PyTorch call computes the
+    block, so library_ms is null and the split route's time stands beside."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+
+    entries = []
+    for direction, b, n in BLOCK_SHAPES:
+        c = BLOCK_C
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            x, wq, wo, g = _block_inputs(b, n, c, dtype, seed=n + b)
+            fwd_err, bwd_err, bwd_rel = _check_block(x, wq, wo, g, HEADS, name, f"b={b} n={n} {name}")
+            print(f"[13 block vs plain] b={b} n={n} C={c} heads={HEADS} {name}: forward max_abs "
+                  f"{fwd_err:.3g}, backward max_abs {bwd_err:.3g} worst rel_l2 {bwd_rel:.3g}", flush=True)
+            if dtype != torch.bfloat16:  # times in the main path's type
+                continue
+            split_fwd, split_bwd = _split_route(x, wq, wo, HEADS)
+            itemsize = x.element_size()
+            if direction == "fwd":
+                ms = time_ms(lambda: fa.attention_block_cuda(x, wq, wo, HEADS), iters=5, reps=3)
+                plain_ms = time_ms(lambda: fa.attention_block_plain(x, wq, wo, HEADS), iters=3, reps=3)
+                split_ms = time_ms(split_fwd, iters=5, reps=3)
+                nbytes = (2 * b * n * c + 4 * c * c) * itemsize
+                flops = b * n * c * 4 * c * 2 + 4 * b * n * n * c + 4 * b * n * c
+                err = fwd_err
+            else:
+                _, qkv, y = split_fwd()
+                ms = time_ms(lambda: fa.attention_block_bwd_cuda(x, wq, wo, g, HEADS), iters=3, reps=3)
+                plain_ms = time_ms(lambda: fa.attention_block_bwd_plain(x, wq, wo, g, HEADS),
+                                   iters=2, reps=3)
+                split_ms = time_ms(lambda: split_bwd(g, qkv, y), iters=3, reps=3)
+                nbytes = 3 * b * n * c * itemsize + 4 * c * c * (itemsize + 4)
+                flops = 3 * b * n * c * 4 * c * 2 + 10 * b * n * n * c
+                err = bwd_err
+                del qkv, y
+            bound_ms, bound_by = _bound(nbytes, flops, name)
+            print(f"[13 block vs plain] attention_block_{direction} b={b} n={n} {name}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, split route (cuBLAS + fused kernels) {split_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+            entries.append(_entry(
+                f"attention_block_{direction}[cifar10 b={b} n={n}]", f"attention_block_{direction}.cu",
+                BLOCK_REPLACES[direction], err, ms, plain_ms, bound_ms, bound_by, None,
+                split_ms=split_ms, n=n))
+            del x, wq, wo, g
+            torch.cuda.empty_cache()
+    for b, n, heads, c in BLOCK_ODD:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            _check_block(*_block_inputs(b, n, c, dtype, seed=b * n + c), heads, name,
+                         f"b={b} n={n} heads={heads} C={c} {name}")
+    print("[13 block vs plain] odd shapes (n = 1, 49, 64, 300; heads 1, 3, 4; C = 64, 96, 192, 256, 768): ok",
+          flush=True)
+    return entries
+
+
+def _kernel_calls() -> dict:
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+
+    return {k: v for k, v in fa.launch_counts.items() if v}
+
+
+def phase_block_layer() -> None:
+    """CosineAttention(fused="block") against fused="off" on the same
+    weights, forward and backward, where block_kernel_fits holds (C = 256)
+    and where it does not (C = 768: the unfused route, no kernel call)."""
+    import torch
+
+    from tinyedm_tpu_torch.models.edm import init_weights
+    from tinyedm_tpu_torch.models.layers import CosineAttention
+    from tinyedm_tpu_torch.ops.fused_attention import block_kernel_fits
+
+    for b, c, side in BLOCK_LAYERS:
+        n = side * side
+        block = CosineAttention(c, HEADS, dtype=torch.bfloat16, fused="block")
+        init_weights(block, torch.Generator().manual_seed(c))
+        block = block.cuda()
+        ref = CosineAttention(c, HEADS, dtype=torch.bfloat16, fused="off").cuda()
+        ref.load_state_dict(block.state_dict())
+        gen = torch.Generator(device="cuda").manual_seed(side)
+        x = torch.randn((b, c, side, side), generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn((b, c, side, side), generator=gen, device="cuda").to(torch.bfloat16)
+        results = []
+        for module in (block, ref):
+            xr = x.clone().requires_grad_(True)
+            _clear_counts()
+            out = module(xr)
+            (dx,) = torch.autograd.grad(out, xr, g)
+            torch.cuda.synchronize()
+            results.append((out.detach(), dx, {**_kernel_calls(), **_flash_calls()}))
+        (out, dx, counts), (rout, rdx, rcounts) = results
+        fits = block_kernel_fits(n, c, HEADS)
+        expected = {("block_fwd", n): 1, ("block_bwd", n): 1} if fits else {}
+        if fits != (c == 256) or counts != expected or rcounts:
+            fail(f"block layer C={c} n={n} (fits {fits}) launched {counts} (reference {rcounts}), "
+                 f"expected {expected}")
+        if not (torch.isfinite(out.float()).all() and torch.isfinite(dx.float()).all()):
+            fail(f"block layer C={c}: non-finite output or gradient")
+        out_err, dx_err = rel_l2(out, rout), rel_l2(dx, rdx)
+        route = "the block kernels" if fits else "the unfused route (block_kernel_fits is false)"
+        print(f"[14 block layer] CosineAttention({c}, {HEADS} heads, bf16, fused=\"block\") at "
+              f"({b}, {c}, {side}, {side}), n={n}: {route}, calls {_fmt(counts) if counts else '{}'}; "
+              f"against fused=\"off\" output rel L2 {out_err:.3g} (<= 1e-2), input gradient {dx_err:.3g} "
+              f"(<= 2e-2)", flush=True)
+        if not (out_err <= 1e-2 and dx_err <= 2e-2):
+            fail(f"block layer C={c}: output {out_err} or input gradient {dx_err} off the limits")
+        del block, ref, results, out, dx, rout, rdx
+        torch.cuda.empty_cache()
+
+
+def _wino_inputs(b, h, w, ci, co, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, h, w, ci), generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn((3, 3, ci, co), generator=gen, device="cuda") / (9 * ci) ** 0.5).to(dtype)
+    return x, wt
+
+
+def _direct_conv(x, w):
+    """F.conv2d on the NHWC input and HWIO weight as views (channels_last),
+    in their type; NHWC out."""
+    import torch.nn.functional as F
+
+    return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+
+
+def _check_wino(x, w, dtype_name: str, what: str) -> float:
+    """The kernel against the plain version and the fp32 direct conv: its
+    max abs difference from the plain version."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import winograd as wg
+
+    y = wg.winograd_conv3x3_cuda(x, w)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y.float()).all():
+        fail(f"winograd {what}: non-finite kernel output")
+    ref = wg.winograd_conv3x3_plain(x, w)
+    direct = _direct_conv(x.float(), w.float())
+    err = float((y.float() - ref.float()).abs().max())
+    if dtype_name == "float32":
+        for r, label in ((ref, "plain"), (direct, "direct conv")):
+            torch.testing.assert_close(y, r, atol=2e-5, rtol=2e-5, msg=lambda m: f"winograd {what} vs {label}: {m}")
+    else:
+        rel_plain, rel_direct = rel_l2(y, ref), rel_l2(y, direct)
+        if not (rel_plain <= 1e-3 and rel_direct <= 2e-2):
+            fail(f"winograd {what}: rel L2 {rel_plain} to plain (<= 1e-3), {rel_direct} to the direct conv (<= 2e-2)")
+    return err
+
+
+def phase_winograd() -> list[dict]:
+    """The Winograd kernel against its plain version and the direct conv,
+    its times, then the op's path: winograd_conv3x3 once per CIFAR-10 shape
+    with the counts set to 0 just before."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import winograd as wg
+
+    entries = []
+    for b, side, ci, co in WINO_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            x, w = _wino_inputs(b, side, side, ci, co, dtype, seed=side + ci)
+            err = _check_wino(x, w, name, f"b={b} {side}x{side} {ci}->{co} {name}")
+            if dtype != torch.bfloat16:
+                print(f"[17 winograd] b={b} {side}x{side} {ci}->{co} {name}: max_abs to plain {err:.3g}; "
+                      f"matches plain and F.conv2d within 2e-5", flush=True)
+                continue
+            ms = time_ms(lambda: wg.winograd_conv3x3_cuda(x, w), iters=5, reps=3)
+            plain_ms = time_ms(lambda: wg.winograd_conv3x3_plain(x, w), iters=3, reps=3)
+            library_ms = time_ms(lambda: _direct_conv(x, w), iters=10, reps=3)
+            tiles = b * (side // 2) ** 2
+            nbytes = (b * side * side * (ci + co) + 16 * ci * co) * x.element_size()  # x, U, y
+            flops = 2 * 16 * ci * co * tiles  # the 16 component products
+            adds = (32 * ci + 36 * co) * tiles  # B^T d B per input, the A^T folds per output channel
+            bound_ms, bound_by = _bound(nbytes, flops, name, adds)
+            direct_flops = 2 * b * side * side * 9 * ci * co  # the direct conv's, as winograd.py:184
+            direct_ms, _ = _bound(nbytes, direct_flops, name)
+            print(f"[17 winograd] b={b} {side}x{side} {ci}->{co} {name}: max_abs to plain {err:.3g} | kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of products, "
+                  f"{adds / 1e9:.3f} G fp32 transform adds); the direct conv's {direct_flops / 1e9:.2f} GFLOP "
+                  f"would bound it at {direct_ms:.4f} ms", flush=True)
+            entries.append(_entry(
+                f"winograd_fwd[b={b} {side}x{side} {ci}->{co}]", "winograd_fwd.cu", WINO_REPLACES, err, ms,
+                plain_ms, bound_ms, bound_by, library_ms, key=("winograd", side, side, ci, co),
+                bound_ms_direct_conv=direct_ms))
+            del x, w
+    worst = {}
+    for b, h, w_, ci, co in WINO_ODD:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            err = _check_wino(*_wino_inputs(b, h, w_, ci, co, dtype, seed=h * w_ + ci), name,
+                              f"b={b} {h}x{w_} {ci}->{co} {name}")
+            worst[name] = max(worst.get(name, 0.0), err)
+    print(f"[17 winograd] odd shapes (2x2, 6x6, 4x8, 6x4; Ci/Co 3, 20, 24): ok; largest max_abs to plain "
+          f"bf16 {worst['bfloat16']:.3g}, fp32 {worst['float32']:.3g}", flush=True)
+    # the op's path: one call per CIFAR-10 conv shape, bf16
+    inputs = [_wino_inputs(b, side, side, ci, co, torch.bfloat16, seed=7) for b, side, ci, co in WINO_SHAPES]
+    wg.launch_counts.clear()
+    outs = [wg.winograd_conv3x3(x, w) for x, w in inputs]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in wg.launch_counts.items() if v}
+    expected = {("winograd", side, side, ci, co): 1 for _, side, ci, co in WINO_SHAPES}
+    if counts != expected:
+        fail(f"winograd_conv3x3 at the CIFAR-10 shapes launched {counts}, expected {expected}")
+    for (x, _), y, (b, side, ci, co) in zip(inputs, outs, WINO_SHAPES):
+        if y.shape != (b, side, side, co) or not torch.isfinite(y.float()).all():
+            fail(f"winograd_conv3x3 output {tuple(y.shape)} not finite or not {(b, side, side, co)}")
+    print(f"[17 winograd] winograd_conv3x3 at the {len(WINO_SHAPES)} CIFAR-10 shapes: one launch each, "
+          "finite outputs of the expected shapes", flush=True)
+    for e in entries:
+        e["launches"] = counts[e.pop("key")]
+        e["path"] = "winograd_conv3x3 at the CIFAR-10 conv shapes"
+    return entries
 
 
 def main() -> int:
@@ -722,7 +1081,7 @@ def main() -> int:
     bwd_entries = phase_bwd_kernel_vs_plain()
     flash_entries = phase_flash_kernels()
     layer_calls = phase_flash_layer()
-    heun_counts, train_counts = {}, {}
+    heun_counts, train_counts, train_results = {}, {}, {}
     for tags, config in ((("7", "8", "9"), "cifar10"), (("10", "11", "12"), "imagenet512")):
         fused, unfused = _seeded_models(config)
         phase_forward(tags[0], config, fused, unfused)
@@ -730,8 +1089,18 @@ def main() -> int:
         heun_counts[config] = phase_heun(tags[1], config, fused)
         del fused
         torch.cuda.empty_cache()
-        train_counts[config] = phase_train(tags[2], config)
+        train_results[config] = phase_train(tags[2], config)
+        train_counts[config] = train_results[config]["counts"]
         torch.cuda.empty_cache()
+    block_entries = phase_block_kernels()
+    phase_block_layer()
+    block, unfused = _seeded_models("cifar10", "block")
+    phase_forward("15", "cifar10", block, unfused, kind="block_fwd")
+    del block, unfused
+    torch.cuda.empty_cache()
+    block_train = phase_train("16", "cifar10", fused="block", beside=train_results["cifar10"])
+    torch.cuda.empty_cache()
+    wino_entries = phase_winograd()
     # fused kernels: launches of one Heun-32 batch (forward) or of the
     # training run (backward) of their config, with the calls per train step
     for e in fwd_entries + bwd_entries:
@@ -747,7 +1116,14 @@ def main() -> int:
         e["launches"] = layer_calls[direction, e.pop("n")]
         e["launches_model_paths"] = 0
         e["path"] = "flash layer check (CosineAttention use_pallas=True)"
-    entries = fwd_entries + bwd_entries + flash_entries
+    # block kernels: launches of the CIFAR-10 training run with fused="block"
+    block_steps = PATHS["cifar10"]["warmup"] + PATHS["cifar10"]["timed"]
+    for e in block_entries:
+        key = ("block_bwd" if "bwd" in e["name"] else "block_fwd", e.pop("n"))
+        e["launches"] = block_train["counts"][key]
+        e["launches_per_train_step"] = e["launches"] // block_steps
+        e["path"] = "cifar10 training run, fused=\"block\""
+    entries = fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

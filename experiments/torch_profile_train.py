@@ -1,12 +1,15 @@
 """Where a train step's time goes on the card, for the PyTorch port.
 
     python experiments/torch_profile_train.py [--config cifar10] [--steps 5] [--recompute-island]
+        [--fused block]
 
 Builds a training recipe of tinyedm_tpu_torch (``--config cifar10``: bf16,
 dropout 0.13, batch 256; or ``imagenet512``: 64x64x4 latents with 1000
 classes, batch 128 in 4 microbatches, the uncertainty loss, two EMA
-profiles; seeded weights, fused attention, seeded synthetic data already on
-the card), runs three warm-up steps at the recipe's full lr (the schedule's
+profiles; seeded weights, seeded synthetic data already on the card), with
+the attention route ``--fused`` passes to ``build_training`` (``auto``, the
+default: the fused attention kernels; ``block``: the whole-block kernels
+where they fit), runs three warm-up steps at the recipe's full lr (the schedule's
 count ticking per step where the recipe says so), then ``--steps`` timed
 with CUDA events, then as many under torch.profiler.
 Prints the wall time per step with the profiler off and on, samples/s, peak
@@ -70,15 +73,16 @@ def main() -> None:
     parser.add_argument("--config", choices=sorted(PATHS), default="cifar10")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--recompute-island", action="store_true")
+    parser.add_argument("--fused", choices=("auto", "block"), default="auto")
     args = parser.parse_args()
     with recompute_islands() if args.recompute_island else contextlib.nullcontext():
-        run(args.config, args.steps, args.recompute_island)
+        run(args.config, args.steps, args.recompute_island, args.fused)
 
 
-def run(config: str, steps: int, recompute_island: bool) -> None:
+def run(config: str, steps: int, recompute_island: bool, fused: str = "auto") -> None:
     smi = card()
     side, classes, sched = PATHS[config]
-    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", seed=0)
+    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", fused=fused, seed=0)
     n_batches = WARMUP_STEPS + 2 * steps
     data = SyntheticDataModule(batch, image_size=side, num_channels=model.denoiser.conv_in.weight.shape[1] - 1,
                                num_samples=batch * n_batches, num_classes_=classes, seed=0)
@@ -111,7 +115,7 @@ def run(config: str, steps: int, recompute_island: bool) -> None:
 
     print(f"card: {smi}")
     print(f"{config} train step, batch {batch} ({opt_cfg.accum_steps} microbatches), bf16, "
-          f"dropout {model.denoiser.encoder_blocks[0].dropout_rate}, fused attention, "
+          f"dropout {model.denoiser.encoder_blocks[0].dropout_rate}, fused={fused!r} attention, "
           f"fp32 island {'recomputed' if recompute_island else 'saved'}, {steps} profiled steps: "
           f"{batch / wall_ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB")
     summarize(prof, steps, "step", wall_ms, profiled_ms)

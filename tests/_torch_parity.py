@@ -19,7 +19,7 @@ from tinyedm_tpu.models.layers import Embedding as JaxEmbedding
 from tinyedm_tpu.models.unet import Denoiser as JaxDenoiser
 from tinyedm_tpu_torch.configs import CONFIGS
 from tinyedm_tpu_torch.models.edm import EDM
-from tinyedm_tpu_torch.models.layers import Embedding
+from tinyedm_tpu_torch.models.layers import CosineAttention, Embedding
 from tinyedm_tpu_torch.models.unet import Denoiser
 from tinyedm_tpu_torch.utils.interop import from_jax_variables
 
@@ -80,21 +80,30 @@ def small_models(num_classes, dtype: torch.dtype, seed: int = 0):
     return jmodel, variables, port.eval()
 
 
-def _fused_on(next_fun, args, kwargs, context):
+def _set_fused(fused, next_fun, args, kwargs, context):
     if isinstance(context.module, JaxCosineAttention) and context.method_name == "__call__":
-        object.__setattr__(context.module, "fused", "on")
+        object.__setattr__(context.module, "fused", fused)
     return next_fun(*args, **kwargs)
 
 
 @contextlib.contextmanager
 def jax_attention(fused: str):
     """JAX applies inside run CosineAttention with ``fused`` ("off": the XLA
-    path, the CPU default; "on": the Pallas kernel in interpret mode)."""
+    path, the CPU default; "on": the Pallas kernel in interpret mode;
+    "block": the whole-block Pallas kernels in interpret mode, where they
+    fit)."""
     if fused == "off":
         yield
         return
-    with nn.intercept_methods(_fused_on):
+    with nn.intercept_methods(functools.partial(_set_fused, fused)):
         yield
+
+
+def set_port_attention(model: torch.nn.Module, fused: str) -> None:
+    """Every CosineAttention of the port's ``model`` runs with ``fused``."""
+    for m in model.modules():
+        if isinstance(m, CosineAttention):
+            m.fused = fused
 
 
 def nhwc_to_torch(x: np.ndarray) -> torch.Tensor:

@@ -22,7 +22,10 @@ the params, Adam moments and EMA trees are compared by relative L2:
 One step's gradients are compared with the JAX package's loss gradient with
 its attention forced "on" (the Pallas kernels in interpret mode) and "off"
 (XLA), by relative L2 over all gradients: fp32 <= 2e-5 (measured 4e-7),
-bf16 <= 2e-2 (measured 4.4e-3).
+bf16 <= 2e-2 (measured 4.4e-3). In the "block" case both packages run
+``fused="block"`` (the whole-block kernels in interpret mode on the JAX side,
+their plain versions on the port's), held against the JAX "block" and "off"
+gradients in fp32 within 2e-5.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from tests._torch_parity import (
     SMOKE_EMBEDDING,
     jax_attention,
     rel_l2,
+    set_port_attention,
 )
 from tinyedm_tpu.data.datamodules import SyntheticDataModule as JaxSynthetic
 from tinyedm_tpu.diffusion.diffuser import Diffuser as JaxDiffuser
@@ -201,22 +205,25 @@ def _jax_grads(dtype, start, images, labels, fused):
     return from_jax_variables({"params": jax.tree_util.tree_map(np.asarray, grads)})
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_step_gradients_match_jax_attention_on_and_off(dtype):
+@pytest.mark.parametrize("dtype,fused", [
+    (torch.float32, "auto"), (torch.bfloat16, "auto"), (torch.float32, "block"),
+], ids=["dtype0", "dtype1", "block-dtype0"])
+def test_step_gradients_match_jax_attention_on_and_off(dtype, fused):
     opt_items = tuple(sorted(OPT.items()))
     start = _jax_start(dtype, opt_items)
     images, labels = _batches()[0]
     opt_cfg = OptimizerConfig(**OPT)
     model, state = _port_state(dtype, start)
+    set_port_attention(model, fused)
     _, _, grads = make_grad_fn(model, _Injected(), opt_cfg)(
         state, *to_device(images, labels, "cpu"), None
     )
     port = dict(zip(state.params, grads))
     flat = np.concatenate([g.double().numpy().ravel() for g in grads])
-    for fused in ("off", "on"):
-        ref = _jax_grads(dtype, start, images, labels, fused)
+    for jax_fused in ("off", "block" if fused == "block" else "on"):
+        ref = _jax_grads(dtype, start, images, labels, jax_fused)
         rflat = np.concatenate([ref[k].double().numpy().ravel() for k in port])
-        assert rel_l2(flat, rflat) <= (2e-5 if dtype == torch.float32 else 2e-2), fused
+        assert rel_l2(flat, rflat) <= (2e-5 if dtype == torch.float32 else 2e-2), jax_fused
 
 
 def _small_model(seed=0, dropout_rate=0.0):

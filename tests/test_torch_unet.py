@@ -6,7 +6,9 @@ JAX-initialized weights carried over by ``from_jax_variables`` and
 ``gain_out`` set to 1. The port runs its default ``fused="auto"`` attention
 (on the CPU, the kernel's plain version); the JAX side runs both its XLA
 attention (``fused="off"``) and its Pallas kernel in interpret mode
-(``fused="on"``).
+(``fused="on"``). In the "block" cases both sides run ``fused="block"``:
+the whole-block kernels (in interpret mode on the JAX side, the plain
+versions on the port's), which fit at the smoke width's 8x8 attention.
 
 Tolerances: fp32 within 1e-4 max abs (measured about 1e-6: the two
 frameworks sum in other orders); bf16 within 2e-2 relative L2 (measured
@@ -26,6 +28,7 @@ from tests._torch_parity import (
     jax_attention,
     nhwc_to_torch,
     rel_l2,
+    set_port_attention,
     small_models,
     torch_to_nhwc,
 )
@@ -42,11 +45,13 @@ def _inputs(seed=0):
     return x, sigma, labels
 
 
-@pytest.mark.parametrize("jax_fused", ["off", "on"])
+@pytest.mark.parametrize("jax_fused", ["off", "on", "block"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("num_classes", [None, 10])
 def test_edm_forward_matches_jax(num_classes, dtype, jax_fused):
     jmodel, variables, port = small_models(num_classes, dtype)
+    if jax_fused == "block":
+        set_port_attention(port, "block")
     x, sigma, labels = _inputs()
     with jax_attention(jax_fused):
         ref = jax.jit(jmodel.apply)(
@@ -82,9 +87,7 @@ def test_fused_auto_and_off_agree():
     args = (nhwc_to_torch(x), torch.from_numpy(sigma), torch.from_numpy(labels))
     with torch.no_grad():
         auto = port(*args)
-        for m in port.modules():
-            if isinstance(m, CosineAttention):
-                m.fused = "off"
+        set_port_attention(port, "off")
         off = port(*args)
     torch.testing.assert_close(auto, off, atol=1e-5, rtol=1e-5)
 
@@ -105,16 +108,19 @@ def test_from_jax_variables_maps_every_leaf():
 
 
 def test_attention_options_raise():
-    """fused="block" is not ported; use_pallas at n >= 1024 runs the flash
-    route (held against the JAX module in test_torch_flash_attention.py)."""
-    with pytest.raises(NotImplementedError):
-        CosineAttention(64, 2, fused="block")
-    attn = CosineAttention(64, 2, use_pallas=True, fused="off")
-    attn.qkv_conv.weight.data.normal_(generator=torch.Generator().manual_seed(0))
-    attn.out_conv.weight.data.normal_(generator=torch.Generator().manual_seed(1))
-    x = torch.randn((1, 64, 32, 32), generator=torch.Generator().manual_seed(2))
-    out = attn(x)
-    assert out.shape == x.shape and torch.isfinite(out).all()
+    """fused="block" builds and runs (the whole-block route, held against
+    the JAX module in test_torch_attention_block.py); use_pallas at n >= 1024
+    runs the flash route (held against the JAX module in
+    test_torch_flash_attention.py); an unknown fused value raises."""
+    with pytest.raises(ValueError, match="fused must be"):
+        CosineAttention(64, 2, fused="on")
+    for kwargs, side in ((dict(fused="block"), 8), (dict(use_pallas=True, fused="off"), 32)):
+        attn = CosineAttention(64, 2, **kwargs)
+        attn.qkv_conv.weight.data.normal_(generator=torch.Generator().manual_seed(0))
+        attn.out_conv.weight.data.normal_(generator=torch.Generator().manual_seed(1))
+        x = torch.randn((1, 64, side, side), generator=torch.Generator().manual_seed(2))
+        out = attn(x)
+        assert out.shape == x.shape and torch.isfinite(out).all()
 
 
 def test_cifar10_attention_layers_per_forward():

@@ -1,31 +1,17 @@
 // Helpers shared by the attention kernels (cosine_attention_{fwd,bwd}.cu,
-// flash_attention_{fwd,bwd}.cu): type conversions with the rounding of the
-// tensor's type, plain and pixel-normalized row loads.
+// flash_attention_{fwd,bwd}.cu): plain and pixel-normalized row loads.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace cosine_attention {
 
+using tinyedm::from_float;
+using tinyedm::round_to;
+using tinyedm::to_float;
+
 constexpr int kThreads = 256;
 constexpr float kEps = 1e-4f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// the value a tensor of type T holds after storing x
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
 
 // Loads rows [row0, row0 + rows) of an (n, width) slab's channels
 // [col, col + hd) as fp32 into dst (row stride `stride`), zeros past n.
@@ -69,9 +55,3 @@ __device__ void load_normalized(const T* __restrict__ slab, int n, int row0, int
 }
 
 }  // namespace cosine_attention
-
-// the message of a cudaError_t that a launch function returned (each
-// library that includes this header defines it once)
-extern "C" const char* cosine_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

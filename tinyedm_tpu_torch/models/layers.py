@@ -18,7 +18,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from tinyedm_tpu_torch.ops.attention import flash_attention, xla_attention
-from tinyedm_tpu_torch.ops.fused_attention import MAX_FUSED_TOKENS, cosine_attention_qkv
+from tinyedm_tpu_torch.ops.fused_attention import (
+    MAX_FUSED_TOKENS,
+    attention_block,
+    block_kernel_fits,
+    cosine_attention_qkv,
+)
 from tinyedm_tpu_torch.ops.mp import mp_add, mp_silu, pixel_norm, weight_normalize
 
 
@@ -187,14 +192,20 @@ class CosineAttention(nn.Module):
     """Cosine self-attention over the H*W tokens, with a residual
     ``mp_add(x, out_conv(attention(qkv_conv(x))), 0.5)``.
 
-    The JAX module's order of branches: ``fused="auto"`` sends n <=
-    MAX_FUSED_TOKENS through ``cosine_attention_qkv`` (the fused CUDA kernels
-    on the card); otherwise q, k and v are pixel-normed over the head dim and
+    The JAX module's order of branches: ``fused="block"`` sends the whole
+    block, where ``block_kernel_fits(n, C, heads)`` says the JAX package's
+    block kernels fit, through ``attention_block`` (the block CUDA kernels on
+    the card: both convs, the attention and the residual), with the effective
+    weights as (in, out) matrices in the compute dtype. ``fused="auto"`` sends
+    n <= MAX_FUSED_TOKENS through ``cosine_attention_qkv`` (the fused CUDA
+    kernels on the card). Otherwise, and for a "block" layer whose kernels
+    do not fit, q, k and v are pixel-normed over the head dim and
     ``use_pallas`` sends them through ``flash_attention`` (the flash CUDA
     kernels at n >= 1024, ``xla_attention`` below), else through
     ``xla_attention``, the JAX package's XLA branch. ``fused="off"`` is kept
-    for parity checks. The 1x1 convs run as GEMMs on the (b, n, C) token
-    view, so the qkv tensor comes out (b, n, 3C) contiguous."""
+    for parity checks. Every route has the same parameters. The 1x1 convs run
+    as GEMMs on the (b, n, C) token view, so the qkv tensor comes out
+    (b, n, 3C) contiguous."""
 
     def __init__(
         self,
@@ -207,13 +218,8 @@ class CosineAttention(nn.Module):
         super().__init__()
         if channels % num_heads:
             raise ValueError(f"channels {channels} not divisible by num_heads {num_heads}")
-        if fused == "block":
-            raise NotImplementedError(
-                "fused='block' (the whole-block attention kernel) is not ported yet; "
-                "see ROADMAP.md section 2"
-            )
-        if fused not in ("auto", "off"):
-            raise ValueError(f"fused must be 'auto' or 'off', got {fused!r}")
+        if fused not in ("auto", "off", "block"):
+            raise ValueError(f"fused must be 'auto', 'off' or 'block', got {fused!r}")
         self.num_heads = num_heads
         self.dtype = dtype
         self.use_pallas = use_pallas
@@ -226,6 +232,11 @@ class CosineAttention(nn.Module):
         n = h * w
         x = x.to(self.dtype)
         tokens = x.flatten(2).transpose(1, 2)  # (b, n, C) view
+        if self.fused == "block" and block_kernel_fits(n, c, self.num_heads):
+            w_qkv = self.qkv_conv.effective_weight().to(self.dtype)[:, :, 0, 0].t()
+            w_out = self.out_conv.effective_weight().to(self.dtype)[:, :, 0, 0].t()
+            y = attention_block(tokens, w_qkv, w_out, self.num_heads)
+            return y.transpose(1, 2).reshape(b, c, h, w)
         w_qkv = self.qkv_conv.effective_weight().to(self.dtype)[:, :, 0, 0]
         qkv = torch.matmul(tokens, w_qkv.t())  # (b, n, 3C), contiguous
         if self.fused == "auto" and n <= MAX_FUSED_TOKENS:

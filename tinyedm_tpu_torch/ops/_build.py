@@ -76,5 +76,15 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
+        # csrc/common.cuh: every library exports it
+        lib.tinyedm_error_string.argtypes = [ctypes.c_int]
+        lib.tinyedm_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a launch function of ``lib`` returned a CUDA error."""
+    if err:
+        msg = lib.tinyedm_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")

@@ -30,7 +30,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from tinyedm_tpu_torch.ops._build import load_library
+from tinyedm_tpu_torch.ops._build import load_library, raise_on_error
 from tinyedm_tpu_torch.ops.mp import acc_dtype
 
 # below this token count the plain path runs (the JAX package's
@@ -116,8 +116,6 @@ def _library(name: str) -> ctypes.CDLL:
             i32, i32, i32, i32, i64, i64, i32, ctypes.c_float, ptr,
         ]
         lib.flash_attention_bwd.restype = i32
-    lib.cosine_attention_error_string.argtypes = [i32]
-    lib.cosine_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -145,12 +143,6 @@ def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return q, k, v, st[0], st[1]
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
-    if err:
-        msg = lib.cosine_attention_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-
-
 def flash_attention_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -167,7 +159,7 @@ def flash_attention_fwd_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stats.data_ptr(),
             b, n, heads, hd, sb, sn, int(q.dtype == torch.bfloat16), _scale(hd), stream,
         )
-    _raise_on(lib, err, "flash_attention_fwd")
+    raise_on_error(lib, err, "flash_attention_fwd")
     launch_counts["flash_fwd", n] += 1
     return out, stats
 
@@ -197,7 +189,7 @@ def flash_attention_bwd_cuda(
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, n, heads, hd, sb, sn, int(q.dtype == torch.bfloat16), _scale(hd), stream,
         )
-    _raise_on(lib, err, "flash_attention_bwd")
+    raise_on_error(lib, err, "flash_attention_bwd")
     launch_counts["flash_bwd", n] += 1
     return dq, dk, dv
 

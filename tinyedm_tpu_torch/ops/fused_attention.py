@@ -24,6 +24,15 @@ forward's own rounded output o, takes the deferred-normalization VJP
 the fp32 divisor UNROUNDED (unlike ``ops/mp.py``'s VJP, which uses the
 divisor rounded to the input dtype).
 
+The whole block (``attention_block``, the counterpart of the JAX package's
+``attention_block`` and of its kernels ``_attn_block_fwd_kernel`` and
+``_attn_block_bwd_kernel``) wraps that core in the block's two 1x1 convs as
+GEMMs and the ``mp_add(x, ., 0.5)`` residual: ``csrc/attention_block_fwd.cu``
+and ``csrc/attention_block_bwd.cu`` on the card, ``attention_block_plain``
+and ``attention_block_bwd_plain`` on the CPU. ``block_kernel_fits`` is the
+JAX package's VMEM byte model, copied so that a layer takes the same route
+in both packages; the CUDA kernels take any shape the wrappers accept.
+
 In fp64 (the gradient check) both directions compute in fp64 and every
 rounding site is exact.
 """
@@ -38,8 +47,8 @@ from collections import Counter
 import numpy as np
 import torch
 
-from tinyedm_tpu_torch.ops._build import load_library
-from tinyedm_tpu_torch.ops.mp import acc_dtype, pixel_norm
+from tinyedm_tpu_torch.ops._build import load_library, raise_on_error
+from tinyedm_tpu_torch.ops.mp import acc_dtype, in_dtype, mp_add, pixel_norm
 
 # Largest token count the fused path takes (the JAX package's bound). The
 # CUDA kernels have no such limit of their own; above it the model runs the
@@ -48,10 +57,11 @@ MAX_FUSED_TOKENS = 512
 MAX_HEAD_DIM = 256
 EPS = 1e-4  # pixel-norm epsilon
 
-# Kernel calls by direction and token count: ("fwd", n) and ("bwd", n). A
-# wrapper adds one where it launches its kernel and nowhere else (the
-# backward is two launches per call, counted once); chip_smoke.py reads these
-# counts to show the main path went through the kernels.
+# Kernel calls by kernel and token count: ("fwd", n) and ("bwd", n) for the
+# attention core, ("block_fwd", n) and ("block_bwd", n) for the whole block. A
+# wrapper adds one where it launches its kernel and nowhere else (a call of
+# several launches counts once); chip_smoke.py reads these counts to show the
+# main path went through the kernels.
 launch_counts: Counter = Counter()
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -148,7 +158,14 @@ def cosine_attention_qkv_bwd_plain(qkv: torch.Tensor, g: torch.Tensor, o: torch.
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = load_library(name)
-    if name == "cosine_attention_fwd":
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "attention_block_fwd":
+        lib.attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 3 + [ptr]
+        lib.attention_block_fwd.restype = i32
+    elif name == "attention_block_bwd":
+        lib.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32] * 3 + [ptr]
+        lib.attention_block_bwd.restype = i32
+    elif name == "cosine_attention_fwd":
         lib.cosine_attention_fwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -162,8 +179,6 @@ def _library(name: str) -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ]
         lib.cosine_attention_bwd.restype = ctypes.c_int
-    lib.cosine_attention_error_string.argtypes = [ctypes.c_int]
-    lib.cosine_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -180,12 +195,6 @@ def _check_launchable(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int,
     return b, n, c, hd
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
-    if err:
-        msg = lib.cosine_attention_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-
-
 def cosine_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Launch the forward kernel on ``torch.cuda.current_stream()``."""
     b, n, c, hd = _check_launchable(qkv, num_heads)
@@ -198,7 +207,7 @@ def cosine_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor
             qkv.data_ptr(), out.data_ptr(), b, n, num_heads, hd,
             int(qkv.dtype == torch.bfloat16), scale, stream,
         )
-    _raise_on(lib, err, "cosine_attention_fwd")
+    raise_on_error(lib, err, "cosine_attention_fwd")
     launch_counts["fwd", n] += 1
     return out
 
@@ -226,7 +235,7 @@ def cosine_attention_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, o: torch.T
             qkv.data_ptr(), g.data_ptr(), o.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
             b, n, num_heads, hd, int(qkv.dtype == torch.bfloat16), scale, sqrt_hd, stream,
         )
-    _raise_on(lib, err, "cosine_attention_bwd")
+    raise_on_error(lib, err, "cosine_attention_bwd")
     launch_counts["bwd", n] += 1
     return dqkv
 
@@ -261,3 +270,211 @@ def cosine_attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     A CPU tensor takes the plain versions; any other device launches the
     CUDA kernels or raises."""
     return _CosineAttentionQKV.apply(qkv, num_heads)
+
+
+# ---------------------------------------------------------------------------
+# The whole block: qkv GEMM -> cosine attention -> out GEMM -> mp_add residual
+# ---------------------------------------------------------------------------
+
+RES_T = 0.5  # CosineAttention's residual factor
+_BUDGET = 14 * 1024 * 1024  # the JAX package's VMEM budget of its block kernels
+
+
+def use_pair(heads: int, n: int) -> bool:
+    """The JAX package's choice of its head-pair kernels (small, aligned n)."""
+    return heads % 2 == 0 and n <= 128 and n % 8 == 0
+
+
+def _block_sample_bytes(n: int, channels: int, heads: int, bwd: bool, pair: bool) -> int:
+    """VMEM bytes of one sample in the JAX block kernels: IO, the qkv/y (and
+    gat/dqkv) scratches and the attention core's intermediates of all heads."""
+    c = channels
+    io = (4 if bwd else 2) * n * c * 2 * 2
+    scr = (2 * n * 4 * c + (2 * n * 4 * c if bwd else 0)) * 2
+    if pair:
+        iters = max(heads // 2, 1)
+        core = iters * ((4 if bwd else 2) * n * 2 * n * 4 + 2 * n * 2 * n * 2)
+    else:
+        core = heads * ((3 if bwd else 2) * n * n * 4 + (12 if bwd else 6) * n * (c // heads) * 4)
+    return io + scr + core
+
+
+def _block_fixed_bytes(c: int, bwd: bool) -> int:
+    """VMEM bytes resident across the JAX kernels' grid: the weights, and in
+    the backward the fp32 weight-gradient accumulators."""
+    fixed = 2 * c * 4 * c
+    if bwd:
+        fixed += 4 * (3 * c * c + c * c)
+    return fixed
+
+
+def _block_pair_scratch_bytes(bb: int, n: int, hd: int, pair: bool) -> int:
+    return 2 * bb * 2 * n * 2 * hd * 2 if pair else 0
+
+
+def block_kernel_fits(n: int, channels: int, heads: int) -> bool:
+    """The JAX package's ``block_kernel_fits``: whether its block kernels
+    (forward and backward) fit the TPU's VMEM budget at one sample. It picks
+    the route of ``CosineAttention(fused="block")`` in both packages; the
+    CUDA kernels have no such limit."""
+    pair = use_pair(heads, n)
+    hd = channels // heads
+    for bwd in (False, True):
+        per = _block_sample_bytes(n, channels, heads, bwd, pair)
+        scratch = _block_pair_scratch_bytes(1, n, hd, pair)
+        if per + scratch + _block_fixed_bytes(channels, bwd) > _BUDGET:
+            return False
+    return True
+
+
+def _residual_constants(dtype: torch.dtype) -> tuple[float, float, float]:
+    """(t, s, t * s) rounded to ``dtype``: mp_add's factor, its scale
+    ``1/sqrt((1-t)^2 + t^2)`` and the gradient of the output by ``out``."""
+    s = 1.0 / math.sqrt((1.0 - RES_T) ** 2 + RES_T**2)
+    return in_dtype(RES_T, dtype), in_dtype(s, dtype), in_dtype(RES_T * s, dtype)
+
+
+def _block_qkv_y(x: torch.Tensor, wqkv: torch.Tensor, num_heads: int):
+    acc = acc_dtype(x.dtype)
+    qkv = torch.matmul(x.to(acc), wqkv.to(acc)).to(x.dtype)
+    return qkv, cosine_attention_qkv_plain(qkv, num_heads)
+
+
+def attention_block_plain(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+                          num_heads: int) -> torch.Tensor:
+    """The block forward kernel's math in plain PyTorch: x (b, n, C),
+    effective weights wqkv (C, 3C) and wout (C, C) in x's dtype ->
+    ``mp_add(x, dtype(y @ wout), 0.5)`` with ``y`` the fused attention of
+    ``dtype(x @ wqkv)``, fp32 sums, the residual in x's dtype."""
+    _, y = _block_qkv_y(x, wqkv, num_heads)
+    acc = acc_dtype(x.dtype)
+    out = torch.matmul(y.to(acc), wout.to(acc)).to(x.dtype)
+    return mp_add(x, out, RES_T)
+
+
+def attention_block_bwd_plain(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+                              g: torch.Tensor, num_heads: int):
+    """The block backward kernel's math in plain PyTorch, with its rounding
+    sites: -> (dx in x's dtype, dwqkv and dwout in fp32, fp64 for fp64)."""
+    b, n, c = x.shape
+    dt, acc = x.dtype, acc_dtype(x.dtype)
+    qkv, y = _block_qkv_y(x, wqkv, num_heads)
+    gout = g * _residual_constants(dt)[2]
+    dwout = torch.matmul(y.reshape(b * n, c).to(acc).t(), gout.reshape(b * n, c).to(acc))
+    dy = torch.matmul(gout.to(acc), wout.to(acc).t()).to(dt)
+    dqkv = cosine_attention_qkv_bwd_plain(qkv, dy, y, num_heads)
+    dwqkv = torch.matmul(x.reshape(b * n, c).to(acc).t(), dqkv.reshape(b * n, 3 * c).to(acc))
+    dx = torch.matmul(dqkv.to(acc), wqkv.to(acc).t()).to(dt) + gout
+    return dx, dwqkv, dwout
+
+
+def _check_block(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+                 num_heads: int) -> tuple[int, int, int, int]:
+    if x.ndim != 3:
+        raise ValueError(f"x must be (b, n, C), got {tuple(x.shape)}")
+    b, n, c = x.shape
+    if num_heads < 1 or c % num_heads:
+        raise ValueError(f"channels {c} not divisible by num_heads {num_heads}")
+    if not x.is_cuda:
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {x.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernel takes bf16 or fp32, got {x.dtype}")
+    for name, w, shape in (("wqkv", wqkv, (c, 3 * c)), ("wout", wout, (c, c))):
+        if w.device != x.device or w.dtype != x.dtype or tuple(w.shape) != shape:
+            raise ValueError(f"{name} must be {shape} {x.dtype} on {x.device}, "
+                             f"got {tuple(w.shape)} {w.dtype} on {w.device}")
+    hd = c // num_heads
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
+    return b, n, c, hd
+
+
+def attention_block_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """Launch the block forward's three kernels on the current stream."""
+    b, n, c, hd = _check_block(x, wqkv, wout, num_heads)
+    x, wqkv, wout = x.contiguous(), wqkv.contiguous(), wout.contiguous()
+    lib = _library("attention_block_fwd")
+    qkv = torch.empty((b, n, 3 * c), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    t, s, _ = _residual_constants(x.dtype)
+    scale = float(np.float32(1.0 / math.sqrt(hd)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.attention_block_fwd(
+            x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), qkv.data_ptr(), y.data_ptr(),
+            out.data_ptr(), b, n, num_heads, hd, int(x.dtype == torch.bfloat16), scale, t, s,
+            stream,
+        )
+    raise_on_error(lib, err, "attention_block_fwd")
+    launch_counts["block_fwd", n] += 1
+    return out
+
+
+def attention_block_bwd_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+                             g: torch.Tensor, num_heads: int):
+    """Launch the block backward's kernels on the current stream: -> (dx,
+    dwqkv fp32, dwout fp32)."""
+    b, n, c, hd = _check_block(x, wqkv, wout, num_heads)
+    if g.device != x.device or g.dtype != x.dtype or g.shape != x.shape:
+        raise ValueError(f"g must be {tuple(x.shape)} {x.dtype} on {x.device}, "
+                         f"got {tuple(g.shape)} {g.dtype} on {g.device}")
+    x, wqkv, wout, g = x.contiguous(), wqkv.contiguous(), wout.contiguous(), g.contiguous()
+    lib = _library("attention_block_bwd")
+    # the weight gradients' split reduction: one fp32 partial per 1024 of the
+    # b * n rows, at most 64
+    splits = min(64, -(-b * n // 1024))
+    dev = x.device
+    dx = torch.empty_like(x)
+    dwqkv = torch.empty((c, 3 * c), dtype=torch.float32, device=dev)
+    dwout = torch.empty((c, c), dtype=torch.float32, device=dev)
+    qkv, dqkv = (torch.empty((b, n, 3 * c), dtype=x.dtype, device=dev) for _ in range(2))
+    y, dy = (torch.empty_like(x) for _ in range(2))
+    stats = torch.empty((2, b, num_heads, n), dtype=torch.float32, device=dev)
+    partials = torch.empty((splits, c, 3 * c), dtype=torch.float32, device=dev)
+    ts = _residual_constants(x.dtype)[2]
+    scale = float(np.float32(1.0 / math.sqrt(hd)))
+    sqrt_hd = float(np.float32(math.sqrt(hd)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.attention_block_bwd(
+            *(t.data_ptr() for t in (x, wqkv, wout, g, dx, dwqkv, dwout, qkv, y, dy, dqkv,
+                                     stats, partials)),
+            splits, b, n, num_heads, hd, int(x.dtype == torch.bfloat16), scale, sqrt_hd, ts,
+            stream,
+        )
+    raise_on_error(lib, err, "attention_block_bwd")
+    launch_counts["block_bwd", n] += 1
+    return dx, dwqkv, dwout
+
+
+class _AttentionBlock(torch.autograd.Function):
+    """``jax.custom_vjp`` of the JAX package's ``attention_block``: saves
+    ``(x, wqkv, wout)`` and recomputes the forward in the backward; the
+    weight gradients come back in the weights' dtype (``_ab_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, wout, num_heads: int):
+        fwd = attention_block_plain if x.device.type == "cpu" else attention_block_cuda
+        ctx.save_for_backward(x, wqkv, wout)
+        ctx.num_heads = num_heads
+        return fwd(x, wqkv, wout, num_heads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, wqkv, wout = ctx.saved_tensors
+        bwd = attention_block_bwd_plain if x.device.type == "cpu" else attention_block_bwd_cuda
+        dx, dwqkv, dwout = bwd(x, wqkv, wout, g, ctx.num_heads)
+        return dx, dwqkv.to(wqkv.dtype), dwout.to(wout.dtype), None
+
+
+def attention_block(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """The whole CosineAttention block ``mp_add(x, attn(x @ wqkv) @ wout,
+    0.5)`` on tokens x (b, n, C) with the effective weights wqkv (C, 3C) and
+    wout (C, C) in x's dtype; differentiable in all three.
+
+    A CPU tensor takes the plain versions; any other device launches the
+    CUDA kernels or raises."""
+    return _AttentionBlock.apply(x, wqkv, wout, num_heads)
