@@ -27,8 +27,13 @@ with a non-zero exit code:
    of 96 at n = 1024, of 48 at n = 4096) and at 4 heads of 64 (n = 1024,
    4096), batch 32 (the correctness check at n = 4096 at batch 8: the plain
    version holds (b, heads, n, n) fp32), with phase 3's and 4's limits, plus
-   odd shapes (n = 1 to 2000, hd = 20 to 256); times beside SDPA's and the
-   bound;
+   odd shapes (n = 1 to 2000, hd = 20 to 256; the views of one (b, n, 3,
+   heads, hd) tensor and, for the odd shapes, contiguous tensors too); times
+   beside SDPA's and the bound; at the two ImageNet-512 widths, as
+   earlier_ms, the bf16 CUDA-core forward that the tensor-core one replaced,
+   checked against the plain version and timed in the same run. bf16 runs
+   the forward's products on the tensor cores (mma.sync), fp32 on the CUDA
+   cores;
 6. flash layer check: CosineAttention(use_pallas=True) in bf16 at (32, 384,
    32, 32) and (8, 192, 64, 64), forward and backward against the same
    weights with use_pallas=False (output relative L2 <= 1e-2, input gradient
@@ -81,10 +86,17 @@ with a non-zero exit code:
     32x32, 16x16 and 8x8 at 256 -> 256, 32x32 at 4 -> 256), bf16 (relative
     L2 <= 1e-3 against the plain version, <= 2e-2 against the fp32 direct
     conv) and fp32 (atol = rtol = 2e-5 against both, TF32 off), plus odd
-    shapes; then winograd_conv3x3 once at each CIFAR-10 shape, the op's
-    path, one launch each; times beside the bound (the kernel's own
-    operations: the 16 component products and the fp32 transform adds; the
-    direct conv's count beside it), the plain version and F.conv2d.
+    shapes (tile counts, Ci and Co off the kernel's blocks; x a view at an
+    odd element offset); then
+    winograd_conv3x3 once at each CIFAR-10 shape, the op's path, one launch
+    each; times beside the bound (the kernel's own operations: the 16
+    component products and the fp32 transform adds; the direct conv's count
+    beside it), the plain version and F.conv2d; ms is the op (the wrapper's
+    U transform, then the kernel), kernel_ms the kernel alone, earlier_ms the
+    op on the CUDA-core kernel that the tensor-core kernel replaced, checked
+    against the plain version and timed in the same run. bf16 runs the
+    component products on the tensor cores (mma.sync), fp32 on the CUDA
+    cores.
 
 Then one JSON line of per-kernel numbers, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -130,7 +142,8 @@ TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 BWD_TOL = {"bfloat16": 1e-3, "float32": 1e-5}  # relative L2
 ODD_SHAPES = [(3, 1, 1, 64), (4, 56, 4, 64), (2, 300, 2, 32), (2, 97, 2, 128), (2, 65, 1, 256), (2, 33, 3, 20)]
 FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20),
-             (1, 1100, 3, 144), (1, 1030, 1, 192), (3, 1024, 1, 33)]
+             (1, 1100, 3, 144), (1, 1030, 1, 192), (3, 1024, 1, 33), (2, 1030, 2, 20),
+             (2, 1030, 2, 144)]
 KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "attention_block_fwd", "attention_block_bwd", "winograd_fwd")
 # the whole-block kernels at the CIFAR-10 attention widths: (batch, n) per
@@ -144,7 +157,8 @@ BLOCK_LAYERS = [(8, 256, 16), (8, 768, 8)]  # (batch, channels, side): compile_c
 # (batch, side, Ci, Co) of the CIFAR-10 model's 3x3 convs, and odd shapes
 # (batch, H, W, Ci, Co)
 WINO_SHAPES = [(128, 32, 256, 256), (128, 16, 256, 256), (128, 8, 256, 256), (128, 32, 4, 256)]
-WINO_ODD = [(2, 2, 2, 24, 3), (2, 6, 6, 3, 20), (1, 4, 8, 20, 24), (3, 6, 4, 24, 20)]
+WINO_ODD = [(2, 2, 2, 24, 3), (2, 6, 6, 3, 20), (1, 4, 8, 20, 24), (3, 6, 4, 24, 20),
+            (3, 10, 14, 40, 72)]
 WINO_REPLACES = "tinyedm_tpu/ops/winograd.py:73"
 LATENT_MEAN = (5.81, 3.25, 0.12, -2.15)  # experiments/conf/imagenet512.yaml:74-75
 LATENT_STD = (4.17, 4.62, 3.71, 3.28)
@@ -476,8 +490,14 @@ def phase_flash_kernels() -> list[dict]:
             io = b * n * HEADS * hd * q.element_size()
             fwd_bound, fwd_by = _bound(4 * io, 4 * b * HEADS * n * n * hd, name)
             bwd_bound, bwd_by = _bound(7 * io, 10 * b * HEADS * n * n * hd, name)
+            earlier, was = None, ""
+            if (n, hd) in ((1024, 96), (4096, 48)):  # the CUDA-core kernel that the tensor cores replaced
+                cc_err = _check(fl._flash_fwd(q, k, v, cuda_cores=True)[0], fl.flash_attention_plain(q, k, v),
+                                name, f"flash fwd CUDA-core b={b} n={n} hd={hd}")
+                earlier = time_ms(lambda: fl._flash_fwd(q, k, v, cuda_cores=True), iters=1, reps=3)
+                was = f" (CUDA-core kernel: {earlier:.4f} ms, max_abs {cc_err:.3g})"
             print(f"[5 flash vs plain] b={b} n={n} heads={HEADS} hd={hd} {name}: forward kernel "
-                  f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound "
+                  f"{fwd_ms:.4f} ms{was}, plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound "
                   f"{fwd_bound:.4f} ms ({fwd_by}); backward kernel {bwd_ms:.4f} ms, plain "
                   f"{bwd_plain:.4f} ms, sdpa bwd {bwd_sdpa:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by})",
                   flush=True)
@@ -486,18 +506,21 @@ def phase_flash_kernels() -> list[dict]:
                     ("fwd", fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_sdpa),
                     ("bwd", bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_by, bwd_sdpa),
                 ):
+                    extra = {"earlier_ms": earlier} if d == "fwd" else {}
                     entries.append(_entry(
                         f"flash_attention_{d}[b={b} n={n} hd={hd}]", f"flash_attention_{d}.cu",
-                        FLASH_REPLACES[d], err, ms, plain_ms, bound_ms, bound_by, lib_ms, n=n))
+                        FLASH_REPLACES[d], err, ms, plain_ms, bound_ms, bound_by, lib_ms, n=n, **extra))
             del q, k, v, g, out, stats
             torch.cuda.empty_cache()
     for b, n, heads, hd in FLASH_ODD:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
-            _check_flash(*_flash_inputs(b, n, heads, hd, dtype, seed=b * n + hd), name,
-                         f"b={b} n={n} heads={heads} hd={hd} {name}")
+            q, k, v, g = _flash_inputs(b, n, heads, hd, dtype, seed=b * n + hd)
+            for layout, (qq, kk, vv) in (("views", (q, k, v)),
+                                         ("contiguous", (t.contiguous() for t in (q, k, v)))):
+                _check_flash(qq, kk, vv, g, name, f"b={b} n={n} heads={heads} hd={hd} {name} {layout}")
     print(f"[5 flash vs plain] odd shapes (n = 1, 1024, 1025, 1030, 1100, 2000; hd = 20, 33, 48, 64, "
-          f"144, 192, 256): ok", flush=True)
+          f"144, 192, 256; qkv views and contiguous): ok", flush=True)
     return entries
 
 
@@ -1014,7 +1037,15 @@ def phase_winograd() -> list[dict]:
                 print(f"[17 winograd] b={b} {side}x{side} {ci}->{co} {name}: max_abs to plain {err:.3g}; "
                       f"matches plain and F.conv2d within 2e-5", flush=True)
                 continue
-            ms = time_ms(lambda: wg.winograd_conv3x3_cuda(x, w), iters=5, reps=3)
+            # the op (U transform, then the kernel), the kernel alone, and the
+            # op on the CUDA-core kernel that the tensor-core kernel replaced
+            u = wg._transformed(w, dtype)
+            cc_rel = rel_l2(wg._launch(x, u, cuda_cores=True), wg.winograd_conv3x3_plain(x, w))
+            if not cc_rel <= 1e-3:
+                fail(f"winograd CUDA-core b={b} {side}x{side} {ci}->{co}: rel L2 {cc_rel} to plain (<= 1e-3)")
+            ms = time_ms(lambda: wg.winograd_conv3x3_cuda(x, w), iters=10, reps=3)
+            kernel_ms = time_ms(lambda: wg._launch(x, u), iters=10, reps=3)
+            earlier_ms = time_ms(lambda: wg._launch(x, wg._transformed(w, dtype), cuda_cores=True), iters=3, reps=3)
             plain_ms = time_ms(lambda: wg.winograd_conv3x3_plain(x, w), iters=3, reps=3)
             library_ms = time_ms(lambda: _direct_conv(x, w), iters=10, reps=3)
             tiles = b * (side // 2) ** 2
@@ -1024,16 +1055,18 @@ def phase_winograd() -> list[dict]:
             bound_ms, bound_by = _bound(nbytes, flops, name, adds)
             direct_flops = 2 * b * side * side * 9 * ci * co  # the direct conv's, as winograd.py:184
             direct_ms, _ = _bound(nbytes, direct_flops, name)
-            print(f"[17 winograd] b={b} {side}x{side} {ci}->{co} {name}: max_abs to plain {err:.3g} | kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            print(f"[17 winograd] b={b} {side}x{side} {ci}->{co} {name}: max_abs to plain {err:.3g} | op (U "
+                  f"transform and kernel) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms; on the CUDA-core kernel "
+                  f"{earlier_ms:.4f} ms (rel L2 to plain {cc_rel:.3g}); plain {plain_ms:.4f} ms, F.conv2d "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of products, "
                   f"{adds / 1e9:.3f} G fp32 transform adds); the direct conv's {direct_flops / 1e9:.2f} GFLOP "
                   f"would bound it at {direct_ms:.4f} ms", flush=True)
             entries.append(_entry(
                 f"winograd_fwd[b={b} {side}x{side} {ci}->{co}]", "winograd_fwd.cu", WINO_REPLACES, err, ms,
                 plain_ms, bound_ms, bound_by, library_ms, key=("winograd", side, side, ci, co),
-                bound_ms_direct_conv=direct_ms))
-            del x, w
+                bound_ms_direct_conv=direct_ms, kernel_ms=kernel_ms, earlier_ms=earlier_ms))
+            del x, w, u
     worst = {}
     for b, h, w_, ci, co in WINO_ODD:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1041,7 +1074,13 @@ def phase_winograd() -> list[dict]:
             err = _check_wino(*_wino_inputs(b, h, w_, ci, co, dtype, seed=h * w_ + ci), name,
                               f"b={b} {h}x{w_} {ci}->{co} {name}")
             worst[name] = max(worst.get(name, 0.0), err)
-    print(f"[17 winograd] odd shapes (2x2, 6x6, 4x8, 6x4; Ci/Co 3, 20, 24): ok; largest max_abs to plain "
+    # x one element into its storage: not 16-byte aligned, so element loads
+    x, w = _wino_inputs(3, 10, 14, 40, 72, torch.bfloat16, seed=5)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:].copy_(x.reshape(-1))
+    _check_wino(flat[1:].view(x.shape), w, "bfloat16", "b=3 10x14 40->72 bfloat16, x at an odd offset")
+    print(f"[17 winograd] odd shapes (2x2, 6x6, 4x8, 6x4, 10x14; Ci/Co 3, 20, 24, 40, 72; x at an odd offset): ok; "
+          f"largest max_abs to plain "
           f"bf16 {worst['bfloat16']:.3g}, fp32 {worst['float32']:.3g}", flush=True)
     # the op's path: one call per CIFAR-10 conv shape, bf16
     inputs = [_wino_inputs(b, side, side, ci, co, torch.bfloat16, seed=7) for b, side, ci, co in WINO_SHAPES]

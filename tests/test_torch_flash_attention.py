@@ -8,7 +8,10 @@ at the JAX tests' tolerances (``tests/test_attention_kernel.py``): fp32 rtol
 2e-4, atol 2e-5; bf16 rtol 0.05, atol 0.02; gradients fp32 rtol 1e-3, atol
 1e-4, and in bf16 at (1, 1024, 1, 64) a median relative error < 2e-2
 against the fp32-input reference. (1, 1100, 2, 64) has tail rows past a
-multiple of every tile. ``CosineAttention(use_pallas=True)`` at 32x32
+multiple of every tile; (1, 1030, 2, 20) and (1, 1030, 2, 144) are the
+bf16 CUDA kernel's edges (head dims padded to 32 and 192, element loads at
+hd 20), held here against JAX and on the card against the plain version.
+``CosineAttention(use_pallas=True)`` at 32x32
 (n = 1024) reaches the JAX flash kernel in interpret mode on the CPU and the
 port's flash Function.
 
@@ -40,6 +43,10 @@ SHAPES = [
     ((1, 64, 2, 64), torch.bfloat16),
     ((1, 1100, 2, 64), torch.float32),
     ((1, 1100, 2, 64), torch.bfloat16),
+    # the bf16 kernel's edges, run on the card by test_cuda_kernels_match_plain:
+    # hd 20 (element loads, padded to 32) and 144 (padded to 192), n = 1030
+    ((1, 1030, 2, 20), torch.bfloat16),
+    ((1, 1030, 2, 144), torch.bfloat16),
 ]
 
 
@@ -168,15 +175,22 @@ def test_cosine_attention_flash_route_matches_jax(channels, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("views", [False, True], ids=["contiguous", "qkv_views"])
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 1024, 4, 96), torch.bfloat16), ((2, 1024, 4, 96), torch.float32),
     ((1, 1100, 2, 64), torch.bfloat16), ((2, 1, 1, 256), torch.float32),
+    ((1, 1030, 2, 20), torch.bfloat16), ((1, 1030, 2, 144), torch.bfloat16),
 ])
-def test_cuda_kernels_match_plain(shape, dtype):
+def test_cuda_kernels_match_plain(shape, dtype, views):
+    """The kernels against the plain versions, on contiguous q, k, v and on
+    the views of one (b, n, 3, heads, hd) tensor, as the layer hands them
+    over."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     (q, k, v, g), _ = _inputs(shape, dtype, seed=8, count=4)
     q, k, v, g = (t.cuda() for t in (q, k, v, g))
+    if views:
+        q, k, v = torch.stack((q, k, v), dim=2).unbind(2)
     before = fl.launch_counts["flash_fwd", shape[1]], fl.launch_counts["flash_bwd", shape[1]]
     out, stats = fl.flash_attention_fwd_cuda(q, k, v)
     grads = fl.flash_attention_bwd_cuda(q, k, v, g, stats)
@@ -189,3 +203,16 @@ def test_cuda_kernels_match_plain(shape, dtype):
     for got, want in zip(grads, fl.flash_attention_bwd_plain(q, k, v, g)):
         err = float((got.double() - want.double()).norm() / want.double().norm().clamp(min=1e-30))
         assert err <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_core_forward_matches_plain():
+    """The bf16 CUDA-core forward, which ``chip_smoke.py`` times beside the
+    tensor-core one, computes the same function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    (q, k, v), _ = _inputs((2, 1030, 2, 48), torch.bfloat16, seed=9)
+    q, k, v = (t.cuda() for t in (q, k, v))
+    out, _ = fl._flash_fwd(q, k, v, cuda_cores=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), fl.flash_attention_plain(q, k, v).float(), atol=8e-3, rtol=0)

@@ -10,7 +10,10 @@ and every bf16 product exact in fp32). ``transform_weights`` equals the JAX
 function bit for bit, and the plain version agrees with ``F.conv2d`` in fp32
 at the JAX test's 2e-5. The CUDA kernel needs the card; on it
 ``chip_smoke.py`` holds it against the plain version at the CIFAR-10 conv
-shapes.
+shapes. The kernel's edges (105 tiles, Ci 40 and Co 72, none a multiple
+of the bf16 kernel's 32-tile x 64-channel block or its 16-channel chunk)
+are checked both ways: the plain version against JAX here, the kernel
+against the plain version on the card.
 """
 
 from __future__ import annotations
@@ -31,6 +34,10 @@ CASES = [
     ((1, 16, 16, 8), 8, torch.float32),
     ((3, 4, 4, 4), 12, torch.float32),
     ((2, 8, 8, 16), 16, torch.bfloat16),
+    # the CUDA kernel's edges (a tile count, Ci and Co off its block tile),
+    # run on the card by test_cuda_kernel_matches_plain
+    ((3, 10, 14, 40), 72, torch.bfloat16),
+    ((3, 10, 14, 40), 72, torch.float32),
 ]
 
 
@@ -93,11 +100,23 @@ def test_wrapper_never_falls_back():
     assert dict(wg.launch_counts) == before
 
 
+def test_launch_rejects_mismatched_weights():
+    """The launch checks U against x before it touches the card."""
+    x = torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16)
+    for u in (torch.zeros((16, 5, 4), dtype=torch.bfloat16), torch.zeros((4, 4, 4, 4), dtype=torch.bfloat16),
+              torch.zeros((16, 4, 4))):
+        with pytest.raises(ValueError, match="u must be"):
+            wg._launch(x, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        wg._launch(x, torch.zeros((16, 4, 4), dtype=torch.bfloat16))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,co,dtype", [
     ((8, 32, 32, 256), 256, torch.bfloat16), ((8, 32, 32, 4), 256, torch.bfloat16),
     ((4, 8, 8, 256), 256, torch.float32), ((2, 6, 6, 3), 20, torch.float32),
-    ((1, 4, 8, 20), 24, torch.bfloat16),
+    ((1, 4, 8, 20), 24, torch.bfloat16), ((3, 10, 14, 40), 72, torch.bfloat16),
+    ((3, 10, 14, 40), 72, torch.float32),
 ])
 def test_cuda_kernel_matches_plain(shape, co, dtype):
     if not torch.cuda.is_available():
@@ -114,3 +133,22 @@ def test_cuda_kernel_matches_plain(shape, co, dtype):
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
     else:
         assert rel_l2(out.float().cpu().numpy(), ref.float().cpu().numpy()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuda_cores", [False, True], ids=["tensor_cores", "cuda_cores"])
+def test_cuda_kernel_offset_input(cuda_cores):
+    """x a contiguous view one element into its storage (not 16-byte
+    aligned), on both bf16 kernels; the CUDA-core one is what
+    ``chip_smoke.py`` times beside the tensor-core one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    shape, co = (2, 8, 10, 32), 40
+    x, w, _, _ = _inputs(shape, co, torch.bfloat16, seed=3)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    xo = flat[1:].view(shape)
+    xo.copy_(x)
+    out = wg._launch(xo, wg._transformed(w.cuda(), x.dtype), cuda_cores=cuda_cores)
+    torch.cuda.synchronize()
+    ref = wg.winograd_conv3x3_plain(x, w)
+    assert rel_l2(out.float().cpu().numpy(), ref.float().numpy()) <= 1e-3
