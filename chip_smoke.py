@@ -14,13 +14,17 @@ with a non-zero exit code:
    against its plain PyTorch version at the sampling paths' shapes (CIFAR-10
    at batch 128, 4 heads of 64; ImageNet-512 at batch 32, 4 heads of 144 at
    n = 256 and of 192 at n = 64), bf16 (max abs <= 8e-3) and fp32 (atol =
-   rtol = 1e-5), plus odd shapes; times of the kernel, the plain version and
-   one PyTorch library call, beside the card's bound;
+   rtol = 1e-5), plus odd shapes (hd 20 to 256, among them 144 and 192 at
+   n = 33 and 65); times of the kernel, the plain version and one PyTorch
+   library call, beside the card's bound; as earlier_ms, the bf16 CUDA-core
+   kernel that the tensor-core one replaced, checked against the plain
+   version and timed in the same run. bf16 runs the products on the tensor
+   cores (mma.sync), fp32 on the CUDA cores;
 4. fused backward kernel vs plain: the same for the backward kernel at the
    training paths' shapes (CIFAR-10 batch 256, the ImageNet-512 microbatch of
    32), bf16 (relative L2 <= 1e-3) and fp32 (relative L2 <= 1e-5), plus odd
-   shapes; the forward kernel against its plain version again at these
-   shapes, with phase 3's limits;
+   shapes, with earlier_ms as in phase 3; the forward kernel against its
+   plain version again at these shapes, with phase 3's limits;
 5. flash kernels vs plain: the flash forward and backward kernels (the
    use_pallas_attention route) against flash_attention_plain and its
    backward at the ImageNet-512 widths above its attention levels (4 heads
@@ -140,7 +144,12 @@ FLASH_LAYERS = [(32, 384, 32), (8, 192, 64)]  # (batch, channels, side)
 FLASH_REPLACES = {"fwd": "tinyedm_tpu/ops/attention.py:38", "bwd": "tinyedm_tpu/ops/attention.py:144"}
 TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 BWD_TOL = {"bfloat16": 1e-3, "float32": 1e-5}  # relative L2
-ODD_SHAPES = [(3, 1, 1, 64), (4, 56, 4, 64), (2, 300, 2, 32), (2, 97, 2, 128), (2, 65, 1, 256), (2, 33, 3, 20)]
+# (batch, n, heads, hd): every head-dim bucket, ragged token counts (tails of
+# every tile), n = 1, the ImageNet-512 head dims 144 and 192 at n = 33 and
+# 65, and n = 300 at hd 256 (several key chunks per block)
+ODD_SHAPES = [(3, 1, 1, 64), (4, 56, 4, 64), (2, 300, 2, 32), (2, 97, 2, 128), (2, 65, 1, 256), (2, 33, 3, 20),
+              (2, 33, 2, 144), (2, 65, 2, 144), (2, 33, 2, 192), (2, 65, 2, 192), (2, 300, 1, 256)]
+ODD_NOTE = "n = 1, 33, 56, 65, 97, 300; hd = 20, 32, 64, 128, 144, 192, 256"
 FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20),
              (1, 1100, 3, 144), (1, 1030, 1, 192), (3, 1024, 1, 33), (2, 1030, 2, 20),
              (2, 1030, 2, 144)]
@@ -311,15 +320,21 @@ def phase_kernel_vs_plain() -> list[dict]:
             nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
             flops = 4 * b * HEADS * n * n * hd
             bound_ms, bound_by = _bound(nbytes, flops, name)
+            earlier, was = None, ""
+            if dtype == torch.bfloat16:  # the CUDA-core kernel that the tensor cores replaced
+                cc_err = _check(fa._fwd(qkv, HEADS, cuda_cores=True), ref, name,
+                                f"CUDA-core {config} n={n} hd={hd} {name}")
+                earlier = time_ms(lambda: fa._fwd(qkv, HEADS, cuda_cores=True), iters=5, reps=3)
+                was = f" (CUDA-core kernel {earlier:.4f} ms, max_abs {cc_err:.3g})"
             print(f"[3 fwd kernel vs plain] cosine_attention_fwd {config} b={b} n={n} C={c} "
-                  f"heads={HEADS} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms, plain "
+                  f"heads={HEADS} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms{was}, plain "
                   f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
             if dtype == torch.bfloat16:  # the main path's type
                 entries.append(_entry(
                     f"cosine_attention_fwd[{config} n={n} hd={hd}]", "cosine_attention_fwd.cu",
                     replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
-                    config=config, n=n))
+                    earlier_ms=earlier, config=config, n=n))
     # every head-dim bucket, ragged token counts (tails of both tiles), n=1
     for b, n, heads, hd in ODD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -328,8 +343,7 @@ def phase_kernel_vs_plain() -> list[dict]:
             out = fa.cosine_attention_qkv_cuda(qkv, heads)
             torch.cuda.synchronize()
             _check(out, fa.cosine_attention_qkv_plain(qkv, heads), name, f"b={b} n={n} hd={hd} {name}")
-    print("[3 fwd kernel vs plain] odd shapes (n = 1, 33, 56, 65, 97, 300; hd = 20, 32, 64, 128, 256): ok",
-          flush=True)
+    print(f"[3 fwd kernel vs plain] odd shapes ({ODD_NOTE}): ok", flush=True)
     return entries
 
 
@@ -394,8 +408,16 @@ def phase_bwd_kernel_vs_plain() -> list[dict]:
             nbytes = 8 * b * n * c * qkv.element_size()
             flops = 10 * b * HEADS * n * n * hd
             bound_ms, bound_by = _bound(nbytes, flops, name)
+            earlier, was = None, ""
+            if dtype == torch.bfloat16:  # the CUDA-core kernels that the tensor cores replaced
+                ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, HEADS)
+                _, cc_rel = _check_bwd(fa._bwd(qkv, g, o, HEADS, cuda_cores=True), ref, name,
+                                       f"CUDA-core bwd {config} n={n} {name}")
+                del ref
+                earlier = time_ms(lambda: fa._bwd(qkv, g, o, HEADS, cuda_cores=True), iters=3, reps=3)
+                was = f" (CUDA-core kernels {earlier:.4f} ms, rel_l2 {cc_rel:.3g})"
             print(f"[4 bwd kernel vs plain] cosine_attention_bwd {config} b={b} n={n} C={c} "
-                  f"heads={HEADS} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms, "
+                  f"heads={HEADS} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms{was}, "
                   f"plain {plain_ms:.4f} ms, sdpa bwd {library_ms:.4f} ms ({both_ms:.4f} - "
                   f"{sdpa_fwd_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP); forward kernel vs plain max_abs {fwd_err:.3g}", flush=True)
@@ -408,7 +430,7 @@ def phase_bwd_kernel_vs_plain() -> list[dict]:
                 entries.append(_entry(
                     f"cosine_attention_bwd[{config} n={n} hd={hd}]", "cosine_attention_bwd.cu",
                     replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
-                    config=config, n=n))
+                    earlier_ms=earlier, config=config, n=n))
     for b, n, heads, hd in ODD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
@@ -419,8 +441,7 @@ def phase_bwd_kernel_vs_plain() -> list[dict]:
             torch.cuda.synchronize()
             _check_bwd(out, fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads), name,
                        f"bwd b={b} n={n} hd={hd} {name}")
-    print("[4 bwd kernel vs plain] odd shapes (n = 1, 33, 56, 65, 97, 300; hd = 20, 32, 64, 128, 256): ok",
-          flush=True)
+    print(f"[4 bwd kernel vs plain] odd shapes ({ODD_NOTE}): ok", flush=True)
     return entries
 
 

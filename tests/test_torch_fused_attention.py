@@ -34,8 +34,8 @@ CASES = [
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
-def _qkv(n, heads, dtype, b=2, seed=0):
-    c = 64 * heads
+def _qkv(n, heads, dtype, b=2, seed=0, hd=64):
+    c = hd * heads
     x = (np.random.default_rng(seed).standard_normal((b, n, 3 * c)) * 0.7).astype(np.float32)
     return torch.from_numpy(x).to(dtype), jnp.asarray(x).astype(JAX_DTYPES[dtype])
 
@@ -93,3 +93,20 @@ def test_cuda_kernel_matches_plain(n, heads, dtype):
     ref = fa.cosine_attention_qkv_plain(t, heads)
     tol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuda_cores", [False, True], ids=["tensor_cores", "cuda_cores"])
+@pytest.mark.parametrize("n,hd", [(33, 144), (65, 144), (33, 192), (65, 192), (300, 256)])
+def test_cuda_kernel_ragged_head_dims(n, hd, cuda_cores):
+    """The ImageNet-512 head dims (144, 192) at ragged token counts, and
+    several key chunks per block (n 300 at hd 256), bf16: the tensor-core
+    kernel and the CUDA-core one it replaced (chip_smoke.py times both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    t, _ = _qkv(n, 2, torch.bfloat16, hd=hd)
+    t = t.cuda()
+    out = fa._fwd(t, 2, cuda_cores=cuda_cores)
+    torch.cuda.synchronize()
+    ref = fa.cosine_attention_qkv_plain(t, 2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=8e-3, rtol=8e-3)

@@ -1,8 +1,9 @@
 // Tensor-core building blocks for the bf16 kernels of csrc/ (Hopper, sm_90a):
 // the warp-level bf16 product mma.sync.m16n8k16 with fp32 sums, ldmatrix
 // loaders of its operand fragments from bf16 shared memory, and 16-byte
-// cp.async staging from device memory. Used by winograd_fwd.cu and
-// flash_attention_fwd.cu.
+// cp.async staging from device memory. Used by winograd_fwd.cu,
+// flash_attention_fwd.cu and the bf16 fused cosine attention
+// (cosine_attention_{fwd,bwd}.cuh).
 //
 // Fragments of one m16n8k16 product D (16 x 8) += A (16 x 16) B (16 x 8),
 // for lane l of the warp, g = l / 4, t = l % 4 (PTX ISA, "mma.m16n8k16"):

@@ -123,7 +123,9 @@ class ScaleLong(nn.Module):
 
 
 class ClassEmbedding(nn.Module):
-    """One-hot class embedding scaled by sqrt(num_classes); fp32."""
+    """One-hot class embedding scaled by sqrt(num_classes); fp32. A label
+    outside ``[0, num_classes)``, such as the null label -1 of guidance and
+    label dropout, gives a zero row, as ``jax.nn.one_hot`` does."""
 
     def __init__(self, num_classes: int, embedding_dim: int):
         super().__init__()
@@ -131,7 +133,8 @@ class ClassEmbedding(nn.Module):
         self.linear = WNLinear(num_classes, embedding_dim)
 
     def forward(self, labels: torch.Tensor) -> torch.Tensor:
-        onehot = F.one_hot(labels.reshape(-1).long(), self.num_classes).float()
+        classes = torch.arange(self.num_classes, device=labels.device)
+        onehot = (labels.reshape(-1, 1).long() == classes).float()
         return self.linear(onehot * math.sqrt(self.num_classes))
 
 

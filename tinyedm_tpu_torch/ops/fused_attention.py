@@ -166,19 +166,11 @@ def _library(name: str) -> ctypes.CDLL:
         lib.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32] * 3 + [ptr]
         lib.attention_block_bwd.restype = i32
     elif name == "cosine_attention_fwd":
-        lib.cosine_attention_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.cosine_attention_fwd.restype = ctypes.c_int
+        lib.cosine_attention_fwd.argtypes = [ptr] * 2 + [i32] * 6 + [f32, ptr]
+        lib.cosine_attention_fwd.restype = i32
     else:
-        lib.cosine_attention_bwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.cosine_attention_bwd.restype = ctypes.c_int
+        lib.cosine_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32] * 2 + [ptr]
+        lib.cosine_attention_bwd.restype = i32
     return lib
 
 
@@ -197,6 +189,13 @@ def _check_launchable(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int,
 
 def cosine_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Launch the forward kernel on ``torch.cuda.current_stream()``."""
+    return _fwd(qkv, num_heads)
+
+
+def _fwd(qkv: torch.Tensor, num_heads: int, cuda_cores: bool = False) -> torch.Tensor:
+    """``cosine_attention_qkv_cuda``; ``cuda_cores`` runs bf16 on the
+    CUDA-core kernel that the tensor-core kernel replaced (chip_smoke.py
+    times the two in one run)."""
     b, n, c, hd = _check_launchable(qkv, num_heads)
     lib = _library("cosine_attention_fwd")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
@@ -205,7 +204,7 @@ def cosine_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor
     with torch.cuda.device(qkv.device):
         err = lib.cosine_attention_fwd(
             qkv.data_ptr(), out.data_ptr(), b, n, num_heads, hd,
-            int(qkv.dtype == torch.bfloat16), scale, stream,
+            int(qkv.dtype == torch.bfloat16), int(cuda_cores), scale, stream,
         )
     raise_on_error(lib, err, "cosine_attention_fwd")
     launch_counts["fwd", n] += 1
@@ -216,6 +215,12 @@ def cosine_attention_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, o: torch.T
                                   num_heads: int) -> torch.Tensor:
     """Launch the backward kernel's two passes on ``torch.cuda.current_stream()``.
     ``g`` may arrive non-contiguous (the out-projection's transpose)."""
+    return _bwd(qkv, g, o, num_heads)
+
+
+def _bwd(qkv: torch.Tensor, g: torch.Tensor, o: torch.Tensor, num_heads: int,
+         cuda_cores: bool = False) -> torch.Tensor:
+    """``cosine_attention_qkv_bwd_cuda``; ``cuda_cores`` as in ``_fwd``."""
     b, n, c, hd = _check_launchable(qkv, num_heads)
     for name, t in (("g", g), ("o", o)):
         if t.device != qkv.device or t.dtype != qkv.dtype or tuple(t.shape) != (b, n, c):
@@ -233,7 +238,8 @@ def cosine_attention_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, o: torch.T
     with torch.cuda.device(qkv.device):
         err = lib.cosine_attention_bwd(
             qkv.data_ptr(), g.data_ptr(), o.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            b, n, num_heads, hd, int(qkv.dtype == torch.bfloat16), scale, sqrt_hd, stream,
+            b, n, num_heads, hd, int(qkv.dtype == torch.bfloat16), int(cuda_cores), scale, sqrt_hd,
+            stream,
         )
     raise_on_error(lib, err, "cosine_attention_bwd")
     launch_counts["bwd", n] += 1
