@@ -9,7 +9,8 @@ with a non-zero exit code:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: nvcc builds every CUDA kernel of the paths from the sources in
    tinyedm_tpu_torch/csrc (into tinyedm_tpu_torch/build/), one nvcc per
-   source, all started together;
+   source, all started together; ptxas's registers and spills, per kernel
+   for the flash and block backward libraries, as a range elsewhere;
 3. fused forward kernel vs plain: the cosine-attention forward kernel
    against its plain PyTorch version at the sampling paths' shapes (CIFAR-10
    at batch 128, 4 heads of 64; ImageNet-512 at batch 32, 4 heads of 144 at
@@ -34,10 +35,11 @@ with a non-zero exit code:
    odd shapes (n = 1 to 2000, hd = 20 to 256; the views of one (b, n, 3,
    heads, hd) tensor and, for the odd shapes, contiguous tensors too); times
    beside SDPA's and the bound; at the two ImageNet-512 widths, as
-   earlier_ms, the bf16 CUDA-core forward that the tensor-core one replaced,
-   checked against the plain version and timed in the same run. bf16 runs
-   the forward's products on the tensor cores (mma.sync), fp32 on the CUDA
-   cores;
+   earlier_ms, the bf16 CUDA-core forward and backward that the tensor-core
+   ones replaced, checked against the plain versions and timed in the same
+   run. bf16 at n >= 2 runs the products on the tensor cores (mma.sync):
+   the forward's q k^T and PV, the backward's S, dP, dq, dk and dv (p and
+   ds as hi + lo bf16 pairs); fp32, and bf16 at n = 1, on the CUDA cores;
 6. flash layer check: CosineAttention(use_pallas=True) in bf16 at (32, 384,
    32, 32) and (8, 192, 64, 64), forward and backward against the same
    weights with use_pallas=False (output relative L2 <= 1e-2, input gradient
@@ -71,10 +73,15 @@ with a non-zero exit code:
     batch 128 forward, 256 backward), bf16 (forward relative L2 <= 1e-3 and
     every element within three bf16 ulps, 2.4e-2 of max(1, |ref|); dx, dWqkv
     and dWout relative L2 <= 1e-3) and fp32 (forward atol = rtol = 1e-5,
-    backward relative L2 <= 1e-5), plus odd shapes (n = 1, 49, 300; heads
-    1 and 3; C = 192 and 768 at head dim 192); times beside the bound, the
-    plain versions and the split route (cuBLAS GEMMs around the fused
-    kernels of phases 3-4);
+    backward relative L2 <= 1e-5), plus odd shapes (n = 1, 49, 50, 300;
+    heads 1 and 3; C = 192 and 768 at head dim 192, C = 20); times beside
+    the bound, the plain versions and the split route (cuBLAS GEMMs around
+    the fused kernels of phases 3-4); for the backward, as earlier_ms, its
+    bf16 GEMMs on the CUDA cores (the GEMM the tensor-core one replaced),
+    checked against the plain version and timed in the same run. bf16 runs the
+    attention cores (phases 3-4's kernels) on mma.sync in both directions
+    and the backward's five GEMMs (qkv, dy, dx, dWout, dWqkv) too; the
+    forward's two GEMMs, and fp32, stay on the CUDA cores;
 14. block layer check: CosineAttention(fused="block") in bf16 at
     (8, 256, 16, 16) and (8, 768, 8, 8), forward and backward against
     fused="off" with the same weights (output relative L2 <= 1e-2, input
@@ -111,6 +118,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -155,13 +163,16 @@ FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20
              (2, 1030, 2, 144)]
 KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "attention_block_fwd", "attention_block_bwd", "winograd_fwd")
+PTXAS_DETAIL = ("flash_attention_bwd", "attention_block_bwd")  # ptxas -v per kernel in phase 2
 # the whole-block kernels at the CIFAR-10 attention widths: (batch, n) per
 # direction, the sampling batch forward and the training batch backward
 BLOCK_C = 256
 BLOCK_SHAPES = [("fwd", 128, 256), ("fwd", 128, 64), ("bwd", 256, 256), ("bwd", 256, 64)]
 BLOCK_REPLACES = {"fwd": f"{FUSED_FWD}:429", "bwd": f"{FUSED_FWD}:461"}
-# odd block shapes (batch, n, heads, C): head dims 64, 32, 64, 192 and 192
-BLOCK_ODD = [(2, 1, 1, 64), (3, 49, 3, 96), (2, 300, 4, 256), (2, 64, 4, 768), (2, 300, 1, 192)]
+# odd block shapes (batch, n, heads, C): head dims 64, 32, 64, 192, 192 and
+# 20 (C = 20: rows off 16 bytes, the bf16 GEMMs' element loads)
+BLOCK_ODD = [(2, 1, 1, 64), (3, 49, 3, 96), (2, 300, 4, 256), (2, 64, 4, 768), (2, 300, 1, 192),
+             (2, 50, 1, 20)]
 BLOCK_LAYERS = [(8, 256, 16), (8, 768, 8)]  # (batch, channels, side): compile_check's shapes
 # (batch, side, Ci, Co) of the CIFAR-10 model's 3x3 convs, and odd shapes
 # (batch, H, W, Ci, Co)
@@ -244,6 +255,44 @@ def phase_build() -> None:
         _build.load_library(name)
         print(f"[2 build] {name}.cu -> {path.relative_to(ROOT)}", flush=True)
     print(f"[2 build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
+    for name in KERNELS:
+        report = _ptxas_report(_build.ptxas_log.get(name, ""), _build._nvcc())
+        if not report:
+            continue  # built by an earlier run: no report
+        if name in PTXAS_DETAIL:
+            for fn, regs, stores, loads in report:
+                print(f"[2 build] ptxas {name}: {fn}: {regs} registers, {stores} B spill stores, "
+                      f"{loads} B spill loads", flush=True)
+        else:
+            spills = sum(st + ld for _, _, st, ld in report)
+            print(f"[2 build] ptxas {name}: {len(report)} kernels, {min(r for _, r, _, _ in report)} to "
+                  f"{max(r for _, r, _, _ in report)} registers, {spills} B spilled", flush=True)
+
+
+def _ptxas_report(log: str, nvcc: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) per kernel of
+    a ptxas -v log, the names demangled by cu++filt where it is found and
+    shortened to namespace::kernel<template arguments>."""
+    regs, spills = {}, {}
+    current = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            current = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            current = m.group(1)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and current:
+            spills[current] = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and current:
+            regs[current] = int(m.group(1))
+    names = sorted(regs)
+    shown = names
+    filt = Path(nvcc).parent / "cu++filt"
+    if names and filt.exists():
+        done = subprocess.run([str(filt), "-p"], input="\n".join(names), capture_output=True, text=True)
+        if done.returncode == 0 and len(done.stdout.splitlines()) == len(names):
+            shown = [re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\((?:int|bool)\)", "", d)
+                     for d in done.stdout.splitlines()]
+    return [(sh, regs[nm], *spills.get(nm, (0, 0))) for nm, sh in zip(names, shown)]
 
 
 def _qkv(b, n, heads, hd, dtype, seed):
@@ -511,15 +560,21 @@ def phase_flash_kernels() -> list[dict]:
             io = b * n * HEADS * hd * q.element_size()
             fwd_bound, fwd_by = _bound(4 * io, 4 * b * HEADS * n * n * hd, name)
             bwd_bound, bwd_by = _bound(7 * io, 10 * b * HEADS * n * n * hd, name)
-            earlier, was = None, ""
-            if (n, hd) in ((1024, 96), (4096, 48)):  # the CUDA-core kernel that the tensor cores replaced
+            earlier, was, bwd_was = {}, "", ""
+            if (n, hd) in ((1024, 96), (4096, 48)):  # the CUDA-core kernels that the tensor cores replaced
                 cc_err = _check(fl._flash_fwd(q, k, v, cuda_cores=True)[0], fl.flash_attention_plain(q, k, v),
                                 name, f"flash fwd CUDA-core b={b} n={n} hd={hd}")
-                earlier = time_ms(lambda: fl._flash_fwd(q, k, v, cuda_cores=True), iters=1, reps=3)
-                was = f" (CUDA-core kernel: {earlier:.4f} ms, max_abs {cc_err:.3g})"
+                earlier["fwd"] = time_ms(lambda: fl._flash_fwd(q, k, v, cuda_cores=True), iters=1, reps=3)
+                was = f" (CUDA-core kernel: {earlier['fwd']:.4f} ms, max_abs {cc_err:.3g})"
+                cc_rel = max(_check_bwd(d, r, name, f"flash bwd CUDA-core b={b} n={n} hd={hd} {label}")[1]
+                             for d, r, label in zip(fl._flash_bwd(q, k, v, g, stats, cuda_cores=True),
+                                                    fl.flash_attention_bwd_plain(q, k, v, g), ("dq", "dk", "dv")))
+                earlier["bwd"] = time_ms(lambda: fl._flash_bwd(q, k, v, g, stats, cuda_cores=True),
+                                         iters=1, reps=3)
+                bwd_was = f" (CUDA-core kernels: {earlier['bwd']:.4f} ms, rel_l2 {cc_rel:.3g})"
             print(f"[5 flash vs plain] b={b} n={n} heads={HEADS} hd={hd} {name}: forward kernel "
                   f"{fwd_ms:.4f} ms{was}, plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound "
-                  f"{fwd_bound:.4f} ms ({fwd_by}); backward kernel {bwd_ms:.4f} ms, plain "
+                  f"{fwd_bound:.4f} ms ({fwd_by}); backward kernel {bwd_ms:.4f} ms{bwd_was}, plain "
                   f"{bwd_plain:.4f} ms, sdpa bwd {bwd_sdpa:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by})",
                   flush=True)
             if (n, hd) in ((1024, 96), (4096, 48)):  # the ImageNet-512 widths
@@ -527,7 +582,7 @@ def phase_flash_kernels() -> list[dict]:
                     ("fwd", fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_sdpa),
                     ("bwd", bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_by, bwd_sdpa),
                 ):
-                    extra = {"earlier_ms": earlier} if d == "fwd" else {}
+                    extra = {"earlier_ms": earlier[d]}
                     entries.append(_entry(
                         f"flash_attention_{d}[b={b} n={n} hd={hd}]", f"flash_attention_{d}.cu",
                         FLASH_REPLACES[d], err, ms, plain_ms, bound_ms, bound_by, lib_ms, n=n, **extra))
@@ -915,6 +970,7 @@ def phase_block_kernels() -> list[dict]:
                 nbytes = (2 * b * n * c + 4 * c * c) * itemsize
                 flops = b * n * c * 4 * c * 2 + 4 * b * n * n * c + 4 * b * n * c
                 err = fwd_err
+                extra, was = {}, ""
             else:
                 _, qkv, y = split_fwd()
                 ms = time_ms(lambda: fa.attention_block_bwd_cuda(x, wq, wo, g, HEADS), iters=3, reps=3)
@@ -925,14 +981,22 @@ def phase_block_kernels() -> list[dict]:
                 flops = 3 * b * n * c * 4 * c * 2 + 10 * b * n * n * c
                 err = bwd_err
                 del qkv, y
+                # the CUDA-core GEMMs that the tensor-core GEMM replaced
+                cc_rel = max(_check_bwd(d, r, name, f"block bwd CUDA-core GEMMs b={b} n={n} {label}")[1]
+                             for d, r, label in zip(fa._block_bwd(x, wq, wo, g, HEADS, cuda_cores=True),
+                                                    fa.attention_block_bwd_plain(x, wq, wo, g, HEADS),
+                                                    ("dx", "dwqkv", "dwout")))
+                extra = {"earlier_ms": time_ms(lambda: fa._block_bwd(x, wq, wo, g, HEADS, cuda_cores=True),
+                                               iters=3, reps=3)}
+                was = f" (CUDA-core GEMMs {extra['earlier_ms']:.4f} ms, rel_l2 {cc_rel:.3g})"
             bound_ms, bound_by = _bound(nbytes, flops, name)
-            print(f"[13 block vs plain] attention_block_{direction} b={b} n={n} {name}: kernel {ms:.4f} ms, "
+            print(f"[13 block vs plain] attention_block_{direction} b={b} n={n} {name}: kernel {ms:.4f} ms{was}, "
                   f"plain {plain_ms:.4f} ms, split route (cuBLAS + fused kernels) {split_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
             entries.append(_entry(
                 f"attention_block_{direction}[cifar10 b={b} n={n}]", f"attention_block_{direction}.cu",
                 BLOCK_REPLACES[direction], err, ms, plain_ms, bound_ms, bound_by, None,
-                split_ms=split_ms, n=n))
+                split_ms=split_ms, n=n, **extra))
             del x, wq, wo, g
             torch.cuda.empty_cache()
     for b, n, heads, c in BLOCK_ODD:
@@ -940,8 +1004,8 @@ def phase_block_kernels() -> list[dict]:
             name = str(dtype).split(".")[-1]
             _check_block(*_block_inputs(b, n, c, dtype, seed=b * n + c), heads, name,
                          f"b={b} n={n} heads={heads} C={c} {name}")
-    print("[13 block vs plain] odd shapes (n = 1, 49, 64, 300; heads 1, 3, 4; C = 64, 96, 192, 256, 768): ok",
-          flush=True)
+    print("[13 block vs plain] odd shapes (n = 1, 49, 50, 64, 300; heads 1, 3, 4; C = 20, 64, 96, 192, 256, "
+          "768): ok", flush=True)
     return entries
 
 

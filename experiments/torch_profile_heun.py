@@ -32,7 +32,7 @@ from tinyedm_tpu_torch.configs import build_model  # noqa: E402
 
 # kernel-name substrings -> group, first match wins
 GROUPS = [
-    ("block GEMMs (port's)", ("gemm::gemm_kernel", "reduce_partials")),
+    ("block GEMMs (port's)", ("gemm::gemm_kernel", "gemm_tc::gemm_tc_kernel", "reduce_partials")),
     ("flash attention kernels", ("flash_",)),
     ("attention kernel", ("cosine_attention_fwd",)),
     ("attention bwd kernel", ("attn_bwd_",)),

@@ -217,10 +217,20 @@ def test_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.attention_block_bwd_cuda(torch.zeros((2, 16, 64)), torch.zeros((64, 192)),
                                     torch.zeros((64, 64)), torch.zeros((2, 16, 64)), 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # nor does the private switch
+        fa._block_bwd(torch.zeros((2, 16, 64)), torch.zeros((64, 192)), torch.zeros((64, 64)),
+                      torch.zeros((2, 16, 64)), 2, cuda_cores=True)
     with pytest.raises(ValueError, match="divisible"):
         fa.attention_block_cuda(torch.zeros((2, 16, 64)), torch.zeros((64, 192)),
                                 torch.zeros((64, 64)), 3)
     assert dict(fa.launch_counts) == before
+
+
+def test_block_bwd_splits():
+    """The weight gradients' split reduction: one fp32 partial per 1024 of
+    the b * n rows, at least one, at most 64."""
+    assert [fa.block_bwd_splits(r) for r in (1, 1024, 1025, 3 * 49, 16384, 65536, 10**6)] == [
+        1, 1, 2, 1, 16, 64, 64]
 
 
 @pytest.mark.cuda

@@ -147,6 +147,11 @@ def test_cuda_wrappers_never_fall_back():
         fl.flash_attention_fwd_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fl.flash_attention_bwd_cuda(q, q, q, q, torch.zeros((2, 1, 1, 1024)))
+    # nor do the private switches to the CUDA-core kernels
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fl._flash_fwd(q, q, q, cuda_cores=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fl._flash_bwd(q, q, q, q, torch.zeros((2, 1, 1, 1024)), cuda_cores=True)
     meta = torch.empty((1, 1024, 1, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         fl.flash_attention_fwd_cuda(meta, meta, meta)

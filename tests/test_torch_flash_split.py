@@ -1,0 +1,146 @@
+"""The arithmetic of the bf16 tensor-core flash backward
+(``csrc/flash_attention_bwd.cu``), and the private ``cuda_cores`` switches of
+the two backward kernels moved onto the tensor cores with it.
+
+The kernel multiplies bf16 operands on the tensor cores with fp32 sums, but
+keeps p and ds in fp32: each enters the dq, dk and dv products as a hi + lo
+pair of bf16 values, hi = bf16(x) and lo = bf16(x - hi). ``split_pair_bwd``
+is that arithmetic in plain PyTorch (bf16 operands, the pair, fp32 sums, one
+rounding of each output). On seeded normal inputs at n = 1024, hd 48 and 96,
+it is held against the JAX flash backward kernel in interpret mode
+(``_flash_bwd_impl``) and against ``flash_attention_bwd_plain`` within 1e-3
+relative L2, the bf16 gate of ``chip_smoke.py``. The same arithmetic with p
+and ds rounded once to bf16 misses that gate on the same inputs: why the
+kernel splits them.
+
+The CUDA-core kernels behind the switches against their plain versions need
+the card; on the card ``chip_smoke.py`` phases 5 and 13 check and time them
+as ``earlier_ms``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests._torch_parity import rel_l2
+from tinyedm_tpu.ops.attention import _flash_bwd_impl
+from tinyedm_tpu_torch.ops import attention as fl
+from tinyedm_tpu_torch.ops import fused_attention as fa
+
+GATE = 1e-3  # chip_smoke.py's BWD_TOL for bf16
+HEAD_DIMS = [48, 96]  # the ImageNet-512 widths above its attention levels
+
+
+def _inputs(hd: int, seed: int = 0, n: int = 1024, heads: int = 2):
+    """q, k, v, g: (1, n, heads, hd) bf16 from seeded standard normals, as
+    torch tensors and as JAX arrays."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((1, n, heads, hd)).astype(np.float32) for _ in range(4)]
+    return ([torch.from_numpy(a).to(torch.bfloat16) for a in arrays],
+            [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays])
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def split_pair_bwd(q, k, v, g, split: bool = True):
+    """The tensor-core backward's arithmetic: p and ds fp32, each multiplied
+    as hi + lo bf16 (or, with ``split`` False, rounded once to bf16), fp32
+    sums, dq, dk and dv rounded once to the input dtype."""
+    qa, ka, va, ga = (t.float() for t in (q, k, v, g))
+    scale = float(np.float32(1.0 / math.sqrt(q.shape[-1])))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qa, ka) * scale
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", ga, va)
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (dp - delta) * p * scale
+
+    def parts(x):
+        hi = _bf16(x)
+        return (hi, _bf16(x - hi)) if split else (hi,)
+
+    dq = sum(torch.einsum("bhqk,bkhd->bqhd", a, ka) for a in parts(ds))
+    dk = sum(torch.einsum("bhqk,bqhd->bkhd", a, qa) for a in parts(ds))
+    dv = sum(torch.einsum("bhqk,bqhd->bkhd", a, ga) for a in parts(p))
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def _worst(got, refs) -> float:
+    return max(rel_l2(a.float().numpy(), r) for a, r in zip(got, refs))
+
+
+@pytest.mark.parametrize("reference", ["jax_kernel", "plain"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_split_pair_within_the_gate(hd, reference):
+    """hi + lo pairs: within 1e-3 of the JAX kernel (interpret mode) and of
+    the plain version; in fact near the outputs' own rounding (3e-4)."""
+    (q, k, v, g), (jq, jk, jv, jg) = _inputs(hd)
+    if reference == "jax_kernel":
+        refs = [np.asarray(r.astype(jnp.float32))
+                for r in _flash_bwd_impl(jq, jk, jv, jg, interpret=True)]
+    else:
+        refs = [r.float().numpy() for r in fl.flash_attention_bwd_plain(q, k, v, g)]
+    assert _worst(split_pair_bwd(q, k, v, g), refs) <= 3e-4
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_single_rounding_misses_the_gate(hd):
+    """p and ds rounded once to bf16 before the products: above 1e-3 of the
+    plain version on the same inputs, while the pair stays 5x below it."""
+    (q, k, v, g), _ = _inputs(hd)
+    refs = [r.float().numpy() for r in fl.flash_attention_bwd_plain(q, k, v, g)]
+    single = _worst(split_pair_bwd(q, k, v, g, split=False), refs)
+    pair = _worst(split_pair_bwd(q, k, v, g), refs)
+    assert single > GATE > 5 * pair
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative L2 on the card's outputs; 0 for two zero tensors (dq and dk
+    at n = 1)."""
+    a, b = got.double().cpu(), want.double().cpu()
+    ref = float(b.norm())
+    return float((a - b).norm()) / ref if ref else float(a.norm())
+
+
+def _on_card(*tensors):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return [t.cuda() for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1030, 2, 48), (1, 1100, 3, 144), (2, 1, 1, 64)])
+def test_cuda_core_flash_backward_matches_plain(shape):
+    """The bf16 CUDA-core flash backward, which ``chip_smoke.py`` times
+    beside the tensor-core one, computes the same function."""
+    rng = np.random.default_rng(10)
+    q, k, v, g = _on_card(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                            .to(torch.bfloat16) for _ in range(4)))
+    _, stats = fl.flash_attention_fwd_cuda(q, k, v)
+    grads = fl._flash_bwd(q, k, v, g, stats, cuda_cores=True)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, fl.flash_attention_bwd_plain(q, k, v, g)):
+        assert _rel(got, want) <= GATE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,heads,c", [(256, 4, 256), (49, 3, 96), (64, 4, 768)])
+def test_cuda_core_block_backward_matches_plain(n, heads, c):
+    """The block backward with its bf16 GEMMs on the CUDA cores (the
+    ``cuda_cores`` switch), against its plain version."""
+    rng = np.random.default_rng(11)
+    shapes = [(4, n, c), (c, 3 * c), (c, c), (4, n, c)]
+    scales = [1.0, c**-0.5, c**-0.5, 0.5]
+    x, wq, wo, g = _on_card(*(torch.from_numpy((rng.standard_normal(s) * f).astype(np.float32))
+                              .to(torch.bfloat16) for s, f in zip(shapes, scales)))
+    grads = fa._block_bwd(x, wq, wo, g, heads, cuda_cores=True)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, fa.attention_block_bwd_plain(x, wq, wo, g, heads)):
+        assert _rel(got, want) <= GATE

@@ -21,8 +21,11 @@
 //
 // What bounds it on an H100: the CUDA cores (67 TFLOP/s fp32 FMA) and shared
 // memory reads: each k step of a 64x64 tile reads 8 values per thread for
-// 16 FMAs. This first version uses no tensor cores; mma/wgmma with TMA
-// staging are later work.
+// 16 FMAs. fp32 runs here (tensor cores in fp32 would be TF32); so does the
+// block forward in bf16, and the block backward in bf16 behind its
+// cuda_cores switch. The block backward's bf16 GEMMs run on the tensor
+// cores, gemm_tc.cuh, which shares the epilogues and the split reduction
+// below.
 #pragma once
 
 #include <algorithm>
@@ -71,6 +74,31 @@ __device__ __forceinline__ float stage(const T* p, float scale) {
   return round_to<T>(__fmul_rn(to_float(*p), scale));
 }
 
+// The value the epilogue stores (rounded to T, or fp32 for kPartial) for
+// the sum v of an output element, x the element of `extra` there
+template <typename T, int kEpi>
+__device__ __forceinline__ float epilogue(float v, float x, float e0, float e1) {
+  if (kEpi == kResidual) {
+    const float d = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(round_to<T>(v), x)), e0));
+    return __fmul_rn(round_to<T>(__fadd_rn(x, d)), e1);
+  }
+  if (kEpi == kAddScaled) return __fadd_rn(round_to<T>(v), round_to<T>(__fmul_rn(x, e0)));
+  return v;  // kRound, kPartial
+}
+
+// The epilogue of the sum v of output element `at` of the (M, N) output;
+// plane: the offset of this split's fp32 partial (kPartial)
+template <typename T, int kEpi>
+__device__ __forceinline__ void store_out(void* __restrict__ out, const T* __restrict__ extra,
+                                          size_t at, size_t plane, float v, float e0, float e1) {
+  const bool has_extra = kEpi == kResidual || kEpi == kAddScaled;
+  const float r = epilogue<T, kEpi>(v, has_extra ? to_float(extra[at]) : 0.f, e0, e1);
+  if (kEpi == kPartial)
+    static_cast<float*>(out)[plane + at] = r;
+  else
+    static_cast<T*>(out)[at] = from_float<T>(r);
+}
+
 template <typename T, bool kTransA, bool kTransB, int kEpi>
 __global__ void __launch_bounds__(kThreads)
     gemm_kernel(const T* __restrict__ a, long long lda, float scale_a, const T* __restrict__ b,
@@ -116,6 +144,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
+  const size_t plane = (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty + 16 * i;
@@ -123,21 +152,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      const size_t at = (size_t)gm * N + gn;
-      const float v = acc[i][j];
-      if (kEpi == kPartial) {
-        static_cast<float*>(out)[(size_t)blockIdx.z * M * N + at] = v;
-      } else if (kEpi == kRound) {
-        static_cast<T*>(out)[at] = from_float<T>(v);
-      } else if (kEpi == kResidual) {
-        const float x = to_float(extra[at]);
-        const float d = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(round_to<T>(v), x)), e0));
-        static_cast<T*>(out)[at] = from_float<T>(__fmul_rn(round_to<T>(__fadd_rn(x, d)), e1));
-      } else {  // kAddScaled
-        const float gs = round_to<T>(__fmul_rn(to_float(extra[at]), e0));
-        static_cast<T*>(out)[at] = from_float<T>(__fadd_rn(round_to<T>(v), gs));
-      }
+      if (gn < N) store_out<T, kEpi>(out, extra, (size_t)gm * N + gn, plane, acc[i][j], e0, e1);
     }
   }
 }

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -28,6 +29,9 @@ NVCC_FLAGS = [
 ]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# name -> what ptxas printed for the library's kernels, from build(...,
+# ptxas_verbose=True)
+ptxas_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -50,8 +54,9 @@ def library_path(name: str) -> Path:
 
 def build(name: str, ptxas_verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists; returns
-    the library path. ``ptxas_verbose`` prints registers, shared memory and
-    spills of each kernel."""
+    the library path. ``ptxas_verbose`` keeps ptxas's report of registers,
+    shared memory and spills of each kernel in ``ptxas_log[name]``; a failed
+    build prints the compiler's output either way."""
     out = library_path(name)
     if out.exists():
         return out
@@ -63,7 +68,13 @@ def build(name: str, ptxas_verbose: bool = False) -> Path:
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
            "-o", tmp, str(CSRC / f"{name}.cu")]
     try:
-        subprocess.run(cmd, check=True)
+        done = subprocess.run(cmd, capture_output=ptxas_verbose, text=True)
+        if done.returncode:
+            if ptxas_verbose:
+                print(done.stdout + done.stderr, file=sys.stderr)
+            raise RuntimeError(f"nvcc failed ({done.returncode}) on csrc/{name}.cu")
+        if ptxas_verbose:
+            ptxas_log[name] = done.stdout + done.stderr
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -163,7 +163,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib.attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 3 + [ptr]
         lib.attention_block_fwd.restype = i32
     elif name == "attention_block_bwd":
-        lib.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32] * 3 + [ptr]
+        lib.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [f32] * 3 + [ptr]
         lib.attention_block_bwd.restype = i32
     elif name == "cosine_attention_fwd":
         lib.cosine_attention_fwd.argtypes = [ptr] * 2 + [i32] * 6 + [f32, ptr]
@@ -418,19 +418,32 @@ def attention_block_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor
     return out
 
 
+def block_bwd_splits(rows: int) -> int:
+    """The block backward's split reduction of its weight gradients: one
+    fp32 partial per 1024 of the b * n rows, at most 64 (other counts,
+    experiments/torch_block_gemm_sweep.py, gain nothing on an H100)."""
+    return min(64, -(-rows // 1024))
+
+
 def attention_block_bwd_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
                              g: torch.Tensor, num_heads: int):
     """Launch the block backward's kernels on the current stream: -> (dx,
     dwqkv fp32, dwout fp32)."""
+    return _block_bwd(x, wqkv, wout, g, num_heads)
+
+
+def _block_bwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, g: torch.Tensor,
+               num_heads: int, cuda_cores: bool = False):
+    """``attention_block_bwd_cuda``; ``cuda_cores`` runs bf16's GEMMs on the
+    CUDA-core GEMM that the tensor-core GEMM replaced (chip_smoke.py times
+    the two in one run)."""
     b, n, c, hd = _check_block(x, wqkv, wout, num_heads)
     if g.device != x.device or g.dtype != x.dtype or g.shape != x.shape:
         raise ValueError(f"g must be {tuple(x.shape)} {x.dtype} on {x.device}, "
                          f"got {tuple(g.shape)} {g.dtype} on {g.device}")
     x, wqkv, wout, g = x.contiguous(), wqkv.contiguous(), wout.contiguous(), g.contiguous()
     lib = _library("attention_block_bwd")
-    # the weight gradients' split reduction: one fp32 partial per 1024 of the
-    # b * n rows, at most 64
-    splits = min(64, -(-b * n // 1024))
+    splits = block_bwd_splits(b * n)
     dev = x.device
     dx = torch.empty_like(x)
     dwqkv = torch.empty((c, 3 * c), dtype=torch.float32, device=dev)
@@ -447,8 +460,8 @@ def attention_block_bwd_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Te
         err = lib.attention_block_bwd(
             *(t.data_ptr() for t in (x, wqkv, wout, g, dx, dwqkv, dwout, qkv, y, dy, dqkv,
                                      stats, partials)),
-            splits, b, n, num_heads, hd, int(x.dtype == torch.bfloat16), scale, sqrt_hd, ts,
-            stream,
+            splits, b, n, num_heads, hd, int(x.dtype == torch.bfloat16), int(cuda_cores), scale,
+            sqrt_hd, ts, stream,
         )
     raise_on_error(lib, err, "attention_block_bwd")
     launch_counts["block_bwd", n] += 1
