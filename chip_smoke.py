@@ -9,8 +9,8 @@ with a non-zero exit code:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: nvcc builds every CUDA kernel of the paths from the sources in
    tinyedm_tpu_torch/csrc (into tinyedm_tpu_torch/build/), one nvcc per
-   source, all started together; ptxas's registers and spills, per kernel
-   for the flash and block backward libraries, as a range elsewhere;
+   source, all started together; ptxas's registers and spills of the flash
+   and block backward libraries' kernels;
 3. fused forward kernel vs plain: the cosine-attention forward kernel
    against its plain PyTorch version at the sampling paths' shapes (CIFAR-10
    at batch 128, 4 heads of 64; ImageNet-512 at batch 32, 4 heads of 144 at
@@ -158,12 +158,16 @@ BWD_TOL = {"bfloat16": 1e-3, "float32": 1e-5}  # relative L2
 ODD_SHAPES = [(3, 1, 1, 64), (4, 56, 4, 64), (2, 300, 2, 32), (2, 97, 2, 128), (2, 65, 1, 256), (2, 33, 3, 20),
               (2, 33, 2, 144), (2, 65, 2, 144), (2, 33, 2, 192), (2, 65, 2, 192), (2, 300, 1, 256)]
 ODD_NOTE = "n = 1, 33, 56, 65, 97, 300; hd = 20, 32, 64, 128, 144, 192, 256"
+# (batch, n, heads, hd) of the flash kernels: n = 1 (the CUDA-core route),
+# ragged n past every tile, and every tensor-core head-dim bucket at n >= 2
+# (32: hd 20; 48: hd 33 and 48; 64; 128; 192: hd 144 and 192; 256; 96 is
+# FLASH_SHAPES')
 FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20),
              (1, 1100, 3, 144), (1, 1030, 1, 192), (3, 1024, 1, 33), (2, 1030, 2, 20),
-             (2, 1030, 2, 144)]
+             (2, 1030, 2, 144), (2, 1030, 2, 128), (1, 1030, 1, 256)]
 KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "attention_block_fwd", "attention_block_bwd", "winograd_fwd")
-PTXAS_DETAIL = ("flash_attention_bwd", "attention_block_bwd")  # ptxas -v per kernel in phase 2
+PTXAS_SHOWN = ("flash_attention_bwd", "attention_block_bwd")  # ptxas -v in phase 2
 # the whole-block kernels at the CIFAR-10 attention widths: (batch, n) per
 # direction, the sampling batch forward and the training batch backward
 BLOCK_C = 256
@@ -255,44 +259,10 @@ def phase_build() -> None:
         _build.load_library(name)
         print(f"[2 build] {name}.cu -> {path.relative_to(ROOT)}", flush=True)
     print(f"[2 build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
-    for name in KERNELS:
-        report = _ptxas_report(_build.ptxas_log.get(name, ""), _build._nvcc())
-        if not report:
-            continue  # built by an earlier run: no report
-        if name in PTXAS_DETAIL:
-            for fn, regs, stores, loads in report:
-                print(f"[2 build] ptxas {name}: {fn}: {regs} registers, {stores} B spill stores, "
-                      f"{loads} B spill loads", flush=True)
-        else:
-            spills = sum(st + ld for _, _, st, ld in report)
-            print(f"[2 build] ptxas {name}: {len(report)} kernels, {min(r for _, r, _, _ in report)} to "
-                  f"{max(r for _, r, _, _ in report)} registers, {spills} B spilled", flush=True)
-
-
-def _ptxas_report(log: str, nvcc: str) -> list[tuple[str, int, int, int]]:
-    """(kernel, registers, spill store bytes, spill load bytes) per kernel of
-    a ptxas -v log, the names demangled by cu++filt where it is found and
-    shortened to namespace::kernel<template arguments>."""
-    regs, spills = {}, {}
-    current = None
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            current = m.group(1)
-        elif m := re.search(r"Function properties for (\S+)", line):
-            current = m.group(1)
-        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and current:
-            spills[current] = (int(m.group(1)), int(m.group(2)))
-        elif (m := re.search(r"Used (\d+) registers", line)) and current:
-            regs[current] = int(m.group(1))
-    names = sorted(regs)
-    shown = names
-    filt = Path(nvcc).parent / "cu++filt"
-    if names and filt.exists():
-        done = subprocess.run([str(filt), "-p"], input="\n".join(names), capture_output=True, text=True)
-        if done.returncode == 0 and len(done.stdout.splitlines()) == len(names):
-            shown = [re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\((?:int|bool)\)", "", d)
-                     for d in done.stdout.splitlines()]
-    return [(sh, regs[nm], *spills.get(nm, (0, 0))) for nm, sh in zip(names, shown)]
+    for name in PTXAS_SHOWN:  # empty where an earlier run built the library
+        for line in _build.ptxas_log.get(name, "").splitlines():
+            if re.search(r"Compiling entry function|spill stores|Used \d+ registers", line):
+                print(f"[2 build] ptxas {name}: {line.strip()}", flush=True)
 
 
 def _qkv(b, n, heads, hd, dtype, seed):
@@ -596,7 +566,7 @@ def phase_flash_kernels() -> list[dict]:
                                          ("contiguous", (t.contiguous() for t in (q, k, v)))):
                 _check_flash(qq, kk, vv, g, name, f"b={b} n={n} heads={heads} hd={hd} {name} {layout}")
     print(f"[5 flash vs plain] odd shapes (n = 1, 1024, 1025, 1030, 1100, 2000; hd = 20, 33, 48, 64, "
-          f"144, 192, 256; qkv views and contiguous): ok", flush=True)
+          f"128, 144, 192, 256; qkv views and contiguous): ok", flush=True)
     return entries
 
 
@@ -978,7 +948,10 @@ def phase_block_kernels() -> list[dict]:
                                    iters=2, reps=3)
                 split_ms = time_ms(lambda: split_bwd(g, qkv, y), iters=3, reps=3)
                 nbytes = 3 * b * n * c * itemsize + 4 * c * c * (itemsize + 4)
-                flops = 3 * b * n * c * 4 * c * 2 + 10 * b * n * n * c
+                # 11 GEMMs of m c^2 multiply-adds (the qkv recompute 3, dy 1,
+                # dx 3, dWout 1, dWqkv 3) and six of the attention's
+                # products (S, y = P V for dWout, dP, dq, dk, dv)
+                flops = 2 * 11 * b * n * c * c + 12 * b * n * n * c
                 err = bwd_err
                 del qkv, y
                 # the CUDA-core GEMMs that the tensor-core GEMM replaced

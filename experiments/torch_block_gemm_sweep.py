@@ -25,8 +25,8 @@ relative L2 of dx, dWqkv and dWout to the plain version, and at the
 CIFAR-10 shapes the device time per call (torch.profiler, 10 calls) in
 turns: all variants, then all again in reverse order. ``--splits`` adds the
 base variant with other counts of the weight gradients' split reduction
-(the wrapper's, ``fused_attention.block_bwd_splits``: one per 1024 rows, at
-most 64).
+(the wrapper's, as ``fused_attention._block_bwd`` counts them: one per 1024
+rows, at most 64).
 
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -154,7 +154,7 @@ def main() -> int:
         refs = fa.attention_block_bwd_plain(x, wq, wo, g, heads)
         qkv64 = (x.double() @ wq.double()).to(x.dtype)
         plain_flips = float((torch.matmul(x.float(), wq.float()).to(x.dtype) != qkv64).float().mean())
-        wrapper_splits = fa.block_bwd_splits(b * n)
+        wrapper_splits = min(64, -(-b * n // 1024))  # as the wrapper counts them
         print(f"b={b} n={n} heads={heads} C={c} seed={seed}: plain fp32 qkv flips {plain_flips:.3g}",
               flush=True)
         times = {}

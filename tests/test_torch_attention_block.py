@@ -226,13 +226,6 @@ def test_wrappers_never_fall_back():
     assert dict(fa.launch_counts) == before
 
 
-def test_block_bwd_splits():
-    """The weight gradients' split reduction: one fp32 partial per 1024 of
-    the b * n rows, at least one, at most 64."""
-    assert [fa.block_bwd_splits(r) for r in (1, 1024, 1025, 3 * 49, 16384, 65536, 10**6)] == [
-        1, 1, 2, 1, 16, 64, 64]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,heads,c,dtype", [
     (256, 4, 256, torch.bfloat16), (64, 4, 256, torch.bfloat16), (256, 4, 256, torch.float32),

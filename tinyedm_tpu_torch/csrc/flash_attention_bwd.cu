@@ -123,7 +123,15 @@ __device__ __forceinline__ void split_a(const float (&t)[kSTiles][4], int kc, ui
 }
 
 // acc (16 x HDP) += (hi + lo) B, B the 16 x HDP [k][n] tile whose lane
-// address (bk_row, bk_col applied) is b, by ldmatrix.trans
+// address (bk_row, bk_col applied) is b, by ldmatrix.trans. The sums are
+// carried across the whole sweep in the mma accumulators, unlike
+// gemm_tc.cuh's, whose sums past 1e-3 at C 768 forced a correctly rounded
+// add per k16 step. Here that add halves the drift from the plain version
+// (relative L2 2.25e-4 to 1.0e-4 at n 4096, hd 48; 1.27e-4 to 1.0e-4 at
+// n 1024, hd 96), which is already within a quarter of the 1e-3 gate, for
+// 8 to 10% more time, 255 registers and spills from hd 128 up, and half the
+// blocks per SM of pass (b) at hd 64 (experiments/torch_flash_bwd_sweep.py,
+// variant step_add).
 template <int HDP>
 __device__ __forceinline__ void mma_pair(float (&acc)[HDP / 8][4], const uint32_t (&hi)[4],
                                          const uint32_t (&lo)[4], const bf16* b) {

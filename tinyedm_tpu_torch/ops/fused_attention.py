@@ -418,13 +418,6 @@ def attention_block_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor
     return out
 
 
-def block_bwd_splits(rows: int) -> int:
-    """The block backward's split reduction of its weight gradients: one
-    fp32 partial per 1024 of the b * n rows, at most 64 (other counts,
-    experiments/torch_block_gemm_sweep.py, gain nothing on an H100)."""
-    return min(64, -(-rows // 1024))
-
-
 def attention_block_bwd_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
                              g: torch.Tensor, num_heads: int):
     """Launch the block backward's kernels on the current stream: -> (dx,
@@ -443,7 +436,10 @@ def _block_bwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, g: torch
                          f"got {tuple(g.shape)} {g.dtype} on {g.device}")
     x, wqkv, wout, g = x.contiguous(), wqkv.contiguous(), wout.contiguous(), g.contiguous()
     lib = _library("attention_block_bwd")
-    splits = block_bwd_splits(b * n)
+    # the weight gradients' split reduction: one fp32 partial per 1024 of the
+    # b * n rows, at most 64 (other counts gain nothing on an H100:
+    # experiments/torch_block_gemm_sweep.py --splits)
+    splits = min(64, -(-b * n // 1024))
     dev = x.device
     dx = torch.empty_like(x)
     dwqkv = torch.empty((c, 3 * c), dtype=torch.float32, device=dev)
