@@ -10,7 +10,7 @@ with a non-zero exit code:
 2. build: nvcc builds every CUDA kernel of the paths from the sources in
    tinyedm_tpu_torch/csrc (into tinyedm_tpu_torch/build/), one nvcc per
    source, all started together; ptxas's registers and spills of the flash
-   and block backward libraries' kernels;
+   backward and the block libraries' kernels;
 3. fused forward kernel vs plain: the cosine-attention forward kernel
    against its plain PyTorch version at the sampling paths' shapes (CIFAR-10
    at batch 128, 4 heads of 64; ImageNet-512 at batch 32, 4 heads of 144 at
@@ -74,14 +74,16 @@ with a non-zero exit code:
     every element within three bf16 ulps, 2.4e-2 of max(1, |ref|); dx, dWqkv
     and dWout relative L2 <= 1e-3) and fp32 (forward atol = rtol = 1e-5,
     backward relative L2 <= 1e-5), plus odd shapes (n = 1, 49, 50, 300;
-    heads 1 and 3; C = 192 and 768 at head dim 192, C = 20); times beside
+    heads 1 and 3; C = 192 and 768 at head dim 192, C = 20 and 288); times beside
     the bound, the plain versions and the split route (cuBLAS GEMMs around
-    the fused kernels of phases 3-4); for the backward, as earlier_ms, its
-    bf16 GEMMs on the CUDA cores (the GEMM the tensor-core one replaced),
-    checked against the plain version and timed in the same run. bf16 runs the
-    attention cores (phases 3-4's kernels) on mma.sync in both directions
-    and the backward's five GEMMs (qkv, dy, dx, dWout, dWqkv) too; the
-    forward's two GEMMs, and fp32, stay on the CUDA cores;
+    the fused kernels of phases 3-4); for both directions, as earlier_ms,
+    their bf16 GEMMs on the CUDA cores (the GEMM the tensor-core one
+    replaced), checked against the plain version within the same gates and
+    timed in the same run. bf16 runs everything on mma.sync: the attention
+    cores (phases 3-4's kernels), the forward's two GEMMs (qkv, and out with
+    the residual) and the backward's five (qkv, dy, dx, dWout, dWqkv), on
+    64-row tiles where a block's range of k is at most 256, else 128-row
+    ones; fp32 stays on the CUDA cores;
 14. block layer check: CosineAttention(fused="block") in bf16 at
     (8, 256, 16, 16) and (8, 768, 8, 8), forward and backward against
     fused="off" with the same weights (output relative L2 <= 1e-2, input
@@ -167,16 +169,18 @@ FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20
              (2, 1030, 2, 144), (2, 1030, 2, 128), (1, 1030, 1, 256)]
 KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "attention_block_fwd", "attention_block_bwd", "winograd_fwd")
-PTXAS_SHOWN = ("flash_attention_bwd", "attention_block_bwd")  # ptxas -v in phase 2
+PTXAS_SHOWN = ("flash_attention_bwd", "attention_block_fwd", "attention_block_bwd")  # ptxas -v in phase 2
 # the whole-block kernels at the CIFAR-10 attention widths: (batch, n) per
 # direction, the sampling batch forward and the training batch backward
 BLOCK_C = 256
 BLOCK_SHAPES = [("fwd", 128, 256), ("fwd", 128, 64), ("bwd", 256, 256), ("bwd", 256, 64)]
 BLOCK_REPLACES = {"fwd": f"{FUSED_FWD}:429", "bwd": f"{FUSED_FWD}:461"}
-# odd block shapes (batch, n, heads, C): head dims 64, 32, 64, 192, 192 and
-# 20 (C = 20: rows off 16 bytes, the bf16 GEMMs' element loads)
+# odd block shapes (batch, n, heads, C): head dims 64, 32, 64, 192, 192, 20
+# and 96 (C = 20: rows off 16 bytes, the bf16 GEMMs' element loads). The
+# bf16 GEMMs take 64-row tiles where K <= 256, else 128-row ones: C = 288
+# runs the forward's on 128-row tiles with ragged edges (M = 600, N = 864)
 BLOCK_ODD = [(2, 1, 1, 64), (3, 49, 3, 96), (2, 300, 4, 256), (2, 64, 4, 768), (2, 300, 1, 192),
-             (2, 50, 1, 20)]
+             (2, 50, 1, 20), (2, 300, 3, 288)]
 BLOCK_LAYERS = [(8, 256, 16), (8, 768, 8)]  # (batch, channels, side): compile_check's shapes
 # (batch, side, Ci, Co) of the CIFAR-10 model's 3x3 convs, and odd shapes
 # (batch, H, W, Ci, Co)
@@ -849,38 +853,46 @@ def _block_inputs(b, n, c, dtype, seed):
     return x, wq, wo, g
 
 
-def _check_block(x, wq, wo, g, heads: int, dtype_name: str, what: str) -> tuple[float, float, float]:
-    """Both block kernels against the plain versions: (forward max abs,
-    backward max abs over dx, dWqkv and dWout, their worst relative L2). The
-    bf16 forward is held to phase 4's relative L2 of 1e-3 and, element by
-    element, to three bf16 ulps (2.4e-2 of max(1, |ref|)): the out GEMM's fp32
-    sums, taken in another order than cuBLAS's, can round T(out) to its
-    neighbour, and the residual's four bf16 roundings (out - x, * t, x + .,
-    * s) carry that one ulp of out into up to two ulps of the output."""
+def _check_block_fwd(out, ref, dtype_name: str, what: str) -> tuple[float, float, float]:
+    """A block forward's output against the plain version's: (max abs,
+    relative L2, largest difference in bf16 ulps of max(1, |ref|)). fp32:
+    atol = rtol = 1e-5. bf16: phase 4's relative L2 of 1e-3 and, element by
+    element, three bf16 ulps (2.4e-2 of max(1, |ref|)): the GEMMs' fp32
+    sums, taken in another order than cuBLAS's, can round T(qkv) and T(out)
+    to their neighbours, and the residual's four bf16 roundings (out - x,
+    * t, x + ., * s) carry one ulp of out into up to two ulps of the output."""
+    import torch
+
+    if not torch.isfinite(out.float()).all():
+        fail(f"block fwd {what}: non-finite kernel output")
+    diff = (out.float() - ref.float()).abs()
+    err, rel = float(diff.max()), rel_l2(out, ref)
+    ulps = float((diff / ref.float().abs().clamp(min=1.0)).max()) / 2.0**-7
+    if dtype_name == "float32":
+        _check(out, ref, dtype_name, f"block fwd {what}")
+    elif not (rel <= BWD_TOL[dtype_name] and ulps <= 3):
+        fail(f"block fwd {what}: rel L2 {rel} (<= {BWD_TOL[dtype_name]}), max abs {err}, "
+             f"{ulps} bf16 ulps of max(1, |ref|) (<= 3)")
+    return err, rel, ulps
+
+
+def _check_block(x, wq, wo, g, heads: int, dtype_name: str, what: str) -> tuple[tuple, float, float]:
+    """Both block kernels against the plain versions: (the forward's max abs,
+    relative L2 and ulps, within _check_block_fwd's gates; the backward's max
+    abs over dx, dWqkv and dWout; their worst relative L2)."""
     import torch
 
     from tinyedm_tpu_torch.ops import fused_attention as fa
 
     out = fa.attention_block_cuda(x, wq, wo, heads)
     torch.cuda.synchronize()
-    ref = fa.attention_block_plain(x, wq, wo, heads)
-    if dtype_name == "float32":
-        fwd_err = _check(out, ref, dtype_name, f"block fwd {what}")
-    else:
-        if not torch.isfinite(out.float()).all():
-            fail(f"block fwd {what}: non-finite kernel output")
-        diff = (out.float() - ref.float()).abs()
-        fwd_err, rel = float(diff.max()), rel_l2(out, ref)
-        scaled = float((diff / ref.float().abs().clamp(min=1.0)).max())
-        if not (rel <= BWD_TOL[dtype_name] and scaled <= 3 * 2.0**-7):
-            fail(f"block fwd {what}: rel L2 {rel} (<= {BWD_TOL[dtype_name]}), max abs {fwd_err}, "
-                 f"{scaled} of max(1, |ref|) (<= {3 * 2.0**-7})")
+    fwd = _check_block_fwd(out, fa.attention_block_plain(x, wq, wo, heads), dtype_name, what)
     grads = fa.attention_block_bwd_cuda(x, wq, wo, g, heads)
     torch.cuda.synchronize()
     refs = fa.attention_block_bwd_plain(x, wq, wo, g, heads)
     errs = [_check_bwd(d, r, dtype_name, f"block bwd {what} {label}")
             for d, r, label in zip(grads, refs, ("dx", "dwqkv", "dwout"))]
-    return fwd_err, max(e for e, _ in errs), max(r for _, r in errs)
+    return fwd, max(e for e, _ in errs), max(r for _, r in errs)
 
 
 def _split_route(x, wq, wo, heads: int):
@@ -926,9 +938,11 @@ def phase_block_kernels() -> list[dict]:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             x, wq, wo, g = _block_inputs(b, n, c, dtype, seed=n + b)
-            fwd_err, bwd_err, bwd_rel = _check_block(x, wq, wo, g, HEADS, name, f"b={b} n={n} {name}")
+            (fwd_err, fwd_rel, fwd_ulps), bwd_err, bwd_rel = _check_block(x, wq, wo, g, HEADS, name,
+                                                                          f"b={b} n={n} {name}")
             print(f"[13 block vs plain] b={b} n={n} C={c} heads={HEADS} {name}: forward max_abs "
-                  f"{fwd_err:.3g}, backward max_abs {bwd_err:.3g} worst rel_l2 {bwd_rel:.3g}", flush=True)
+                  f"{fwd_err:.3g} rel_l2 {fwd_rel:.3g} ({fwd_ulps:.3g} bf16 ulps of max(1, |ref|)), backward "
+                  f"max_abs {bwd_err:.3g} worst rel_l2 {bwd_rel:.3g}", flush=True)
             if dtype != torch.bfloat16:  # times in the main path's type
                 continue
             split_fwd, split_bwd = _split_route(x, wq, wo, HEADS)
@@ -940,7 +954,14 @@ def phase_block_kernels() -> list[dict]:
                 nbytes = (2 * b * n * c + 4 * c * c) * itemsize
                 flops = b * n * c * 4 * c * 2 + 4 * b * n * n * c + 4 * b * n * c
                 err = fwd_err
-                extra, was = {}, ""
+                # the CUDA-core GEMMs that the tensor-core GEMM replaced
+                _, cc_rel, cc_ulps = _check_block_fwd(fa._block_fwd(x, wq, wo, HEADS, cuda_cores=True),
+                                                      fa.attention_block_plain(x, wq, wo, HEADS), name,
+                                                      f"CUDA-core GEMMs b={b} n={n} {name}")
+                extra = {"earlier_ms": time_ms(lambda: fa._block_fwd(x, wq, wo, HEADS, cuda_cores=True),
+                                               iters=3, reps=3)}
+                was = (f" (CUDA-core GEMMs {extra['earlier_ms']:.4f} ms, rel_l2 {cc_rel:.3g}, "
+                       f"{cc_ulps:.3g} ulps)")
             else:
                 _, qkv, y = split_fwd()
                 ms = time_ms(lambda: fa.attention_block_bwd_cuda(x, wq, wo, g, HEADS), iters=3, reps=3)
@@ -972,13 +993,16 @@ def phase_block_kernels() -> list[dict]:
                 split_ms=split_ms, n=n, **extra))
             del x, wq, wo, g
             torch.cuda.empty_cache()
+    worst = (0.0, 0.0)  # the bf16 forward's largest relative L2 and ulps
     for b, n, heads, c in BLOCK_ODD:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
-            _check_block(*_block_inputs(b, n, c, dtype, seed=b * n + c), heads, name,
-                         f"b={b} n={n} heads={heads} C={c} {name}")
+            (_, rel, ulps), _, _ = _check_block(*_block_inputs(b, n, c, dtype, seed=b * n + c), heads, name,
+                                                f"b={b} n={n} heads={heads} C={c} {name}")
+            if dtype == torch.bfloat16:
+                worst = (max(worst[0], rel), max(worst[1], ulps))
     print("[13 block vs plain] odd shapes (n = 1, 49, 50, 64, 300; heads 1, 3, 4; C = 20, 64, 96, 192, 256, "
-          "768): ok", flush=True)
+          f"288, 768): ok; bf16 forward at most rel_l2 {worst[0]:.3g}, {worst[1]:.3g} ulps", flush=True)
     return entries
 
 

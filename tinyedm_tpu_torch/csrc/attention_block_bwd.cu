@@ -40,32 +40,16 @@
 // In bf16 the attention core runs on the tensor cores (rows 3-4's kernels,
 // cosine_attention_bwd.cuh) and so do the five GEMMs (gemm_tc.cuh:
 // mma.sync.m16n8k16, operands staged by cp.async and read by ldmatrix,
-// 128 x 128 tiles); cuda_cores runs bf16's GEMMs on the CUDA-core GEMM
-// that they replaced (gemm_common.cuh), for a same-run comparison. fp32
-// keeps gemm_common.cuh (tensor cores in fp32 would be TF32).
-
-#include <type_traits>
+// tiles of 128 columns and 128 or 64 rows); cuda_cores runs bf16's GEMMs on
+// the CUDA-core GEMM that they replaced (gemm_common.cuh), for a same-run
+// comparison. fp32 keeps gemm_common.cuh (tensor cores in fp32 would be
+// TF32).
 
 #include "cosine_attention_bwd.cuh"
 #include "cosine_attention_fwd.cuh"
-#include "gemm_common.cuh"
 #include "gemm_tc.cuh"
 
 namespace {
-
-// gemm::launch's product: in bf16 on the tensor cores unless cuda_cores
-template <typename T, bool kTransA, bool kTransB, int kEpi>
-cudaError_t gemm_launch(bool cuda_cores, const void* a, long long lda, float scale_a,
-                        const void* b, long long ldb, float scale_b, int M, int N, int K,
-                        int splits, void* out, const void* extra, float e0, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (!cuda_cores)
-      return gemm_tc::launch<kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K,
-                                                    splits, out, extra, e0, 0.f, stream);
-  }
-  return gemm::launch<T, kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K, splits,
-                                                 out, extra, e0, 0.f, stream);
-}
 
 struct Scratch {
   void* qkv;
@@ -87,25 +71,27 @@ cudaError_t run(const void* x, const void* wqkv, const void* wout, const void* g
     if (e_ != cudaSuccess) return e_;        \
   } while (0)
   // recompute the forward's qkv and y
-  CHECK((gemm_launch<T, false, false, gemm::kRound>(cc, x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c,
-                                                     1, s.qkv, nullptr, 0.f, stream)));
+  CHECK((gemm_tc::product<T, false, false, gemm::kRound>(cc, x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c,
+                                                         c, 1, s.qkv, nullptr, 0.f, 0.f, stream)));
   CHECK(cosine_attention::attention_fwd<T>(s.qkv, s.y, b, n, heads, hd, scale, stream));
   // dy = T(gout Wout^T), gout = T(g ts) staged from g
-  CHECK((gemm_launch<T, false, true, gemm::kRound>(cc, g, c, ts, wout, c, 1.f, m, c, c, 1, s.dy,
-                                                    nullptr, 0.f, stream)));
+  CHECK((gemm_tc::product<T, false, true, gemm::kRound>(cc, g, c, ts, wout, c, 1.f, m, c, c, 1,
+                                                        s.dy, nullptr, 0.f, 0.f, stream)));
   CHECK(cosine_attention::attention_bwd<T>(s.qkv, s.dy, s.y, s.dqkv, s.stats, b, n, heads, hd,
                                            scale, sqrt_hd, stream));
   // dx = T(T(dqkv Wqkv^T) + gout)
-  CHECK((gemm_launch<T, false, true, gemm::kAddScaled>(cc, s.dqkv, 3 * c, 1.f, wqkv, 3 * c, 1.f,
-                                                        m, c, 3 * c, 1, dx, g, ts, stream)));
+  CHECK((gemm_tc::product<T, false, true, gemm::kAddScaled>(cc, s.dqkv, 3 * c, 1.f, wqkv, 3 * c,
+                                                            1.f, m, c, 3 * c, 1, dx, g, ts, 0.f,
+                                                            stream)));
   // dWout = y^T gout and dWqkv = x^T dqkv, each over all m rows in `splits`
   // fp32 partials summed in order
-  CHECK((gemm_launch<T, true, false, gemm::kPartial>(cc, s.y, c, 1.f, g, c, ts, c, c, m, splits,
-                                                      s.partials, nullptr, 0.f, stream)));
+  CHECK((gemm_tc::product<T, true, false, gemm::kPartial>(cc, s.y, c, 1.f, g, c, ts, c, c, m,
+                                                          splits, s.partials, nullptr, 0.f, 0.f,
+                                                          stream)));
   CHECK(gemm::launch_reduce(s.partials, dwout, splits, (long long)c * c, stream));
-  CHECK((gemm_launch<T, true, false, gemm::kPartial>(cc, x, c, 1.f, s.dqkv, 3 * c, 1.f, c, 3 * c,
-                                                      m, splits, s.partials, nullptr, 0.f,
-                                                      stream)));
+  CHECK((gemm_tc::product<T, true, false, gemm::kPartial>(cc, x, c, 1.f, s.dqkv, 3 * c, 1.f, c,
+                                                          3 * c, m, splits, s.partials, nullptr,
+                                                          0.f, 0.f, stream)));
   CHECK(gemm::launch_reduce(s.partials, dwqkv, splits, 3LL * c * c, stream));
 #undef CHECK
   return cudaSuccess;

@@ -1,6 +1,6 @@
 // A bf16 matrix product on the tensor cores (Hopper, sm_90a), for the bf16
-// whole-block attention backward (attention_block_bwd.cu), with the contract
-// of gemm_common.cuh (its notes):
+// whole-block attention forward and backward (attention_block_{fwd,bwd}.cu),
+// with the contract of gemm_common.cuh (its notes):
 //
 //   out[m][n] = epilogue( sum_k A[m][k] B[k][n] )   over k in one split's range
 //
@@ -15,18 +15,28 @@
 // exact in fp32, so only the order of the fp32 sums differs from the
 // CUDA-core GEMM and from the plain version.
 //
-// What bounds it on an H100 SXM: at the block backward's CIFAR-10 shapes
-// (b n = 65536 rows, C = 256, N and K of C or 3C) each GEMM does 128 to 192
+// What bounds it on an H100 SXM: at the block kernels' CIFAR-10 shapes
+// (C = 256, N and K of C or 3C; the backward's b n = 65536 rows, the
+// forward's 32768 at n 256 and 8192 at n 64) each GEMM does 128 to 192
 // FLOP per byte of its operands and output, below the 295 at which bf16
-// products outrun 3.35 TB/s: alone, each is bound by bytes (the qkv GEMM's
-// 134 MB, 0.040 ms, against its 25.8 GFLOP, 0.026 ms).
+// products outrun 3.35 TB/s: alone, each is bound by bytes (the backward's
+// qkv GEMM 134 MB, 0.040 ms, against its 25.8 GFLOP, 0.026 ms; the
+// forward's at b 128, n 256 67 MB, 0.020 ms, against 12.9 GFLOP, 0.013 ms).
 //
-// Design: a block of 8 warps computes a 128 x 128 tile of out, each warp a
-// 64 x 32 part of it in fp32 registers (4 x 4 mma.sync.m16n8k16 tiles),
-// over k tiles of 32. Operands are staged into shared memory in the
-// source's own layout (rows of 32 or 128 contiguous values, padded by 8
-// for ldmatrix without bank conflicts) in a ring of kStages k tiles, the
-// next ones in flight while one multiplies, one barrier per k tile:
+// Design: a block of 8 warps computes a kBM x 128 tile of out, each warp a
+// (kBM / 2) x 32 part of it in fp32 registers (kMI x 4 mma.sync.m16n8k16
+// tiles), over k tiles of 32. kBM is 64 (kMI 2) where a block's range of k
+// is at most 256 (8 k tiles: both forward GEMMs, the backward's qkv and dy),
+// else 128 (kMI 4: the backward's dx, K = 3C, and weight gradients, 1024
+// rows a split). With few k tiles the ring's fill and the epilogue weigh
+// more, and twice the blocks overlap them; over many, the larger tile's
+// reuse of each staged operand wins (experiments/torch_block_fwd_sweep.py:
+// the forward at n 64 5% faster than on 128-row tiles; the rule "64 rows
+// where 128-row tiles give less than a wave" made the backward 2% slower).
+// Operands are staged into shared memory in the source's own layout (rows
+// of 32, kBM or 128 contiguous values, padded by 8 for ldmatrix without
+// bank conflicts) in a ring of kStages k tiles, the next ones in flight
+// while one multiplies, one barrier per k tile:
 //   - an operand with scale 1, 16-byte aligned rows and a contiguous extent
 //     that is a multiple of 8, by 16-byte cp.async;
 //   - with another scale, by 16-byte loads into registers issued before the
@@ -47,6 +57,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "gemm_common.cuh"
 #include "mma_common.cuh"
 
@@ -58,11 +70,13 @@ using gemm::kPartial;
 using gemm::kResidual;
 using gemm::kRound;
 
-constexpr int kBM = 128;       // output rows per block
 constexpr int kBN = 128;       // output columns per block
 constexpr int kBK = 32;        // k depth per staged tile
 constexpr int kStages = 3;     // k tiles in shared memory: two in flight while one multiplies
-constexpr int kThreads = 256;  // 8 warps, 2 x 4, each 64 x 32 of the block tile
+constexpr int kThreads = 256;  // 8 warps, 2 x 4, each (16 kMI) x 32 of the block tile
+// output rows per block: kMI m16 tiles per warp, two warps down
+template <int kMI>
+constexpr int kBM = 32 * kMI;
 
 enum Mode { kAsync = 0, kScaled = 1, kElements = 2 };
 
@@ -163,23 +177,24 @@ __device__ __forceinline__ void store_pair(void* __restrict__ out, const bf16* _
 // block's barrier waits overlapping the other's products: ptxas spills 16
 // to 96 bytes a thread, and the block backward still runs 4 to 7% faster
 // than with one block of 185 registers (experiments/torch_block_gemm_sweep.py).
-template <bool kTransA, bool kTransB, int kEpi>
+template <int kMI, bool kTransA, bool kTransB, int kEpi>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_tc_kernel(Operand a, Operand b, int M, int N, int K, int k_chunk, void* __restrict__ out,
                    const bf16* __restrict__ extra, float e0, float e1, int pairs) {
+  constexpr int kRows = kBM<kMI>;
   // A as staged: [m][k], or [k][m] when transposed; B: [k][n], or [n][k]
-  using TA = Tile<kTransA ? kBK : kBM, kTransA ? kBM : kBK>;
+  using TA = Tile<kTransA ? kBK : kRows, kTransA ? kRows : kBK>;
   using TB = Tile<kTransB ? kBN : kBK, kTransB ? kBK : kBN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* a_s = reinterpret_cast<bf16*>(smem_raw);  // [kStages][TA::kSize]
   bf16* b_s = a_s + kStages * TA::kSize;           // [kStages][TB::kSize]
 
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int m0 = blockIdx.x * kRows, n0 = blockIdx.y * kBN;
   const int kb = blockIdx.z * k_chunk;
   const int ke = min(K, kb + k_chunk);
   const int steps = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;  // the warp's part of the tile
+  const int wm = (warp / 4) * 16 * kMI, wn = (warp % 4) * 32;  // the warp's part of the tile
 
   uint4 ra[TA::kPer], rb[TB::kPer];
   // k tile s into its stage (s % kStages); every call commits one cp.async group
@@ -205,9 +220,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     finish_scaled<TB>(b, b_s + (s % kStages) * TB::kSize, rb);
   };
 
-  float acc[4][4][4];
+  float acc[kMI][4][4];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int mi = 0; mi < kMI; ++mi) {
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj) {
 #pragma unroll
@@ -228,9 +243,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const bf16* bs = b_s + (s % kStages) * TB::kSize;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[4][4];
+      uint32_t af[kMI][4];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
+      for (int mi = 0; mi < kMI; ++mi) {
         if (kTransA)
           mma::ldmatrix_x4_trans(af[mi], as + (kk * 16 + mma::bn_row(lane)) * TA::kLd + wm +
                                              mi * 16 + mma::bn_col(lane));
@@ -248,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           mma::ldmatrix_x4_trans(bf, bs + (kk * 16 + mma::bk_row(lane)) * TB::kLd + wn + nj * 16 +
                                          mma::bk_col(lane));
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
+        for (int mi = 0; mi < kMI; ++mi) {
           float t0[4] = {}, t1[4] = {};  // this k16 step's sums, from zero
           mma::mma_bf16(t0, af[mi], bf[0], bf[1]);
           mma::mma_bf16(t1, af[mi], bf[2], bf[3]);
@@ -265,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const size_t plane = (size_t)blockIdx.z * M * N;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int mi = 0; mi < kMI; ++mi) {
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj) {
 #pragma unroll
@@ -286,9 +301,33 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// One launch of gemm_tc_kernel<kMI, ...> on an (m_tiles, n_tiles, splits) grid
+template <int kMI, bool kTransA, bool kTransB, int kEpi>
+cudaError_t launch_tiles(const Operand& a, const Operand& b, int M, int N, int K, int splits,
+                         int k_chunk, void* out, const void* extra, float e0, float e1,
+                         bool pairs, cudaStream_t stream) {
+  constexpr int kRows = kBM<kMI>;
+  const long long m_tiles = (M + kRows - 1) / kRows, n_tiles = (N + kBN - 1) / kBN;
+  if (m_tiles > 0x7fffffffLL || n_tiles > 65535 || splits > 65535)
+    return cudaErrorInvalidConfiguration;
+  using TA = Tile<kTransA ? kBK : kRows, kTransA ? kRows : kBK>;
+  using TB = Tile<kTransB ? kBN : kBK, kTransB ? kBK : kBN>;
+  const int smem = kStages * (TA::kSize + TB::kSize) * (int)sizeof(bf16);
+  auto kernel = gemm_tc_kernel<kMI, kTransA, kTransB, kEpi>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)m_tiles, (unsigned)n_tiles, (unsigned)splits);
+  kernel<<<grid, kThreads, smem, stream>>>(a, b, M, N, K, k_chunk, out,
+                                           static_cast<const bf16*>(extra), e0, e1,
+                                           pairs ? 1 : 0);
+  return cudaGetLastError();
+}
+
 // out (M, N) contiguous = epilogue(A B) over K, in `splits` ranges of k,
 // with gemm::launch's arguments and rules (kPartial writes one (M, N) fp32
-// partial per range; the other epilogues take splits = 1).
+// partial per range; the other epilogues take splits = 1). 64-row tiles
+// where a range of k is at most 8 k tiles, else 128-row ones.
 template <bool kTransA, bool kTransB, int kEpi>
 cudaError_t launch(const void* a, long long lda, float scale_a, const void* b, long long ldb,
                    float scale_b, int M, int N, int K, int splits, void* out,
@@ -297,9 +336,6 @@ cudaError_t launch(const void* a, long long lda, float scale_a, const void* b, l
   if (M < 1 || N < 1 || K < 1 || splits < 1 || (kEpi != kPartial && splits != 1))
     return cudaErrorInvalidValue;
   const int k_chunk = ((K + splits - 1) / splits + kBK - 1) / kBK * kBK;
-  const long long m_tiles = (M + kBM - 1) / kBM, n_tiles = (N + kBN - 1) / kBN;
-  if (m_tiles > 0x7fffffffLL || n_tiles > 65535 || splits > 65535)
-    return cudaErrorInvalidConfiguration;
   // 16-byte copies need aligned rows and a contiguous extent (A's K, or M
   // transposed; B's N, or K transposed) in whole 16-byte segments
   auto operand = [](const void* p, long long ld, long long extent, float scale) {
@@ -307,21 +343,33 @@ cudaError_t launch(const void* a, long long lda, float scale_a, const void* b, l
     return Operand{static_cast<const bf16*>(p), ld, scale,
                    !vec ? kElements : scale == 1.f ? kAsync : kScaled};
   };
-  using TA = Tile<kTransA ? kBK : kBM, kTransA ? kBM : kBK>;
-  using TB = Tile<kTransB ? kBN : kBK, kTransB ? kBK : kBN>;
-  const int smem = kStages * (TA::kSize + TB::kSize) * (int)sizeof(bf16);
-  auto kernel = gemm_tc_kernel<kTransA, kTransB, kEpi>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  const Operand oa = operand(a, lda, kTransA ? M : K, scale_a);
+  const Operand ob = operand(b, ldb, kTransB ? K : N, scale_b);
   // neighbouring outputs in one 4-byte (fp32: 8-byte) store
   auto aligned8 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; };
   const bool pairs = N % 2 == 0 && aligned8(out) && (extra == nullptr || aligned8(extra));
-  const dim3 grid((unsigned)m_tiles, (unsigned)n_tiles, (unsigned)splits);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      operand(a, lda, kTransA ? M : K, scale_a), operand(b, ldb, kTransB ? K : N, scale_b), M, N,
-      K, k_chunk, out, static_cast<const bf16*>(extra), e0, e1, pairs ? 1 : 0);
-  return cudaGetLastError();
+  if (k_chunk <= 8 * kBK)
+    return launch_tiles<2, kTransA, kTransB, kEpi>(oa, ob, M, N, K, splits, k_chunk, out, extra,
+                                                   e0, e1, pairs, stream);
+  return launch_tiles<4, kTransA, kTransB, kEpi>(oa, ob, M, N, K, splits, k_chunk, out, extra, e0,
+                                                 e1, pairs, stream);
+}
+
+// gemm::launch's product for the block kernels: in bf16 on the tensor cores
+// unless cuda_cores, which runs it on the CUDA-core GEMM that this one
+// replaced (a same-run comparison); fp32 always on the CUDA cores (tensor
+// cores in fp32 would be TF32).
+template <typename T, bool kTransA, bool kTransB, int kEpi>
+cudaError_t product(bool cuda_cores, const void* a, long long lda, float scale_a, const void* b,
+                    long long ldb, float scale_b, int M, int N, int K, int splits, void* out,
+                    const void* extra, float e0, float e1, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (!cuda_cores)
+      return launch<kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K, splits,
+                                            out, extra, e0, e1, stream);
+  }
+  return gemm::launch<T, kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K, splits,
+                                                 out, extra, e0, e1, stream);
 }
 
 }  // namespace gemm_tc

@@ -160,7 +160,7 @@ def _library(name: str) -> ctypes.CDLL:
     lib = load_library(name)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "attention_block_fwd":
-        lib.attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 3 + [ptr]
+        lib.attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32] * 3 + [ptr]
         lib.attention_block_fwd.restype = i32
     elif name == "attention_block_bwd":
         lib.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [f32] * 3 + [ptr]
@@ -398,6 +398,14 @@ def _check_block(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
 def attention_block_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
                          num_heads: int) -> torch.Tensor:
     """Launch the block forward's three kernels on the current stream."""
+    return _block_fwd(x, wqkv, wout, num_heads)
+
+
+def _block_fwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, num_heads: int,
+               cuda_cores: bool = False) -> torch.Tensor:
+    """``attention_block_cuda``; ``cuda_cores`` runs bf16's GEMMs on the
+    CUDA-core GEMM that the tensor-core GEMM replaced (chip_smoke.py times
+    the two in one run)."""
     b, n, c, hd = _check_block(x, wqkv, wout, num_heads)
     x, wqkv, wout = x.contiguous(), wqkv.contiguous(), wout.contiguous()
     lib = _library("attention_block_fwd")
@@ -410,8 +418,8 @@ def attention_block_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor
     with torch.cuda.device(x.device):
         err = lib.attention_block_fwd(
             x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), qkv.data_ptr(), y.data_ptr(),
-            out.data_ptr(), b, n, num_heads, hd, int(x.dtype == torch.bfloat16), scale, t, s,
-            stream,
+            out.data_ptr(), b, n, num_heads, hd, int(x.dtype == torch.bfloat16), int(cuda_cores),
+            scale, t, s, stream,
         )
     raise_on_error(lib, err, "attention_block_fwd")
     launch_counts["block_fwd", n] += 1
