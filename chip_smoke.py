@@ -48,8 +48,9 @@ with a non-zero exit code:
    weights with gain_out = 1, fused attention against fused="off" (relative
    L2 <= 1e-2), with exactly 11 forward kernel launches;
 8. CIFAR-10 Heun-32: tinyedm_tpu_torch.generate.generate() for 128 images at
-   batch 128 (693 launches, 128 PNGs, img/s and peak memory), then the same
-   solve with fused="off" (final fp32 samples within 2e-2 relative L2);
+   batch 128 (63 forwards, 693 launches, 128 PNGs, img/s and peak memory),
+   then the same solve with fused="off" (final fp32 samples within 2e-2
+   relative L2);
 9. CIFAR-10 training: the recipe's train step at full width (batch 256,
    bf16, dropout 0.13, seeded synthetic images, the recipe's steady lr):
    warm-up steps, then timed steps (ms/step, samples/s, peak memory), with
@@ -109,7 +110,38 @@ with a non-zero exit code:
     op on the CUDA-core kernel that the tensor-core kernel replaced, checked
     against the plain version and timed in the same run. bf16 runs the
     component products on the tensor cores (mma.sync), fp32 on the CUDA
-    cores.
+    cores;
+18. MNIST (class-conditional, 28x28x1, 87.19 M parameters, attention at
+    n = 196 and 49): the forward as phase 7 (7 + 8 launches), then CFG
+    Heun-32 through generate() at batch 128 with scale 2 (63 stacked
+    forwards at batch 256, 945 launches, 128 grey PNGs), the recipe's train
+    step at batch 128 with dropout 0.1 and label dropout 0.1 as phase 9 (7 +
+    8 forward and backward calls per step), and one make_eval_step call
+    (finite sum, count = batch; fused against unfused within 2e-2);
+19. CIFAR-10 DPM-Solver++(2M), 32 steps, through generate() at batch 128:
+    32 forwards, 352 launches, img/s beside phase 8's;
+20. CIFAR-10 churn Heun-32 (S_churn 40, S_min 0.05, S_max 50, S_noise
+    1.003) through generate(): 693 launches, the fused and unfused routes
+    with generators seeded alike; then the solver from one noise with one
+    generator seed twice (within 1e-5) and another (more than 1e-1 away);
+21. ImageNet-512 CFG Heun-32 through generate() at batch 32, scale 2 on
+    (0.28, 2.9]: the stacked forward (batch 64) at the 14 half-steps inside
+    the interval, 49 plain forwards, 945 launches, wall time beside phase
+    11's;
+22. ImageNet-512 autoguidance Heun-32: the seed-0 model guided by a seed-1
+    model from save_weights (generate(..., guide_weights=...)), scale 2:
+    126 forwards, 1890 launches;
+23. ImageNet-64 latents (experiments/conf/imagenet.yaml): the recipe's
+    train step as phase 9, 3 microbatches of 176 per step (Lightning's
+    accumulate_grad_batches), lr 0.01 per step, one EMA profile, then one
+    make_eval_step call with that profile.
+
+Phases 18-22 run generate() twice, with fused attention and with
+fused="off" (final samples within 2e-2 relative L2), and count the EDM
+forwards by batch size (a wrapper of EDM.forward) beside the launches. The
+forward kernel rows also hold the kernel at CFG's stacked batches (MNIST
+256, ImageNet-512 64), the backward rows at MNIST's 128 and ImageNet-64's
+176.
 
 Then one JSON line of per-kernel numbers, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -118,14 +150,17 @@ the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -138,14 +173,24 @@ HEADS = 4
 FUSED_FWD = "tinyedm_tpu/ops/fused_attention.py"
 # (config, batch, n, head dim, TPU kernel) of the fused kernels on each path:
 # the sampling batches (forward) and the training (micro)batches (backward)
+# (the stacked batch of CFG: twice the sampling batch), keyed by the path
+# whose run counts their launches
 FWD_SHAPES = [
     ("cifar10", 128, 256, 64, f"{FUSED_FWD}:102"), ("cifar10", 128, 64, 64, f"{FUSED_FWD}:253"),
     ("imagenet512", 32, 256, 144, f"{FUSED_FWD}:102"), ("imagenet512", 32, 64, 192, f"{FUSED_FWD}:253"),
+    ("mnist_cfg", 256, 196, 64, f"{FUSED_FWD}:102"), ("mnist_cfg", 256, 49, 128, f"{FUSED_FWD}:253"),
+    ("imagenet512_cfg", 64, 256, 144, f"{FUSED_FWD}:102"), ("imagenet512_cfg", 64, 64, 192, f"{FUSED_FWD}:253"),
 ]
 BWD_SHAPES = [
     ("cifar10", 256, 256, 64, f"{FUSED_FWD}:144"), ("cifar10", 256, 64, 64, f"{FUSED_FWD}:305"),
     ("imagenet512", 32, 256, 144, f"{FUSED_FWD}:144"), ("imagenet512", 32, 64, 192, f"{FUSED_FWD}:305"),
+    ("mnist", 128, 196, 64, f"{FUSED_FWD}:144"), ("mnist", 128, 49, 128, f"{FUSED_FWD}:305"),
+    ("imagenet", 176, 256, 144, f"{FUSED_FWD}:144"), ("imagenet", 176, 64, 192, f"{FUSED_FWD}:305"),
 ]
+# the run each FWD_SHAPES key's launches come from (phases 8, 11, 18, 21)
+FWD_PATHS = {"cifar10": "cifar10 Heun-32 batch", "imagenet512": "imagenet512 Heun-32 batch",
+             "mnist_cfg": "mnist CFG Heun-32 batch (stacked forwards)",
+             "imagenet512_cfg": "imagenet512 CFG Heun-32 batch on (0.28, 2.9] (all its forwards at this n)"}
 # flash shapes, 4 heads at batch 32: the ImageNet-512 channel plan at 32x32
 # (C = 384) and 64x64 (C = 192), and 4 heads of 64 at n = 1024 and 4096
 FLASH_SHAPES = [(1024, 96), (4096, 48), (1024, 64), (4096, 64)]
@@ -190,15 +235,27 @@ WINO_ODD = [(2, 2, 2, 24, 3), (2, 6, 6, 3, 20), (1, 4, 8, 20, 24), (3, 6, 4, 24,
 WINO_REPLACES = "tinyedm_tpu/ops/winograd.py:73"
 LATENT_MEAN = (5.81, 3.25, 0.12, -2.15)  # experiments/conf/imagenet512.yaml:74-75
 LATENT_STD = (4.17, 4.62, 3.71, 3.28)
-# per config: (sampling batch, image side, classes, Heun batch size, kernel
-# calls of one forward by token count, warm-up and timed train steps, lr
-# schedule count at which the full lr applies)
+# per config: sampling batch, image side, classes, kernel calls of one
+# forward by token count, the PNG color type and the PNG mapping (mean,
+# std) of its samples, warm-up and timed train steps, the lr schedule count
+# at which the full lr applies; "microbatch": the step batch is the
+# recipe's accumulation count times this (Lightning's
+# accumulate_grad_batches), else the recipe's batch is the step batch
 PATHS = {
-    "cifar10": dict(batch=128, side=32, classes=None, calls={256: 5, 64: 6},
+    "cifar10": dict(batch=128, side=32, classes=None, calls={256: 5, 64: 6}, color=2, denorm={},
                     warmup=3, timed=10, sched=200),
-    "imagenet512": dict(batch=32, side=64, classes=1000, calls={256: 7, 64: 8},
-                        warmup=2, timed=3, sched=10000),
+    "imagenet512": dict(batch=32, side=64, classes=1000, calls={256: 7, 64: 8}, color=6,
+                        denorm=dict(mean=LATENT_MEAN, std=LATENT_STD), warmup=2, timed=3, sched=10000),
+    # 28x28x1 digits: attention at 14x14 (4 heads of 64) and 7x7 (4 of 128);
+    # PNGs map the data range [-1, 1] onto [0, 1]
+    "mnist": dict(batch=128, side=28, classes=10, calls={196: 7, 49: 8}, color=0,
+                  denorm=dict(mean=(0.5,), std=(0.25,)), warmup=2, timed=3, sched=500),
+    # ImageNet-64 latents (experiments/conf/imagenet.yaml): 3 x 176 per step
+    "imagenet": dict(batch=32, side=64, classes=1000, calls={256: 7, 64: 8}, microbatch=176,
+                     warmup=2, timed=3, sched=10000),
 }
+CHURN = dict(s_churn=40.0, s_min=0.05, s_max=50.0, s_noise=1.003)  # EDM's ImageNet-64 settings
+CFG_INTERVAL = (0.28, 2.9)  # 14 of Heun-32's 63 half-steps lie in it
 
 
 def fail(msg: str) -> None:
@@ -621,17 +678,29 @@ def phase_flash_layer() -> dict[tuple[str, int], int]:
     return calls
 
 
+def _seeded(config: str, seed: int = 0, fused_form: str = "auto"):
+    """The config's model on the card with weights drawn from ``seed`` and
+    gain_out = 1 (at its init value 0 the output is c_skip * x whatever the
+    network computes)."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import build_model
+
+    model = build_model(config, "cuda", seed=seed, fused=fused_form)
+    with torch.no_grad():
+        model.denoiser.gain_out.fill_(1.0)
+    return model
+
+
 def _seeded_models(config: str, fused_form: str = "auto"):
     """The config's model with seeded weights and gain_out = 1 (at its init
     value 0 the output is c_skip * x whatever the network computes), in the
     attention form ``fused_form`` and unfused, with the same weights."""
     import torch
 
-    from tinyedm_tpu_torch.configs import build_model, model_from_config
+    from tinyedm_tpu_torch.configs import model_from_config
 
-    fused = build_model(config, "cuda", seed=0, fused=fused_form)
-    with torch.no_grad():
-        fused.denoiser.gain_out.fill_(1.0)
+    fused = _seeded(config, fused_form=fused_form)
     with torch.device("cuda"):
         unfused = model_from_config(config, fused="off").eval()
     unfused.load_state_dict(fused.state_dict())
@@ -683,13 +752,43 @@ def phase_forward(tag: str, config: str, fused, unfused, kind: str = "fwd") -> N
         fail(f"forward output {tuple(out.shape)} not finite or not {tuple(x.shape)}")
     err = rel_l2(out, ref)
     print(f"[{tag} forward] {config} EDM b={b} bf16, {kind} route: {sum(counts.values())} launches {_fmt(counts)}, "
-          f"flash launches 0 (the default topology attends at 16x16 and 8x8 only, n <= 256); "
+          f"flash launches 0 (the topology attends at n = {', '.join(map(str, sorted(p['calls'])))} only); "
           f"fused vs unfused rel L2 {err:.3g} (<= 1e-2)", flush=True)
     if not err <= 1e-2:
         fail(f"fused vs unfused forward rel L2 {err} > 1e-2")
 
 
-def phase_heun(tag: str, config: str, fused) -> dict[tuple[str, int], int]:
+@contextlib.contextmanager
+def _edm_forwards():
+    """Counts the EDM forwards by batch size while active (CFG's stacked
+    forwards run at twice the batch), through a wrapper of ``EDM.forward``:
+    a global module hook would put every module call on nn.Module's slow
+    path and slow the host-bound forward down."""
+    from tinyedm_tpu_torch.models.edm import EDM
+
+    by_batch = Counter()
+    forward = EDM.forward
+
+    def counted(self, noisy_image, *args, **kwargs):
+        by_batch[noisy_image.shape[0]] += 1
+        return forward(self, noisy_image, *args, **kwargs)
+
+    EDM.forward = counted
+    try:
+        yield by_batch
+    finally:
+        EDM.forward = forward
+
+
+def phase_sample(tag: str, config: str, fused, what: str, forwards: dict[int, int],
+                 beside: dict | None = None, guide=None, **options) -> dict:
+    """generate() for one batch of the config with the sampler and guidance
+    ``options`` (its keywords), 32 steps, the weights of ``fused`` (and
+    ``guide`` as the autoguidance model) saved with save_weights; then the
+    same with fused="off" (samples within 2e-2 relative L2). ``forwards``:
+    the EDM forwards expected by batch size. Returns the fused run's kernel
+    launches, img/s and seconds; ``beside`` (another run's) is printed
+    beside them."""
     import torch
 
     from tinyedm_tpu_torch.generate import generate
@@ -698,43 +797,76 @@ def phase_heun(tag: str, config: str, fused) -> dict[tuple[str, int], int]:
 
     p = PATHS[config]
     b = p["batch"]
-    latent = {} if config == "cifar10" else dict(mean=LATENT_MEAN, std=LATENT_STD)
     with tempfile.TemporaryDirectory() as tmp:
         weights = Path(tmp) / f"{config}_seed0.pt"
         save_weights(fused, weights, config)
         kwargs = dict(weights=str(weights), device="cuda", num_steps=32, seed=0, keep_samples=True,
-                      num_classes=p["classes"] or 0, **latent)
-        _clear_counts()
-        result = generate(str(Path(tmp) / "fused"), b, p["side"], b, **kwargs)
-        counts, flash = dict(fa.launch_counts), _flash_calls()
+                      num_classes=p["classes"] or 0, **p["denorm"], **options)
+        if guide is not None:
+            kwargs["guide_weights"] = str(Path(tmp) / f"{config}_guide.pt")
+            save_weights(guide, kwargs["guide_weights"], config)
+        with _edm_forwards() as seen:
+            _clear_counts()
+            result = generate(str(Path(tmp) / "fused"), b, p["side"], b, **kwargs)
+            counts, flash, by_batch = dict(fa.launch_counts), _flash_calls(), dict(seen)
         pngs = sorted((Path(tmp) / "fused").glob("*.png"))
         color_types = {png.read_bytes()[25] for png in pngs}  # IHDR's color type byte
         ref = generate(str(Path(tmp) / "off"), b, p["side"], b, fused="off", **kwargs)
-    expected = {("fwd", n): c * 63 for n, c in p["calls"].items()}
-    if counts != expected or flash:
-        fail(f"Heun-32 launched {counts} and flash {flash}, expected {expected} and none")
-    want_color = 6 if config == "imagenet512" else 2  # RGBA latents, RGB images
-    if len(pngs) != b or color_types != {want_color}:
-        fail(f"Heun-32 wrote {len(pngs)} PNGs of color types {color_types}, expected {b} of {want_color}")
+    expected = {("fwd", n): c * sum(forwards.values()) for n, c in p["calls"].items()}
+    if counts != expected or flash or by_batch != forwards:
+        fail(f"{what} launched {counts} and flash {flash} in forwards by batch {by_batch}, expected "
+             f"{expected}, none and {forwards}")
+    if len(pngs) != b or color_types != {p["color"]}:
+        fail(f"{what} wrote {len(pngs)} PNGs of color types {color_types}, expected {b} of {p['color']}")
     samples = torch.from_numpy(result["samples"])
     if not torch.isfinite(samples).all():
-        fail("Heun-32 samples not finite")
+        fail(f"{what} samples not finite")
     err = rel_l2(samples, torch.from_numpy(ref["samples"]))
-    print(f"[{tag} heun-32] {config}: {b} samples at batch {b}: {sum(counts.values())} launches "
-          f"{_fmt(counts)}, {len(pngs)} PNGs (color type {want_color}), {result['img_per_s']:.2f} img/s "
-          f"({result['seconds']:.3f} s), peak {result['peak_bytes'] / 2**30:.3f} GiB; unfused solve "
-          f"{ref['img_per_s']:.2f} img/s; fused vs unfused samples rel L2 {err:.3g} (<= 2e-2)", flush=True)
+    other = ""
+    if beside:
+        other = (f"; {beside['what']} in this run: {beside['img_per_s']:.2f} img/s ({beside['seconds']:.3f} s, "
+                 f"this run {result['seconds'] / beside['seconds']:.3f}x its wall time)")
+    print(f"[{tag} {what}] {config}: {b} samples at batch {b}: {sum(by_batch.values())} forwards by batch "
+          f"{dict(sorted(by_batch.items()))}, {sum(counts.values())} launches {_fmt(counts)}, {len(pngs)} PNGs "
+          f"(color type {p['color']}), {result['img_per_s']:.2f} img/s ({result['seconds']:.3f} s), peak "
+          f"{result['peak_bytes'] / 2**30:.3f} GiB; unfused solve {ref['img_per_s']:.2f} img/s; fused vs "
+          f"unfused samples rel L2 {err:.3g} (<= 2e-2){other}", flush=True)
     if not err <= 2e-2:
-        fail(f"fused vs unfused Heun-32 samples rel L2 {err} > 2e-2")
-    return counts
+        fail(f"fused vs unfused {what} samples rel L2 {err} > 2e-2")
+    return dict(counts=counts, img_per_s=result["img_per_s"], seconds=result["seconds"], what=f"{what} (phase {tag})")
 
 
-def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None = None) -> dict:
+def phase_churn_seeds(tag: str, fused) -> None:
+    """The churn solve's randomness is its generator's: the same seed twice
+    within 1e-5 relative L2, another seed more than 1e-1 away (same noise)."""
+    import torch
+
+    from tinyedm_tpu_torch.diffusion.solver import StochasticSolver
+
+    p = PATHS["cifar10"]
+    solver = StochasticSolver(num_steps=32, S_churn=CHURN["s_churn"], S_min=CHURN["s_min"],
+                              S_max=CHURN["s_max"], S_noise=CHURN["s_noise"])
+    x0 = torch.randn((p["batch"], 3, p["side"], p["side"]), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+    with torch.inference_mode():
+        a, b, c = (solver.solve(fused, x0, generator=torch.Generator(device="cuda").manual_seed(s))
+                   for s in (11, 11, 12))
+        same, other = rel_l2(b, a), rel_l2(c, a)
+    print(f"[{tag} churn seeds] cifar10 churn Heun-32 from one noise: the same generator seed twice rel L2 "
+          f"{same:.3g} (<= 1e-5), another seed {other:.3g} (> 1e-1)", flush=True)
+    if not (same <= 1e-5 and other > 1e-1):
+        fail(f"churn: same seed {same} (<= 1e-5), another seed {other} (> 1e-1)")
+
+
+def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None = None,
+                label_dropout: float = 0.0, eval_profiles: int | None = None) -> dict:
     """The config's recipe train step at full width on seeded synthetic
-    data, its attention in the form ``fused`` ("auto" or "block"); returns
-    the kernel calls of the warm-up and timed steps, ms/step, samples/s and
-    the peak memory. ``beside``: another form's numbers from this run, printed
-    beside these."""
+    data, its attention in the form ``fused`` ("auto" or "block"), with
+    ``label_dropout``; returns the kernel calls of the warm-up and timed
+    steps, ms/step, samples/s and the peak memory. ``beside``: another
+    form's numbers from this run, printed beside these. ``eval_profiles``:
+    then one make_eval_step call with that many EMA profiles on the last
+    batch (finite sums, count = batch), fused against unfused."""
     import torch
 
     from tinyedm_tpu_torch.configs import build_training, model_from_config
@@ -743,6 +875,7 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     from tinyedm_tpu_torch.training.state import is_weight_normed
     from tinyedm_tpu_torch.training.train_step import (
         init_train_state,
+        make_eval_step,
         make_grad_fn,
         make_train_step,
     )
@@ -750,7 +883,9 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     p = PATHS[config]
     model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", seed=0,
                                                                         fused=fused)
+    opt_cfg = dataclasses.replace(opt_cfg, label_dropout=label_dropout)
     a = opt_cfg.accum_steps
+    batch = a * p["microbatch"] if "microbatch" in p else batch
     steps = p["warmup"] + p["timed"]
     channels = model.denoiser.conv_in.weight.shape[1] - 1
     data = SyntheticDataModule(batch, image_size=p["side"], num_channels=channels,
@@ -807,7 +942,8 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     if beside:
         other = (f"; the fused=\"auto\" route in this run (phase 9): {beside['ms']:.3f} ms/step, "
                  f"{beside['samples_per_s']:.2f} samples/s, peak {beside['peak_gib']:.3f} GiB")
-    print(f"[{tag} train] {config} recipe b={batch} ({a} x {batch // a}) bf16 fused={fused!r}, {len(state.ema)} EMA "
+    print(f"[{tag} train] {config} recipe b={batch} ({a} x {batch // a}) bf16 fused={fused!r}, label dropout "
+          f"{label_dropout}, {len(state.ema)} EMA "
           f"profile(s), lr schedule count {count(0)} ({interval}): {p['warmup']} warm-up steps in "
           f"{time.perf_counter() - t_warm - seconds:.3f} s, {p['timed']} timed steps {ms:.3f} ms/step, "
           f"{batch / ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB; calls {_fmt(counts)}, flash 0; "
@@ -837,6 +973,26 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
           flush=True)
     if not err <= 2e-2:
         fail(f"fused={fused!r} vs unfused WN weight gradients rel L2 {err} > 2e-2")
+    if eval_profiles is not None:
+        del grads, ugrads
+        kw = dict(n_profiles=eval_profiles, use_ema=eval_profiles > 0)
+        _clear_counts()
+        out = make_eval_step(model, diffuser, **kw)(state, batches[-1], 0)
+        counts = _kernel_calls()
+        ref = make_eval_step(unfused, diffuser, **kw)(ustate, batches[-1], 0)
+        # one forward per profile; the EMA-weighted primary is profile 0's
+        expected = {("fwd", n): c * max(1, eval_profiles) for n, c in p["calls"].items()}
+        values = {k: float(v) for k, v in out.items()}
+        errs = {k: abs(values[k] - float(ref[k])) / abs(float(ref[k])) for k in out if k != "count"}
+        print(f"[{tag} eval] {config} make_eval_step b={batch}, {eval_profiles} EMA profile(s): {values}, "
+              f"calls {_fmt(counts)}; fused vs unfused relative difference {max(errs.values()):.3g} (<= 2e-2)",
+              flush=True)
+        if counts != expected:
+            fail(f"eval step launched {counts}, expected {expected}")
+        if not all(map(math.isfinite, values.values())) or values["count"] != batch:
+            fail(f"eval step: {values}, expected finite sums and count {batch}")
+        if not max(errs.values()) <= 2e-2:
+            fail(f"eval step fused vs unfused: {errs}")
     return result
 
 
@@ -1202,12 +1358,12 @@ def main() -> int:
     bwd_entries = phase_bwd_kernel_vs_plain()
     flash_entries = phase_flash_kernels()
     layer_calls = phase_flash_layer()
-    heun_counts, train_counts, train_results = {}, {}, {}
+    heun, train_counts, train_results = {}, {}, {}
     for tags, config in ((("7", "8", "9"), "cifar10"), (("10", "11", "12"), "imagenet512")):
         fused, unfused = _seeded_models(config)
         phase_forward(tags[0], config, fused, unfused)
         del unfused
-        heun_counts[config] = phase_heun(tags[1], config, fused)
+        heun[config] = phase_sample(tags[1], config, fused, "heun-32", {PATHS[config]["batch"]: 63})
         del fused
         torch.cuda.empty_cache()
         train_results[config] = phase_train(tags[2], config)
@@ -1222,15 +1378,60 @@ def main() -> int:
     block_train = phase_train("16", "cifar10", fused="block", beside=train_results["cifar10"])
     torch.cuda.empty_cache()
     wino_entries = phase_winograd()
-    # fused kernels: launches of one Heun-32 batch (forward) or of the
-    # training run (backward) of their config, with the calls per train step
+
+    # 18: MNIST (class-conditional): forward, CFG Heun-32 (stacked forwards
+    # at twice the batch), training with label dropout, the eval step
+    fused, unfused = _seeded_models("mnist")
+    phase_forward("18", "mnist", fused, unfused)
+    del unfused
+    b = PATHS["mnist"]["batch"]
+    mnist_cfg = phase_sample("18", "mnist", fused, "cfg heun-32", {2 * b: 63}, guidance_scale=2.0)
+    del fused
+    torch.cuda.empty_cache()
+    train_results["mnist"] = phase_train("18", "mnist", label_dropout=0.1, eval_profiles=0)
+    train_counts["mnist"] = train_results["mnist"]["counts"]
+    torch.cuda.empty_cache()
+    # 19-20: CIFAR-10 with DPM-Solver++(2M) and with churn
+    fused = _seeded("cifar10")
+    b = PATHS["cifar10"]["batch"]
+    phase_sample("19", "cifar10", fused, "dpm++(2m)-32", {b: 32}, beside=heun["cifar10"], solver="dpmpp2m")
+    phase_sample("20", "cifar10", fused, "churn heun-32", {b: 63}, beside=heun["cifar10"], **CHURN)
+    phase_churn_seeds("20", fused)
+    del fused
+    torch.cuda.empty_cache()
+    # 21-22: ImageNet-512 with CFG on an interval and with autoguidance
+    fused = _seeded("imagenet512")
+    b = PATHS["imagenet512"]["batch"]
+    imagenet_cfg = phase_sample(
+        "21", "imagenet512", fused, f"cfg heun-32 on {CFG_INTERVAL}", {2 * b: 14, b: 49}, beside=heun["imagenet512"],
+        guidance_scale=2.0, guidance_sigma_min=CFG_INTERVAL[0], guidance_sigma_max=CFG_INTERVAL[1])
+    guide = _seeded("imagenet512", seed=1)
+    phase_sample("22", "imagenet512", fused, "autoguidance heun-32", {b: 126}, beside=heun["imagenet512"],
+                 guide=guide, guidance_scale=2.0)
+    del fused, guide
+    torch.cuda.empty_cache()
+    # 23: ImageNet-64 training, the recipe's 3 x 176
+    train_results["imagenet"] = phase_train("23", "imagenet", eval_profiles=1)
+    train_counts["imagenet"] = train_results["imagenet"]["counts"]
+    torch.cuda.empty_cache()
+
+    # fused kernels: launches of one sampling batch of their path (forward)
+    # or of the training run of their config (backward), with the calls per
+    # train step
+    fwd_counts = {"cifar10": heun["cifar10"]["counts"], "imagenet512": heun["imagenet512"]["counts"],
+                  "mnist_cfg": mnist_cfg["counts"], "imagenet512_cfg": imagenet_cfg["counts"]}
     for e in fwd_entries + bwd_entries:
         direction = "bwd" if "bwd" in e["name"] else "fwd"
-        config, n = e.pop("config"), e.pop("n")
-        steps = PATHS[config]["warmup"] + PATHS[config]["timed"]
-        e["launches"] = (heun_counts if direction == "fwd" else train_counts)[config][direction, n]
-        e["launches_per_train_step"] = train_counts[config][direction, n] // steps
-        e["path"] = f"{config} Heun-32 batch" if direction == "fwd" else f"{config} training run"
+        key, n = e.pop("config"), e.pop("n")
+        if direction == "fwd":
+            e["launches"] = fwd_counts[key][direction, n]
+            e["path"] = FWD_PATHS[key]
+        else:
+            e["launches"] = train_counts[key][direction, n]
+            e["path"] = f"{key} training run"
+        if key in train_counts:
+            steps = PATHS[key]["warmup"] + PATHS[key]["timed"]
+            e["launches_per_train_step"] = train_counts[key][direction, n] // steps
     # flash kernels: the layer check's calls; the models' paths launch none
     for e in flash_entries:
         direction = "flash_bwd" if "bwd" in e["name"] else "flash_fwd"

@@ -3,9 +3,10 @@
     python experiments/torch_profile_heun.py [--config cifar10] [--batch N] [--forwards 3]
 
 Builds a model of tinyedm_tpu_torch (``--config cifar10``, batch 128 by
-default, or ``imagenet512``, the 64x64x4 latent model at batch 32 with seeded
-labels; seeded weights, gain_out = 1, bf16, fused attention) and runs the
-forward a Heun step makes, at sigma = 80:
+default, ``imagenet512``, the 64x64x4 latent model at batch 32 with seeded
+labels, or ``mnist``, 28x28x1 at batch 256, the stacked batch of CFG at a
+sampling batch of 128; seeded weights, gain_out = 1, bf16, fused attention)
+and runs the forward a Heun step makes, at sigma = 80:
 two warm-up forwards, then ``--forwards`` timed with CUDA events, then as
 many under torch.profiler. Prints the wall time per forward with the
 profiler off and on, the device kernel time per forward, the device's idle
@@ -45,8 +46,9 @@ GROUPS = [
 ]
 
 
-# per config: image side, default batch, classes (None: unconditional)
-PATHS = {"cifar10": (32, 128, None), "imagenet512": (64, 32, 1000)}
+# per config: image side, default batch, classes (None: unconditional);
+# mnist's default is CFG's stacked batch, twice the sampling batch of 128
+PATHS = {"cifar10": (32, 128, None), "imagenet512": (64, 32, 1000), "mnist": (28, 256, 10)}
 
 
 def group_of(name: str) -> str:
@@ -93,7 +95,8 @@ def summarize(prof, n: int, unit: str, wall_ms: float, profiled_ms: float) -> No
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", choices=sorted(PATHS), default="cifar10")
-    parser.add_argument("--batch", type=int, default=None, help="default: 128 (cifar10), 32 (imagenet512)")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="default: 128 (cifar10), 32 (imagenet512), 256 (mnist)")
     parser.add_argument("--forwards", type=int, default=3)
     args = parser.parse_args()
     side, default_batch, classes = PATHS[args.config]

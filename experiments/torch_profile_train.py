@@ -4,9 +4,11 @@
         [--fused block]
 
 Builds a training recipe of tinyedm_tpu_torch (``--config cifar10``: bf16,
-dropout 0.13, batch 256; or ``imagenet512``: 64x64x4 latents with 1000
+dropout 0.13, batch 256; ``imagenet512``: 64x64x4 latents with 1000
 classes, batch 128 in 4 microbatches, the uncertainty loss, two EMA
-profiles; seeded weights, seeded synthetic data already on the card), with
+profiles; ``mnist``: 28x28x1, 10 classes, dropout 0.1, batch 128;
+``imagenet``: ImageNet-64 latents, 3 microbatches of 176, one EMA profile;
+seeded weights, seeded synthetic data already on the card), with
 the attention route ``--fused`` passes to ``build_training`` (``auto``, the
 default: the fused attention kernels; ``block``: the whole-block kernels
 where they fit), runs three warm-up steps at the recipe's full lr (the schedule's
@@ -45,8 +47,13 @@ from torch_profile_heun import card, summarize  # noqa: E402
 
 WARMUP_STEPS = 3
 # per config: image side, classes, and a count of the lr schedule at which
-# the recipe's full lr applies (epochs for cifar10, steps for imagenet512)
-PATHS = {"cifar10": (32, 10, 200), "imagenet512": (64, 1000, 10000)}
+# the recipe's full lr applies (epochs for cifar10 and mnist, steps for the
+# ImageNet latents)
+PATHS = {"cifar10": (32, 10, 200), "imagenet512": (64, 1000, 10000), "mnist": (28, 10, 500),
+         "imagenet": (64, 1000, 10000)}
+# recipes whose step takes accumulation-count datamodule batches
+# (Lightning's accumulate_grad_batches: ImageNet-64's 3 x 176)
+LIGHTNING_BATCHES = {"imagenet"}
 
 
 @contextlib.contextmanager
@@ -83,6 +90,8 @@ def run(config: str, steps: int, recompute_island: bool, fused: str = "auto") ->
     smi = card()
     side, classes, sched = PATHS[config]
     model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", fused=fused, seed=0)
+    if config in LIGHTNING_BATCHES:
+        batch *= opt_cfg.accum_steps
     n_batches = WARMUP_STEPS + 2 * steps
     data = SyntheticDataModule(batch, image_size=side, num_channels=model.denoiser.conv_in.weight.shape[1] - 1,
                                num_samples=batch * n_batches, num_classes_=classes, seed=0)

@@ -165,10 +165,12 @@ def test_num_classes_must_match_the_model(latent_config, tmp_path, num_classes):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--guidance_scale", "2.0"], ["--S_churn", "1.0"], ["--solver", "dpmpp2m"],
+    "flag", [["--guide_ckpt_path", "runs/g"], ["--ckpt_step", "3"], ["--model_parallel", "2"],
              ["--ckpt_path", "runs/x"], ["--load_ema"]],
 )
 def test_unported_flags_raise(flag, tmp_path):
+    """The checkpoint and multi-GPU flags of the JAX CLI, not ported yet
+    (the sampler and guidance flags are: ``tests/test_torch_guidance.py``)."""
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--output_dir", str(tmp_path), "--num_samples", "1", "--batch_size", "1",
               "--device", "cpu", *flag])

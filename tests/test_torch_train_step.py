@@ -342,8 +342,17 @@ def test_step_invariants_and_dropout_draws():
 
 
 def test_unported_options_raise():
+    """label_dropout and log_norms_per_layer, which raised before they were
+    ported, build a step and run it (their parity with the JAX step:
+    ``tests/test_torch_train_options.py``); what still raises is a batch the
+    accumulation count does not split into equal microbatches."""
+    images, labels = next(SyntheticDataModule(4, image_size=16, num_samples=4).train_batches(0))
     model = _small_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, Diffuser(), OptimizerConfig(label_dropout=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, Diffuser(), OptimizerConfig(log_norms_per_layer=True))
+    opt_cfg = OptimizerConfig(label_dropout=0.1, log_norms_per_layer=True)
+    state = init_train_state(model, opt_cfg)
+    _, m = make_train_step(model, Diffuser(), opt_cfg)(
+        state, to_device(images, labels, "cpu"), torch.Generator().manual_seed(0), 0)
+    assert np.isfinite(float(m["train_loss"])) and "grad_norm/denoiser.conv_in" in m
+    with pytest.raises(ValueError, match="equal microbatches"):
+        make_train_step(model, Diffuser(), OptimizerConfig(accum_steps=3))(
+            state, to_device(images, labels, "cpu"), torch.Generator(), 0)

@@ -103,7 +103,42 @@ IMAGENET512 = {
     },
 }
 
-CONFIGS = {"cifar10": CIFAR10, "smoke": SMOKE, "imagenet512": IMAGENET512}
+# experiments/conf/mnist.yaml:24-43 (class-conditional 28x28x1 digits,
+# widths 128-512, 11 + 16 blocks: attention at 14x14 (n = 196, C 256) and
+# 7x7 (n = 49, C 512), 4 heads; dropout 0.1, bf16 compute)
+MNIST = {
+    "embedding": {"fourier_dim": 64, "embedding_dim": 256, "num_classes": 10},
+    "denoiser": {
+        "in_channels": 1,
+        "out_channels": 1,
+        "sigma_data": 0.5,
+        "embedding_dim": 256,
+        "encoder_block_types": ["Enc", "Enc", "Enc", "EncD", "EncA", "EncA", "EncA", "EncD",
+                                "EncA", "EncA", "EncA"],
+        "decoder_block_types": ["DecA", "Dec", "DecA", "DecA", "DecA", "DecA", "DecU", "DecA",
+                                "DecA", "DecA", "DecA", "DecU", "Dec", "Dec", "Dec", "Dec"],
+        "encoder_out_channels": [128] * 4 + [256] * 4 + [512] * 3,
+        "decoder_out_channels": [512] * 7 + [256] * 5 + [128] * 4,
+        "skip_connections": [
+            False, False, True, True, True, True,
+            False, True, True, True, True,
+            False, True, True, True, True,
+        ],
+        "dropout_rate": 0.1,
+        "dtype": "bfloat16",
+    },
+}
+
+# experiments/conf/imagenet.yaml:22-37 (ImageNet-64 latents: the ImageNet-512
+# model without use_pallas_attention; the YAML leaves the topology to the
+# Denoiser's defaults, as imagenet512.yaml does)
+IMAGENET = {
+    "embedding": dict(IMAGENET512["embedding"]),
+    "denoiser": {k: v for k, v in IMAGENET512["denoiser"].items() if k != "use_pallas_attention"},
+}
+
+CONFIGS = {"cifar10": CIFAR10, "smoke": SMOKE, "imagenet512": IMAGENET512, "mnist": MNIST,
+           "imagenet": IMAGENET}
 
 # experiments/conf/cifar10.yaml: the training recipe around the model block
 # (datamodule batch, the model block's diffuser and optimizer/EMA keys, the
@@ -143,7 +178,43 @@ IMAGENET512_TRAINING = {
     "every_n_steps": 1,
 }
 
-TRAINING = {"cifar10": CIFAR10_TRAINING, "imagenet512": IMAGENET512_TRAINING}
+# experiments/conf/mnist.yaml: per-epoch schedule, no EMA
+MNIST_TRAINING = {
+    "seed": 42,
+    "batch_size": 128,
+    "accumulate_grad_batches": 1,
+    "diffuser": {"P_std": 1.2, "P_mean": -1.2},
+    "use_uncertainty": False,
+    "lr": 0.01,
+    "steady_steps": 500,
+    "rampup_steps": 500,
+    "scheduler_interval": "epoch",
+    "use_ema": False,
+    "ema_length": 0.1,
+    "every_n_steps": 1,
+}
+
+# experiments/conf/imagenet.yaml: a per-step schedule and 3-way accumulation
+# of datamodule batches of 176 (Lightning's accumulate_grad_batches: a step
+# of 528 samples; the JAX step instead splits the batch it is given, and
+# 176 does not split in 3)
+IMAGENET_TRAINING = {
+    "seed": 42,
+    "batch_size": 176,
+    "accumulate_grad_batches": 3,
+    "diffuser": {"P_std": 1.0, "P_mean": -0.4},
+    "use_uncertainty": False,
+    "lr": 0.01,
+    "steady_steps": 70000,
+    "rampup_steps": 2000,
+    "scheduler_interval": "step",
+    "use_ema": True,
+    "ema_length": 0.13,
+    "every_n_steps": 1,
+}
+
+TRAINING = {"cifar10": CIFAR10_TRAINING, "imagenet512": IMAGENET512_TRAINING,
+            "mnist": MNIST_TRAINING, "imagenet": IMAGENET_TRAINING}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -1,21 +1,36 @@
-"""Generation CLI: Heun samples from random noise, written as PNGs.
+"""Generation CLI: samples from random noise, written as PNGs.
 
 Counterpart of ``tinyedm_tpu/generate.py`` with its flag names where they
 apply (``--output_dir --num_samples --image_size --num_classes --batch_size
---num_steps --seed --mean --std --solver_dtype``), plus ``--config`` (a name
-in ``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
-``utils.interop.save_weights``; without it the weights are a seeded init) and
-``--device`` (the card unless ``cpu`` is asked for). ``--num_classes`` has
-the JAX meaning (0: unconditional, else the class count) and must agree with
-the model; left out, the model's own count is taken. Examples:
+--num_steps --seed --mean --std --solver_dtype --solver --S_churn --S_noise
+--S_min --S_max --guidance_scale --guidance_sigma_min
+--guidance_sigma_max``), plus ``--config`` (a name in
+``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
+``utils.interop.save_weights``; without it the weights are a seeded init),
+``--guide_weights`` (autoguidance's guide model from such a file, the port's
+``--guide_ckpt_path``) and ``--device`` (the card unless ``cpu`` is asked
+for). ``--num_classes`` has the JAX meaning (0: unconditional, else the
+class count) and must agree with the model; left out, the model's own count
+is taken. The samplers: Heun (default), ``--solver dpmpp2m`` (DPM-Solver++
+(2M), one forward per step), and Heun with churn (``--S_churn > 0``, EDM
+Algorithm 2; its noise comes from a generator seeded from ``seed ^ 0xC4A2``
+and the batch index). Guidance follows the JAX CLI's rules: a scale alone is
+classifier-free guidance (one stacked forward of twice the batch), with
+``--guide_weights`` autoguidance; ``--guidance_sigma_min/max`` limit it to
+``min < sigma <= max``. Examples:
 
     python -m tinyedm_tpu_torch.generate --config cifar10 --output_dir samples \
         --num_samples 128 --batch_size 128 --num_steps 32
     python -m tinyedm_tpu_torch.generate --config imagenet512 --num_classes 1000 \
         --image_size 64 --mean 5.81 3.25 0.12 -2.15 --std 4.17 4.62 3.71 3.28 \
-        --output_dir latents --num_samples 32 --batch_size 32 --num_steps 32
+        --output_dir latents --num_samples 32 --batch_size 32 --num_steps 32 \
+        --guidance_scale 2.0 --guidance_sigma_min 0.28 --guidance_sigma_max 2.9
+    python -m tinyedm_tpu_torch.generate --config cifar10 --output_dir churn \
+        --num_samples 128 --batch_size 128 --S_churn 40 --S_min 0.05 --S_max 50 \
+        --S_noise 1.003
 
-A 4-channel (latent) sample is written as an RGBA PNG, as the JAX CLI does.
+A 4-channel (latent) sample is written as an RGBA PNG, as the JAX CLI does,
+a 1-channel one as a grey PNG.
 """
 
 from __future__ import annotations
@@ -29,20 +44,30 @@ import torch
 
 from tinyedm_tpu_torch.configs import build_model
 from tinyedm_tpu_torch.data.datamodules import RandomNoiseDataModule
-from tinyedm_tpu_torch.diffusion.solver import DeterministicSolver
+from tinyedm_tpu_torch.diffusion.guidance import (
+    NULL_LABEL,
+    autoguidance_denoise_fn,
+    cfg_denoise_fn,
+)
+from tinyedm_tpu_torch.diffusion.solver import (
+    DeterministicSolver,
+    MultistepSolver,
+    StochasticSolver,
+)
 from tinyedm_tpu_torch.training.callbacks import PreditionWriter
-from tinyedm_tpu_torch.utils.cuda import resolve_device
+from tinyedm_tpu_torch.utils.cuda import folded_generator, resolve_device
 from tinyedm_tpu_torch.utils.interop import load_weights
 
 CIFAR10_MEAN = (0.49139968, 0.48215841, 0.44653091)
 CIFAR10_STD = (0.24703223, 0.24348513, 0.26158784)
 
-# flags of the JAX CLI whose features later slices port (ROADMAP.md section 1)
+CHURN_SEED = 0xC4A2  # the churn generators' seed is seed ^ CHURN_SEED, as in the JAX CLI
+
+# flags of the JAX CLI whose features later slices port (ROADMAP.md section
+# 1): checkpoints and multi-GPU sampling
 _NOT_PORTED = (
     "ckpt_path", "load_ema", "ckpt_step", "ema_index", "model_parallel",
-    "S_churn", "S_noise", "S_min", "S_max", "solver",
-    "guidance_scale", "guide_ckpt_path", "guide_ckpt_step", "guide_ema_index",
-    "guidance_sigma_min", "guidance_sigma_max",
+    "guide_ckpt_path", "guide_ckpt_step", "guide_ema_index",
 )
 
 
@@ -53,6 +78,62 @@ def device_denormalize_uint8(x: torch.Tensor, mean: Sequence[float], std: Sequen
     std_t = torch.tensor(std, dtype=torch.float32, device=x.device).reshape(1, -1, 1, 1)
     y = x.float() * std_t * 2.0 + mean_t
     return (y.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def make_solver(solver: str, num_steps: int, solver_dtype: Optional[str], s_churn: float,
+                s_noise: float, s_min: float, s_max: float):
+    """The sampler the CLI's flags name: churn (``s_churn > 0``) is Heun's
+    stochastic form and does not combine with ``dpmpp2m``."""
+    if s_churn > 0:
+        if solver != "heun":
+            raise ValueError(
+                "--S_churn is the Heun stochastic sampler (EDM Algorithm 2); "
+                f"it does not compose with --solver {solver}"
+            )
+        return StochasticSolver(num_steps=num_steps, dtype=solver_dtype, S_churn=s_churn,
+                                S_noise=s_noise, S_min=s_min, S_max=s_max)
+    if solver == "dpmpp2m":
+        return MultistepSolver(num_steps=num_steps, dtype=solver_dtype)
+    if solver == "heun":
+        return DeterministicSolver(num_steps=num_steps, dtype=solver_dtype)
+    raise ValueError(f"unknown solver {solver!r} (heun | dpmpp2m)")
+
+
+def guidance_plan(guidance_scale: Optional[float], conditional: bool, autoguided: bool,
+                  sigma_min: float, sigma_max: float) -> tuple[Optional[float], Optional[tuple]]:
+    """(scale, interval) after the JAX CLI's rules: scale 1 without a guide
+    model is the conditional model (scale None: unguided, said on stdout);
+    CFG needs a conditional model; a guide model or an interval needs a
+    scale. The interval is None where it restricts nothing."""
+    guided = guidance_scale is not None
+    if guided and not autoguided and guidance_scale == 1.0:
+        print("[generate] guidance_scale 1.0 = conditional model; sampling unguided (no stacked forward)")
+        guided = False
+    if guided and not autoguided and not conditional:
+        raise ValueError("--guidance_scale needs a conditional model (or --guide_weights for autoguidance)")
+    if autoguided and not guided:
+        raise ValueError("--guide_weights needs --guidance_scale")
+    interval = None
+    if sigma_min > 0 or sigma_max != float("inf"):
+        if guidance_scale is None:
+            raise ValueError(
+                "--guidance_sigma_min/--guidance_sigma_max need --guidance_scale "
+                "(an interval without a scale would silently sample unguided)"
+            )
+        interval = (sigma_min, sigma_max)
+    return (guidance_scale if guided else None), interval
+
+
+def _load_model(config: str, weights: Optional[str], dev: torch.device, fused: str, seed: int):
+    """(config name, model): ``weights`` replace ``config`` by the name stored
+    with them and the seeded init by their values."""
+    state_dict = None
+    if weights is not None:
+        config, state_dict = load_weights(weights)
+    model = build_model(config, dev, fused=fused, seed=seed)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return config, model
 
 
 def generate(
@@ -70,31 +151,49 @@ def generate(
     solver_dtype: Optional[str] = None,
     seed: int = 0,
     num_classes: Optional[int] = None,
+    solver: str = "heun",
+    s_churn: float = 0.0,
+    s_noise: float = 1.0,
+    s_min: float = 0.0,
+    s_max: float = float("inf"),
+    guidance_scale: Optional[float] = None,
+    guide_weights: Optional[str] = None,
+    guidance_sigma_min: float = 0.0,
+    guidance_sigma_max: float = float("inf"),
     fused: str = "auto",
     keep_samples: bool = False,
 ) -> dict:
-    """Sample ``num_samples`` images with Heun and write them as PNGs.
+    """Sample ``num_samples`` images and write them as PNGs.
 
     ``weights`` replaces ``config`` by the config name stored with them.
     ``num_classes``: 0 for an unconditional model, else its class count
     (labels are drawn from that many classes); None takes the model's.
-    ``fused="off"`` runs the attention unfused (the comparison path).
-    Returns the image count, seconds, img/s, the device's peak memory (None
-    on the CPU) and, with ``keep_samples``, the fp32 NHWC samples."""
+    ``solver``, ``s_*``, ``guidance_*`` and ``guide_weights`` are the CLI's
+    flags (module docstring). ``fused="off"`` runs the attention unfused
+    (the comparison path), in the guide model too. Returns the image count,
+    seconds, img/s, the device's peak memory (None on the CPU) and, with
+    ``keep_samples``, the fp32 NHWC samples."""
+    sampler = make_solver(solver, num_steps, solver_dtype, s_churn, s_noise, s_min, s_max)
     dev = resolve_device(device)
-    state_dict = None
-    if weights is not None:
-        config, state_dict = load_weights(weights)
-    model = build_model(config, dev, fused=fused, seed=seed)
-    if state_dict is not None:
-        model.load_state_dict(state_dict)
+    config, model = _load_model(config, weights, dev, fused, seed)
     model_classes = model.embedding.num_classes if model.conditional else 0
     if num_classes is not None and num_classes != model_classes:
         raise ValueError(
             f"num_classes={num_classes} but the {config} model has "
             f"{model_classes or 'no'} classes (0 means unconditional)"
         )
-    solver = DeterministicSolver(num_steps=num_steps, dtype=solver_dtype)
+    scale, interval = guidance_plan(guidance_scale, model.conditional, guide_weights is not None,
+                                    guidance_sigma_min, guidance_sigma_max)
+    denoise_fn = model
+    if guide_weights is not None:
+        guide_config, guide = _load_model(config, guide_weights, dev, fused, seed)
+        print(f"[generate] autoguidance with the {guide_config} model from {guide_weights}")
+        denoise_fn = autoguidance_denoise_fn(model, guide, scale, interval)
+    elif scale == 0.0 and interval is None:
+        # fully unconditional: one null-label forward, no stacked batch
+        denoise_fn = lambda x, s, labels: model(x, s, torch.full_like(labels, NULL_LABEL))  # noqa: E731
+    elif scale is not None:
+        denoise_fn = cfg_denoise_fn(model, scale, interval)
     datamodule = RandomNoiseDataModule(
         batch_size=batch_size,
         image_size=image_size,
@@ -110,7 +209,7 @@ def generate(
     samples = []
     done = 0
     t0 = time.perf_counter()
-    for noise, labels, indices in datamodule.predict_batches():
+    for batch_index, (noise, labels, indices) in enumerate(datamodule.predict_batches()):
         n = len(indices)
         if n < batch_size:  # pad the tail batch: one batch shape throughout
             pad = batch_size - n
@@ -119,7 +218,11 @@ def generate(
         x0 = torch.from_numpy(noise).to(dev).permute(0, 3, 1, 2).contiguous()
         lab = torch.from_numpy(labels).to(dev) if model.conditional else None
         with torch.inference_mode():
-            x = solver.solve(model, x0, lab)
+            if isinstance(sampler, StochasticSolver):
+                churn = folded_generator(seed ^ CHURN_SEED, batch_index, dev)
+                x = sampler.solve(denoise_fn, x0, lab, generator=churn)
+            else:
+                x = sampler.solve(denoise_fn, x0, lab)
             images = device_denormalize_uint8(x, mean, std).permute(0, 2, 3, 1)
         writer.write_batch(images[:n].cpu().numpy(), indices)
         if keep_samples:
@@ -143,7 +246,7 @@ def generate(
 
 
 def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description="Sample images with the Heun solver")
+    parser = argparse.ArgumentParser(description="Sample images with Heun, DPM-Solver++(2M) or churn")
     parser.add_argument("--config", type=str, default="cifar10")
     parser.add_argument("--weights", type=str, default=None,
                         help="weights from save_weights (default: seeded init)")
@@ -160,14 +263,28 @@ def main(argv=None) -> None:
     parser.add_argument("--solver_dtype", type=str, default=None,
                         choices=[None, "float32", "bfloat16", "float64"])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--solver", type=str, default="heun", choices=["heun", "dpmpp2m"],
+                        help="Heun (2n-1 forwards) or DPM-Solver++(2M) (n forwards)")
+    parser.add_argument("--S_churn", type=float, default=0.0, help=">0: the stochastic (churn) Heun sampler")
+    parser.add_argument("--S_noise", type=float, default=1.0)
+    parser.add_argument("--S_min", type=float, default=0.0)
+    parser.add_argument("--S_max", type=float, default=float("inf"))
+    parser.add_argument("--guidance_scale", type=float, default=None,
+                        help="alone: classifier-free guidance (cond vs null label); with "
+                             "--guide_weights: autoguidance. 1 = the main model")
+    parser.add_argument("--guide_weights", type=str, default=None,
+                        help="autoguidance: a weaker model's weights from save_weights")
+    parser.add_argument("--guidance_sigma_min", type=float, default=0.0,
+                        help="guide only while guidance_sigma_min < sigma <= guidance_sigma_max")
+    parser.add_argument("--guidance_sigma_max", type=float, default=float("inf"))
     for flag in _NOT_PORTED:
         parser.add_argument(f"--{flag}", nargs="?", const=True, default=None, help="not ported yet")
     args = parser.parse_args(argv)
     given = [f"--{flag}" for flag in _NOT_PORTED if getattr(args, flag) is not None]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: not ported yet (guidance, churn, dpmpp2m, checkpoints "
-            "and multi-GPU sampling are later slices; see ROADMAP.md section 1)"
+            f"{', '.join(given)}: not ported yet (checkpoints and multi-GPU sampling are "
+            "later slices; see ROADMAP.md section 1)"
         )
     generate(
         args.output_dir,
@@ -183,6 +300,15 @@ def main(argv=None) -> None:
         solver_dtype=args.solver_dtype,
         seed=args.seed,
         num_classes=args.num_classes,
+        solver=args.solver,
+        s_churn=args.S_churn,
+        s_noise=args.S_noise,
+        s_min=args.S_min,
+        s_max=args.S_max,
+        guidance_scale=args.guidance_scale,
+        guide_weights=args.guide_weights,
+        guidance_sigma_min=args.guidance_sigma_min,
+        guidance_sigma_max=args.guidance_sigma_max,
     )
 
 

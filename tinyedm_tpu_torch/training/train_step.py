@@ -3,28 +3,30 @@
 Counterpart of ``tinyedm_tpu/training/train_step.py``: diffuse -> U-Net
 forward and backward in the compute dtype with fp32 islands -> fp32 weighted
 MSE -> Adam -> forced weight norm -> power-EMA update(s). The state is
-updated in place (``training/state.py``); randomness (diffuser draws, then
-dropout bits block by block) comes from one explicit generator.
-
-Not ported yet (ROADMAP.md): ``label_dropout`` (CFG training),
-``log_norms_per_layer`` and ``make_eval_step``.
+updated in place (``training/state.py``); randomness (label dropout, then
+diffuser draws, then dropout bits block by block, per microbatch) comes
+from one explicit generator. ``make_eval_step`` is the validation step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import defaultdict
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
-from tinyedm_tpu_torch.diffusion.loss import edm_training_loss
+from tinyedm_tpu_torch.diffusion.guidance import drop_labels
+from tinyedm_tpu_torch.diffusion.loss import edm_training_loss, weighted_sum_squared_error
 from tinyedm_tpu_torch.models.edm import EDM
 from tinyedm_tpu_torch.ops.precond import edm_loss_weight
 from tinyedm_tpu_torch.training.ema import EMAConfig, maybe_ema_update
 from tinyedm_tpu_torch.training.lr_schedule import edm_lr_multiplier
 from tinyedm_tpu_torch.training.state import TrainState, force_weight_norm
+from tinyedm_tpu_torch.utils.cuda import folded_generator
+from tinyedm_tpu_torch.utils.interop import jax_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +38,13 @@ class OptimizerConfig:
     steady_steps: int = 1
     accum_steps: int = 1  # gradient accumulation microbatches
     log_norms: bool = False  # global pre-clip grad norm and param norm as metrics
-    log_norms_per_layer: bool = False  # not ported yet
+    # also per depth-2 group of the JAX params tree (grad_norm/<top>.<child>,
+    # param_norm/<top>.<child>): pre-clip gradients, step-input params
+    log_norms_per_layer: bool = False
     grad_clip_norm: Optional[float] = None  # global-norm clipping; None = off
-    label_dropout: float = 0.0  # not ported yet
+    # CFG training: per-sample probability that a label becomes the null
+    # label -1 (conditional models only; 0 draws nothing)
+    label_dropout: float = 0.0
 
 
 def init_train_state(
@@ -98,13 +104,15 @@ def _global_norm(tensors) -> torch.Tensor:
 def make_grad_fn(model: EDM, diffuser: Diffuser, opt_cfg: OptimizerConfig) -> Callable:
     """grad_fn(state, images, labels, generator) -> (loss, metrics, grads):
     the step's loss and fp32 gradients in ``state.params`` order, averaged
-    over ``opt_cfg.accum_steps`` microbatches."""
-    if opt_cfg.label_dropout > 0.0:
-        raise NotImplementedError("label_dropout is not ported yet; see ROADMAP.md")
+    over ``opt_cfg.accum_steps`` equal microbatches (a batch they do not
+    divide raises, as the JAX step's reshape does)."""
     sigma_data = model.sigma_data
     conditional = model.conditional
+    label_dropout = float(opt_cfg.label_dropout) if conditional else 0.0
 
     def loss_fn(images, labels, generator):
+        if label_dropout > 0.0 and labels is not None:
+            labels = drop_labels(labels, label_dropout, generator)
         noisy, sigma = diffuser(images, generator)
         denoised, uncertainty = model.denoise_with_aux(
             noisy, sigma, labels if conditional else None, train=True, generator=generator
@@ -115,9 +123,12 @@ def make_grad_fn(model: EDM, diffuser: Diffuser, opt_cfg: OptimizerConfig) -> Ca
     def grad_fn(state: TrainState, images, labels, generator):
         params = list(state.params.values())
         a = opt_cfg.accum_steps
+        if images.shape[0] % a:
+            raise ValueError(f"a batch of {images.shape[0]} does not split into {a} equal microbatches")
+        m = images.shape[0] // a
         loss = grads = metrics = None
         for i in range(a):
-            mb = slice(i * images.shape[0] // a, (i + 1) * images.shape[0] // a)
+            mb = slice(i * m, (i + 1) * m)
             mloss, mmetrics = loss_fn(images[mb], labels[mb] if labels is not None else None,
                                       generator)
             mgrads = torch.autograd.grad(mloss, params, allow_unused=True)
@@ -149,8 +160,6 @@ def make_train_step(
     ``batch`` = (images NCHW fp32 normalized, labels or None), ``sched_count``
     the count the lr schedule reads (the epoch, in the CIFAR-10 recipe: the
     caller ticks it). Updates ``state`` in place and returns it."""
-    if opt_cfg.log_norms_per_layer:
-        raise NotImplementedError("log_norms_per_layer is not ported yet; see ROADMAP.md")
     grad_fn = make_grad_fn(model, diffuser, opt_cfg)
     gammas = ema_cfg.gammas if ema_cfg is not None else ()
     every_n = ema_cfg.every_n_steps if ema_cfg is not None else 1
@@ -158,6 +167,7 @@ def make_train_step(
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator], sched_count):
         images, labels = batch
         loss, metrics, grads = grad_fn(state, images, labels, generator)
+        per_layer = _per_layer_norms(state.params, grads) if opt_cfg.log_norms_per_layer else {}
 
         # pre-clip global norm, for the clip and for log_norms
         raw_gnorm = clip_scale = None
@@ -185,6 +195,80 @@ def make_train_step(
             out["param_norm"] = _global_norm(state.params.values())
             if clip_scale is not None:
                 out["clip_scale"] = clip_scale
+        out.update(per_layer)
         return state, out
 
     return train_step
+
+
+def _per_layer_norms(params: dict[str, torch.Tensor], grads: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+    """grad_norm/<group> and param_norm/<group> for every depth-2 group of
+    the JAX params tree (``utils.interop.jax_group``): the JAX step's
+    per-layer metric names."""
+    groups = defaultdict(list)
+    for i, name in enumerate(params):
+        groups[jax_group(name)].append(i)
+    values = list(params.values())
+    out = {}
+    for prefix, tensors in (("grad_norm", grads), ("param_norm", values)):
+        for group, members in sorted(groups.items()):
+            out[f"{prefix}/{group}"] = _global_norm(tensors[i] for i in members)
+    return out
+
+
+def make_eval_step(
+    model: EDM,
+    diffuser: Diffuser,
+    use_ema: bool = False,
+    ema_index: int = 0,
+    n_profiles: int = 0,
+) -> Callable:
+    """eval_step(state, batch, seed) -> {"sse", "count", ["sse_ema{i}"]}: the
+    validation step. Diffuse with the training law, denoise without dropout,
+    return the summed weighted error and the sample count for exact
+    averaging across batches.
+
+    ``batch`` is (images, labels) or (images, labels, mask): a per-sample
+    0/1 mask lets a caller pad a batch, its pad rows weighted 0 and left out
+    of the count. Sample ``i`` draws its sigma and noise from
+    ``folded_generator(seed, i)``, so a sample's draws do not depend on the
+    batch shape (pad rows shift no real row's draws). The weights are the
+    state's params, or with ``use_ema`` its EMA tree ``ema_index`` (through
+    ``torch.func.functional_call``, no swap). ``n_profiles > 0`` also
+    returns ``sse_ema{i}`` for the first ``n_profiles`` EMA trees on the
+    same draws."""
+    sigma_data = model.sigma_data
+    conditional = model.conditional
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, seed: int) -> dict[str, torch.Tensor]:
+        images, labels, *rest = batch
+        mask = rest[0] if rest else None
+        draws = [diffuser(images[i:i + 1], folded_generator(seed, i, images.device))
+                 for i in range(images.shape[0])]
+        noisy = torch.cat([d[0] for d in draws])
+        sigma = torch.cat([d[1] for d in draws])
+        weight = edm_loss_weight(sigma, sigma_data)
+        if mask is not None:
+            m = mask.float()
+            weight = weight * m
+            count = m.sum()
+        else:
+            count = torch.tensor(float(images.shape[0]), device=images.device)
+        args = (noisy, sigma, labels if conditional else None)
+
+        def sse_with(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+            denoised = torch.func.functional_call(model, tree, args)
+            return weighted_sum_squared_error(weight, denoised, images)[0]
+
+        profile_sse = {i: sse_with(state.ema[i]) for i in range(n_profiles)}
+        if use_ema:
+            primary = profile_sse[ema_index] if ema_index in profile_sse else sse_with(state.ema[ema_index])
+        else:
+            primary = sse_with(state.params)
+        out = {"sse": primary, "count": count}
+        for i, v in profile_sse.items():
+            out[f"sse_ema{i}"] = v
+        return out
+
+    return eval_step

@@ -1,5 +1,5 @@
 """CUDA runtime settings for the port's entry points (the counterpart of
-``tinyedm_tpu/utils/tpu.py``).
+``tinyedm_tpu/utils/tpu.py``), and seeded generators on a device.
 
 Entry points run on the card unless the caller asks for the CPU. There is no
 silent fallback: asking for the default device on a machine without CUDA
@@ -31,3 +31,21 @@ def set_precision() -> None:
     fp32 convolutions in TF32 unless told otherwise."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def fold_seed(seed: int, index: int) -> int:
+    """A 64-bit seed for the pair (seed, index), 0 <= both < 2**32: splitmix64
+    of ``seed << 32 | index``, so that the low 32 bits, all that the CPU
+    generator keeps, differ between pairs too."""
+    if not (0 <= seed < 2**32 and 0 <= index < 2**32):
+        raise ValueError(f"seed {seed} and index {index} must lie in [0, 2**32)")
+    z = (((seed << 32) | index) + 0x9E3779B97F4A7C15) % 2**64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2**64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2**64
+    return z ^ (z >> 31)
+
+
+def folded_generator(seed: int, index: int, device: torch.device | str) -> torch.Generator:
+    """A generator on ``device`` seeded with ``fold_seed(seed, index)``: the
+    port's ``jax.random.fold_in(PRNGKey(seed), index)``, one stream per pair."""
+    return torch.Generator(device=device).manual_seed(fold_seed(seed, index))

@@ -40,6 +40,7 @@ _WN_LAYERS = {
     "qkv_conv", "out_conv", "WNConv_0", "WNConv_1", "WNLinear_0", "WNLinear_1",
 }
 _LEAVES = {"gain", "gain_out", "freqs", "phases"}
+_JAX_NAMES = {v: k for k, v in _RENAMED.items()}
 _INDEXED = re.compile(r"^(encoder_blocks|decoder_blocks)_(\d+)$")
 
 
@@ -70,6 +71,20 @@ def _port_key(path: tuple) -> str:
         else:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no counterpart in the port ({name!r})")
     return ".".join(parts)
+
+
+def jax_group(port_key: str) -> str:
+    """The depth-2 group ``<top>.<child>`` of the JAX params tree that holds
+    the port parameter ``port_key`` (``denoiser.encoder_blocks.3.conv_1x1.weight``
+    -> ``denoiser.encoder_blocks_3``, ``u.linear.weight`` -> ``u.WNLinear_0``):
+    the names of the JAX train step's per-layer norms."""
+    top, *rest = port_key.split(".")
+    if not rest:
+        return top
+    child = rest[0]
+    if child in ("encoder_blocks", "decoder_blocks"):
+        return f"{top}.{child}_{rest[1]}"
+    return f"{top}.{_JAX_NAMES.get(child, child)}"
 
 
 def from_jax_variables(
