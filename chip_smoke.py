@@ -134,7 +134,24 @@ with a non-zero exit code:
 23. ImageNet-64 latents (experiments/conf/imagenet.yaml): the recipe's
     train step as phase 9, 3 microbatches of 176 per step (Lightning's
     accumulate_grad_batches), lr 0.01 per step, one EMA profile, then one
-    make_eval_step call with that profile.
+    make_eval_step call with that profile;
+24. the run loop at CIFAR-10 full width: synthetic CIFAR-10 pickle batches
+    (5 x 1024 train images, 1000 test images) in a temporary directory, then
+    tinyedm_tpu_torch.train.main on experiments/conf/cifar10.yaml (read by
+    the port's YAML reader) with the data and run directories, 2 epochs,
+    validation and checkpoints every epoch and the recipe's Heun-18 preview
+    of 80 samples every epoch: 40 steps of 256, the fused kernels' launches
+    (11 forward and 11 backward per loop step, 11 per validation batch and
+    per preview forward, exactly), finite train_loss, val_loss and
+    samples_per_sec rows at steps 20 and 40, one preview grid per epoch, the
+    checkpoint steps that top-3 retention keeps, the latest checkpoint
+    restored bit for bit (params, Adam mu, nu and count, EMA, step); one
+    validation, one save and one restore timed (and the MB on disk); the
+    loop's ms/step and samples/s beside phase 9's bare step; the peak
+    memory; then --resume --max-epochs 3 (the resume line, step 60, finite
+    losses) and generate --ckpt_path --load_ema for 128 samples (128 PNGs),
+    whose samples equal bit for bit those of generate() from the same EMA
+    weights passed as a weights file.
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
@@ -152,8 +169,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
+import pickle
 import re
 import statistics
 import subprocess
@@ -254,6 +273,11 @@ PATHS = {
     "imagenet": dict(batch=32, side=64, classes=1000, calls={256: 7, 64: 8}, microbatch=176,
                      warmup=2, timed=3, sched=10000),
 }
+# the run loop (phase 24): synthetic CIFAR-10 pickle batches, 5 x 1024 train
+# images (20 steps of 256 per epoch) and 1000 test images (a tail of 232)
+LOOP_TRAIN_BATCH, LOOP_TEST = 1024, 1000
+LOOP_EPOCHS, LOOP_RESUMED_EPOCHS = 2, 3
+LOOP_PREVIEW_FORWARDS = 2 * 18 - 1  # the recipe's Heun-18 preview
 CHURN = dict(s_churn=40.0, s_min=0.05, s_max=50.0, s_noise=1.003)  # EDM's ImageNet-64 settings
 CFG_INTERVAL = (0.28, 2.9)  # 14 of Heun-32's 63 half-steps lie in it
 
@@ -996,6 +1020,181 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     return result
 
 
+def _write_cifar10(directory: Path, seed: int = 0) -> None:
+    """CIFAR-10's python pickle batches with seeded uint8 images and labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    directory.mkdir(parents=True)
+    for name, n in [(f"data_batch_{i}", LOOP_TRAIN_BATCH) for i in range(1, 6)] + [("test_batch", LOOP_TEST)]:
+        batch = {b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8), b"labels": rng.integers(0, 10, n).tolist()}
+        with open(directory / name, "wb") as f:
+            pickle.dump(batch, f)
+
+
+def _run_train(args: list[str]):
+    """tinyedm_tpu_torch.train.main(args) with its output echoed; returns
+    (trainer, output, seconds to the end of the run on the card)."""
+    import torch
+
+    from tinyedm_tpu_torch import train
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        trainer = train.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        print(f"[24 run loop]   {line}", flush=True)
+    return trainer, out.getvalue(), seconds
+
+
+def phase_run_loop(smi: str, bare: dict) -> dict:
+    """The run loop at CIFAR-10 full width (docstring, phase 24). ``bare``:
+    phase 9's result, printed beside the loop's. Returns the fused kernels'
+    launches per loop step by (direction, n)."""
+    import numpy as np
+    import torch
+
+    from tinyedm_tpu_torch.configs import build_model
+    from tinyedm_tpu_torch.generate import generate
+    from tinyedm_tpu_torch.generate import main as generate_main
+    from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
+    from tinyedm_tpu_torch.utils.interop import save_weights
+
+    p = PATHS["cifar10"]
+    calls = p["calls"]  # fused launches of one forward, by n
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_cifar10(tmp / "cifar10")
+        run = tmp / "run"
+        args = ["--config-name=cifar10", f"--config-path={ROOT / 'experiments' / 'conf'}",
+                f"datamodule.data_dir={tmp / 'cifar10'}", f"trainer.out_dir={run}", f"trainer.max_epochs={LOOP_EPOCHS}",
+                "trainer.check_val_every_n_epoch=1", "callbacks.checkpoint_callback.every_n_epochs=1",
+                "callbacks.generate_callback.every_n_epochs=1"]
+        torch.cuda.reset_peak_memory_stats()
+        _clear_counts()
+        trainer, _, fit_s = _run_train(args)
+        counts, flash = _kernel_calls(), _flash_calls()
+        peak = torch.cuda.max_memory_allocated()
+        batch = trainer.datamodule.batch_size
+        spe = trainer.datamodule.steps_per_epoch()
+        steps = LOOP_EPOCHS * spe
+        val_batches = -(-LOOP_TEST // batch)
+        forwards = steps + LOOP_EPOCHS * (val_batches + LOOP_PREVIEW_FORWARDS)
+        expected = {(d, n): c * (forwards if d == "fwd" else steps) for n, c in calls.items() for d in ("fwd", "bwd")}
+        if trainer.global_step != steps or counts != expected or flash:
+            fail(f"run loop: {trainer.global_step} steps, launches {counts} and flash {flash}; expected {steps}, "
+                 f"{expected} and none")
+        # the loop's own: the forwards outside it are the validations' and previews'
+        outside = LOOP_EPOCHS * (val_batches + LOOP_PREVIEW_FORWARDS)
+        per_step = {(d, n): (c - (outside * calls[n] if d == "fwd" else 0)) // steps for (d, n), c in counts.items()}
+
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        epoch_rows = [r for r in rows if "samples_per_sec" in r]
+        val_rows = [r for r in rows if "val_loss" in r]
+        want = [spe * (e + 1) for e in range(LOOP_EPOCHS)]
+        finite = all(math.isfinite(r[k]) for r in epoch_rows for k in ("train_loss", "samples_per_sec"))
+        if [r["step"] for r in epoch_rows] != want or [r["step"] for r in val_rows] != want or not finite or \
+                not all(math.isfinite(r["val_loss"]) for r in val_rows):
+            fail(f"run loop metrics rows: epoch rows {epoch_rows}, val rows {val_rows}; expected finite rows at {want}")
+        grids = sorted(x.name for x in (run / "images").glob("Generated_*.png"))
+        if grids != [f"Generated_{e:07d}.png" for e in range(LOOP_EPOCHS)]:
+            fail(f"run loop previews: {grids}")
+        top_k = trainer.ckpt._max_to_keep
+        kept = sorted(sorted(want, key=lambda s: next(r["val_loss"] for r in val_rows if r["step"] == s))[:top_k])
+        on_disk = sorted(int(x.name) for x in (run / "checkpoints").iterdir() if x.name.isdigit())
+        if on_disk != kept:
+            fail(f"run loop checkpoints on disk {on_disk}, top-{top_k} retention keeps {kept}")
+
+        # the latest checkpoint restored bit for bit
+        restored, config = trainer.ckpt.restore(device="cuda")
+        live = trainer.state
+        trees = [(live.params, restored.params), (live.constants, restored.constants), (live.mu, restored.mu),
+                 (live.nu, restored.nu)] + list(zip(live.ema, restored.ema))
+        same = all(set(a) == set(b) and all(torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype for k in a)
+                   for a, b in trees)
+        if not (same and (restored.step, restored.count) == (live.step, live.count) and len(restored.ema) == 1):
+            fail("run loop: the restored checkpoint differs from the trained state")
+
+        # one validation, one save and one restore, timed on the card
+        _clear_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val_loss = trainer.validate()
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        val_counts = _kernel_calls()
+        if val_counts != {("fwd", n): c * val_batches for n, c in calls.items()} or not math.isfinite(val_loss):
+            fail(f"validation: val_loss {val_loss}, launches {val_counts}")
+        timed = CheckpointManager(tmp / "timed", max_to_keep=None, monitor=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed.save(live.step, live, config=config)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again, _ = timed.restore(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mb = (tmp / "timed" / str(live.step) / "state.pt").stat().st_size / 1e6
+        if not all(torch.equal(live.params[k], again.params[k]) for k in live.params):
+            fail("run loop: the timed save does not restore bit for bit")
+        del again, restored, trees, live, trainer
+        torch.cuda.empty_cache()
+        sps = epoch_rows[-1]["samples_per_sec"]
+        loop_ms = 1e3 * batch / sps
+        print(f"[24 run loop] cifar10.yaml via tinyedm_tpu_torch.train, {LOOP_EPOCHS} epochs x {spe} steps of {batch} "
+              f"(5 x {LOOP_TRAIN_BATCH} synthetic images; val {LOOP_TEST} = {val_batches} batches), {fit_s:.3f} s "
+              f"in all: launches {_fmt(counts)}, flash 0; per loop step {_fmt(per_step)}; train_loss "
+              f"{epoch_rows[0]['train_loss']:.4f} .. {epoch_rows[-1]['train_loss']:.4f}, val_loss "
+              f"{val_rows[0]['val_loss']:.4f} .. {val_rows[-1]['val_loss']:.4f}; previews {grids}; checkpoints "
+              f"{on_disk} (top-{top_k}), the latest restored bit for bit", flush=True)
+        print(f"[24 run loop] loop (epoch {LOOP_EPOCHS}, samples_per_sec of metrics.jsonl): {loop_ms:.3f} ms/step, "
+              f"{sps:.2f} samples/s; the bare train step in this run (phase 9): {bare['ms']:.3f} ms/step, "
+              f"{bare['samples_per_s']:.2f} samples/s (loop / bare {loop_ms / bare['ms']:.3f}); validation "
+              f"{val_s:.3f} s ({LOOP_TEST} images, {val_batches} batches); checkpoint save {save_s:.3f} s, restore "
+              f"{restore_s:.3f} s, {mb:.1f} MB on disk; peak {peak / 2**30:.3f} GiB | {smi}", flush=True)
+
+        # resume to the third epoch
+        resumed, out, resume_s = _run_train(args[:4] + [a for a in args[4:] if not a.startswith("trainer.max_epochs")]
+                                            + ["--resume", "--max-epochs", str(LOOP_RESUMED_EPOCHS)])
+        del resumed  # its model and state leave the card before the sampling runs
+        torch.cuda.empty_cache()
+        resumed_rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()][len(rows) + 1:]
+        line = f"[trainer] resumed at step {steps} (epoch {LOOP_EPOCHS})"
+        final = [r for r in resumed_rows if "samples_per_sec" in r]
+        end = LOOP_RESUMED_EPOCHS * spe
+        if line not in out or [r["step"] for r in final] != [end] or not all(
+                math.isfinite(v) for r in resumed_rows for k, v in r.items() if k != "time"):
+            fail(f"resume: expected {line!r} and finite rows ending at step {end}, got {resumed_rows}")
+        print(f"[24 run loop] --resume --max-epochs {LOOP_RESUMED_EPOCHS}: '{line}', ended at step {end} in "
+              f"{resume_s:.3f} s, train_loss {final[0]['train_loss']:.4f}, all {len(resumed_rows)} rows finite",
+              flush=True)
+
+        # sample the EMA checkpoint through the CLI, and from the same weights passed directly
+        ckpt = str(run / "checkpoints")
+        n = 128
+        generate_main(["--ckpt_path", ckpt, "--load_ema", "--num_samples", str(n), "--batch_size", str(n),
+                       "--output_dir", str(tmp / "cli")])
+        pngs = sorted((tmp / "cli").glob("*.png"))
+        from_ckpt = generate(str(tmp / "ckpt"), n, 32, n, ckpt_path=ckpt, load_ema=True, keep_samples=True)
+        state, _ = CheckpointManager(ckpt).restore()
+        model = build_model("cifar10", "cpu")
+        model.load_state_dict({**state.ema[0], **state.constants})
+        save_weights(model, tmp / "ema.pt", "cifar10")
+        direct = generate(str(tmp / "direct"), n, 32, n, weights=str(tmp / "ema.pt"), keep_samples=True)
+        same_png = all((tmp / "cli" / x.name).read_bytes() == (tmp / "direct" / x.name).read_bytes() for x in pngs)
+        equal = np.array_equal(from_ckpt["samples"], direct["samples"])
+        if len(pngs) != n or not same_png or not equal or not np.isfinite(direct["samples"]).all():
+            fail(f"generate --ckpt_path --load_ema: {len(pngs)} PNGs, PNGs equal {same_png}, samples equal {equal}")
+        print(f"[24 run loop] generate --ckpt_path --load_ema (step {state.step}): {len(pngs)} PNGs, samples equal bit "
+              f"for bit to generate() from the EMA weights as a weights file ({from_ckpt['img_per_s']:.2f} img/s "
+              f"Heun-32 at batch {n})", flush=True)
+    return per_step
+
+
 def _block_inputs(b, n, c, dtype, seed):
     """x, the effective weights wqkv and wout (unit-RMS rows / sqrt(C), as
     weight normalization leaves them), and a cotangent g."""
@@ -1414,6 +1613,9 @@ def main() -> int:
     train_results["imagenet"] = phase_train("23", "imagenet", eval_profiles=1)
     train_counts["imagenet"] = train_results["imagenet"]["counts"]
     torch.cuda.empty_cache()
+    # 24: the run loop at CIFAR-10 full width
+    loop_per_step = phase_run_loop(smi, train_results["cifar10"])
+    torch.cuda.empty_cache()
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -1432,6 +1634,8 @@ def main() -> int:
         if key in train_counts:
             steps = PATHS[key]["warmup"] + PATHS[key]["timed"]
             e["launches_per_train_step"] = train_counts[key][direction, n] // steps
+        if key == "cifar10":
+            e["launches_per_loop_step"] = loop_per_step[direction, n]
     # flash kernels: the layer check's calls; the models' paths launch none
     for e in flash_entries:
         direction = "flash_bwd" if "bwd" in e["name"] else "flash_fwd"

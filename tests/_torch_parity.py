@@ -60,6 +60,25 @@ def _jax_variables(seed: int) -> dict:
     return variables
 
 
+def smoke_jax_state():
+    """A JAX ``TrainState`` of the conditional small model, numpy leaves:
+    seed 0's params (gain_out 1) and constants, Adam moments drawn from a
+    seeded normal (``nu`` positive) with count 3, step 7, and one EMA tree,
+    seed 1's params, so that train and EMA weights differ."""
+    import optax
+
+    from tinyedm_tpu.training.state import TrainState as JaxTrainState
+
+    params, ema = _jax_variables(0)["params"], _jax_variables(1)["params"]
+    rng = np.random.default_rng(0)
+    mu = jax.tree_util.tree_map(lambda a: rng.standard_normal(np.shape(a)).astype(np.float32), params)
+    nu = jax.tree_util.tree_map(lambda a: np.abs(rng.standard_normal(np.shape(a))).astype(np.float32), params)
+    return JaxTrainState(
+        step=np.int32(7), params=params, constants=_jax_variables(0)["constants"],
+        opt_state=optax.ScaleByAdamState(count=np.int32(3), mu=mu, nu=nu), ema=(ema,),
+    )
+
+
 def small_models(num_classes, dtype: torch.dtype, seed: int = 0):
     """(jax_model, jax_variables, port_model) sharing JAX-initialized weights."""
     variables = dict(_jax_variables(seed))

@@ -6,12 +6,15 @@ init carried over by ``from_jax_variables`` and written with
 the port writes must decode to JAX's ``device_denormalize_uint8`` of the JAX
 Heun solve of the same noise, within 1 level (the fp32 solves differ by about
 1e-6 relative; a pixel near a level boundary may truncate either way).
+``generate --ckpt_path --load_ema`` from a port checkpoint agrees with the
+JAX CLI's from a JAX checkpoint of the same state within the same 1 level.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -164,16 +167,34 @@ def test_num_classes_must_match_the_model(latent_config, tmp_path, num_classes):
     assert not any(tmp_path.iterdir())
 
 
+# what each flag below raises without what it needs: multi-GPU sampling is
+# not ported; the checkpoint flags are, and refuse to run without their
+# checkpoint or their guidance scale
+_FLAG_ERRORS = {
+    "--guide_ckpt_path": (ValueError, "needs --guidance_scale"),
+    "--ckpt_step": (ValueError, "need --ckpt_path"),
+    "--model_parallel": (NotImplementedError, "not ported"),
+    "--ckpt_path": (FileNotFoundError, "no checkpoint found"),
+    "--load_ema": (ValueError, "need --ckpt_path"),
+}
+
+
 @pytest.mark.parametrize(
     "flag", [["--guide_ckpt_path", "runs/g"], ["--ckpt_step", "3"], ["--model_parallel", "2"],
              ["--ckpt_path", "runs/x"], ["--load_ema"]],
 )
 def test_unported_flags_raise(flag, tmp_path):
-    """The checkpoint and multi-GPU flags of the JAX CLI, not ported yet
-    (the sampler and guidance flags are: ``tests/test_torch_guidance.py``)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--output_dir", str(tmp_path), "--num_samples", "1", "--batch_size", "1",
-              "--device", "cpu", *flag])
+    """The multi-GPU flag of the JAX CLI is not ported; its checkpoint flags
+    are (``tests/test_torch_trainer.py``, the JAX comparison below) and raise
+    without their checkpoint or scale, before anything is written (the
+    sampler and guidance flags: ``tests/test_torch_guidance.py``)."""
+    error, match = _FLAG_ERRORS[flag[0]]
+    args = ["--output_dir", str(tmp_path / "out"), "--num_samples", "1", "--batch_size", "1",
+            "--image_size", "16", "--device", "cpu", *flag]
+    if flag[0] != "--ckpt_path":  # a checkpoint carries its config
+        args += ["--config", "smoke"]
+    with pytest.raises(error, match=match):
+        main(args)
     assert not any(tmp_path.iterdir())
 
 
@@ -183,3 +204,62 @@ def test_default_device_is_the_card(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate(str(tmp_path), 1, 16, 1, config="smoke")
+
+
+def _smoke_fp32_model_block() -> dict:
+    from tinyedm_tpu.config.registry import load_config
+
+    model = load_config(Path(__file__).resolve().parent.parent / "experiments" / "conf" / "smoke.yaml")["model"]
+    model["denoiser"]["dtype"] = "float32"
+    return model
+
+
+def test_generate_from_checkpoint_matches_jax_cli(tmp_path, capsys):
+    """``generate --ckpt_path --load_ema`` from a port checkpoint against the
+    JAX CLI from a JAX (orbax) checkpoint of the same state (train weights
+    and a different EMA tree): the PNGs agree within 1 level. 5 samples at
+    batch 8 in both (the JAX CLI rounds its batch up to the 8 CPU devices,
+    and the noise stream depends on the batch)."""
+    from tinyedm_tpu.config.registry import deinstantiate as jax_deinstantiate
+    from tinyedm_tpu.config.registry import instantiate as jax_instantiate
+    from tinyedm_tpu.generate import main as jax_main
+    from tinyedm_tpu.training.checkpoint import save_checkpoint as jax_save_checkpoint
+    from tinyedm_tpu_torch.config.registry import deinstantiate, instantiate
+    from tinyedm_tpu_torch.training.checkpoint import save_checkpoint
+    from tinyedm_tpu_torch.utils.interop import train_state_from_jax
+
+    from tests._torch_parity import smoke_jax_state
+
+    model = _smoke_fp32_model_block()
+    jax_state = smoke_jax_state()
+    jax_save_checkpoint(tmp_path / "jax_ckpt", jax_state,
+                        config={"model": jax_deinstantiate(jax_instantiate(model)), "seed": 0})
+    save_checkpoint(tmp_path / "port_ckpt", train_state_from_jax(jax_state),
+                    config={"model": deinstantiate(instantiate(model)), "seed": 0})
+    common = ["--load_ema", "--num_samples", "5", "--batch_size", "8", "--image_size", "16",
+              "--num_classes", "10", "--num_steps", "3", "--seed", str(SEED)]
+    jax_main(["--ckpt_path", str(tmp_path / "jax_ckpt"), "--output_dir", str(tmp_path / "jax"), *common])
+    main(["--ckpt_path", str(tmp_path / "port_ckpt"), "--output_dir", str(tmp_path / "port"), "--device", "cpu",
+          *common])
+    assert capsys.readouterr().out.count("EMA weights loaded.") == 2
+    train = tmp_path / "train_weights"
+    main(["--ckpt_path", str(tmp_path / "port_ckpt"), "--output_dir", str(train), "--device", "cpu",
+          *common[1:]])
+    differs = 0
+    for i in range(5):
+        ours = np.asarray(Image.open(tmp_path / "port" / f"{i}.png").convert("RGB")).astype(int)
+        theirs = np.asarray(Image.open(tmp_path / "jax" / f"{i}.png").convert("RGB")).astype(int)
+        assert np.abs(ours - theirs).max() <= 1
+        differs += np.abs(ours - np.asarray(Image.open(train / f"{i}.png").convert("RGB")).astype(int)).max() > 1
+    assert differs == 5  # the EMA tree, not the train weights, was sampled
+
+
+def test_checkpoint_flags_exclude_weights_and_config(tmp_path):
+    for extra in (["--weights", "w.pt"], ["--config", "smoke"]):
+        with pytest.raises(ValueError, match="--ckpt_path excludes"):
+            main(["--ckpt_path", str(tmp_path), "--output_dir", str(tmp_path / "o"), "--num_samples", "1",
+                  "--batch_size", "1", "--device", "cpu", *extra])
+    with pytest.raises(ValueError, match="exclude each other"):
+        main(["--config", "smoke", "--guide_ckpt_path", str(tmp_path), "--guide_weights", "w.pt",
+              "--output_dir", str(tmp_path / "o"), "--num_samples", "1", "--batch_size", "1", "--device", "cpu"])
+    assert not (tmp_path / "o").exists()

@@ -5,8 +5,12 @@ in ``diffusion.solver``; classifier-free guidance and autoguidance in
 ``diffusion.guidance``; the generation CLI ``generate``) and trains
 (``training.train_step``, the recipes of ``configs.build_training``: CIFAR-10,
 MNIST, ImageNet-64 and ImageNet-512 latents), with every attention kernel of
-the JAX package as hand-written CUDA (``csrc/``, built on first use). Entry
-points run on the card unless ``device="cpu"`` is asked for.
+the JAX package as hand-written CUDA (``csrc/``, built on first use). The
+run loop reads ``experiments/conf/*.yaml`` (``config``), feeds the data
+modules (``data``) to the ``training.trainer.Trainer`` (validation,
+checkpoints, previews, resume) behind the CLI ``train``; ``generate
+--ckpt_path`` samples what it saved. Entry points run on the card unless
+``device="cpu"`` is asked for.
 """
 
 from tinyedm_tpu_torch.configs import CONFIGS, build_model, build_training

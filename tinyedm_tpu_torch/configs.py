@@ -275,6 +275,7 @@ def build_training(
         lr=t["lr"],
         rampup_steps=t["rampup_steps"],
         steady_steps=t["steady_steps"],
+        scheduler_interval=t["scheduler_interval"],
         accum_steps=t["accumulate_grad_batches"],
     )
     ema_cfg = (

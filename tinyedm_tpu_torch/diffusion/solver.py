@@ -37,6 +37,9 @@ _DTYPES = {
     "float64": torch.float64,
     "float16": torch.float16,
 }
+# a config's solver dtype reaches the solver as a torch dtype (the registry
+# turns every ``dtype`` string into one, as the JAX registry does)
+_DTYPES.update({d: d for d in (torch.float32, torch.bfloat16, torch.float64, torch.float16)})
 
 
 def karras_sigma_schedule(
@@ -66,7 +69,7 @@ class DeterministicSolver:
     sigma_min: float = 0.002
     sigma_max: float = 80.0
     rho: float = 7.0
-    dtype: Optional[str] = None  # None | "float32" | "bfloat16" | "float64" | "float16"
+    dtype: Optional[str] = None  # None | "float32" | "bfloat16" | "float64" | "float16" (or that torch dtype)
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -4,14 +4,21 @@ Counterpart of ``tinyedm_tpu/generate.py`` with its flag names where they
 apply (``--output_dir --num_samples --image_size --num_classes --batch_size
 --num_steps --seed --mean --std --solver_dtype --solver --S_churn --S_noise
 --S_min --S_max --guidance_scale --guidance_sigma_min
---guidance_sigma_max``), plus ``--config`` (a name in
-``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
-``utils.interop.save_weights``; without it the weights are a seeded init),
-``--guide_weights`` (autoguidance's guide model from such a file, the port's
-``--guide_ckpt_path``) and ``--device`` (the card unless ``cpu`` is asked
-for). ``--num_classes`` has the JAX meaning (0: unconditional, else the
-class count) and must agree with the model; left out, the model's own count
-is taken. The samplers: Heun (default), ``--solver dpmpp2m`` (DPM-Solver++
+--guidance_sigma_max --ckpt_path --load_ema --ckpt_step --ema_index
+--guide_ckpt_path --guide_ckpt_step --guide_ema_index``), plus ``--config``
+(a name in ``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
+``utils.interop.save_weights``; without it, or a checkpoint, the weights are
+a seeded init), ``--guide_weights`` (autoguidance's guide model from such a
+file) and ``--device`` (the card unless ``cpu`` is asked for).
+``--ckpt_path`` is a trainer's checkpoint directory (``<out_dir>/checkpoints``
+of ``tinyedm_tpu_torch.train``): the model is rebuilt from the config it
+carries, with the train weights or, with ``--load_ema``, the EMA tree
+``--ema_index``, at ``--ckpt_step`` (the latest by default); it excludes
+``--weights`` and ``--config``, and ``--guide_ckpt_path`` (loaded with the
+same ``--load_ema``) excludes ``--guide_weights``; with ``--load_ema`` it
+prints "EMA weights loaded.", as the JAX CLI does. ``--num_classes`` has the
+JAX meaning (0: unconditional, else the class count) and must agree with the
+model; left out, the model's own count is taken. The samplers: Heun (default), ``--solver dpmpp2m`` (DPM-Solver++
 (2M), one forward per step), and Heun with churn (``--S_churn > 0``, EDM
 Algorithm 2; its noise comes from a generator seeded from ``seed ^ 0xC4A2``
 and the batch index). Guidance follows the JAX CLI's rules: a scale alone is
@@ -25,6 +32,8 @@ classifier-free guidance (one stacked forward of twice the batch), with
         --image_size 64 --mean 5.81 3.25 0.12 -2.15 --std 4.17 4.62 3.71 3.28 \
         --output_dir latents --num_samples 32 --batch_size 32 --num_steps 32 \
         --guidance_scale 2.0 --guidance_sigma_min 0.28 --guidance_sigma_max 2.9
+    python -m tinyedm_tpu_torch.generate --ckpt_path runs/cifar10/checkpoints --load_ema \
+        --output_dir samples --num_samples 128 --batch_size 128
     python -m tinyedm_tpu_torch.generate --config cifar10 --output_dir churn \
         --num_samples 128 --batch_size 128 --S_churn 40 --S_min 0.05 --S_max 50 \
         --S_noise 1.003
@@ -55,6 +64,7 @@ from tinyedm_tpu_torch.diffusion.solver import (
     StochasticSolver,
 )
 from tinyedm_tpu_torch.training.callbacks import PreditionWriter
+from tinyedm_tpu_torch.training.checkpoint import load_edm_from_checkpoint
 from tinyedm_tpu_torch.utils.cuda import folded_generator, resolve_device
 from tinyedm_tpu_torch.utils.interop import load_weights
 
@@ -63,12 +73,9 @@ CIFAR10_STD = (0.24703223, 0.24348513, 0.26158784)
 
 CHURN_SEED = 0xC4A2  # the churn generators' seed is seed ^ CHURN_SEED, as in the JAX CLI
 
-# flags of the JAX CLI whose features later slices port (ROADMAP.md section
-# 1): checkpoints and multi-GPU sampling
-_NOT_PORTED = (
-    "ckpt_path", "load_ema", "ckpt_step", "ema_index", "model_parallel",
-    "guide_ckpt_path", "guide_ckpt_step", "guide_ema_index",
-)
+# flags of the JAX CLI whose features a later slice ports (ROADMAP.md
+# section 1, item 8): multi-GPU sampling
+_NOT_PORTED = ("model_parallel",)
 
 
 def device_denormalize_uint8(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
@@ -112,7 +119,7 @@ def guidance_plan(guidance_scale: Optional[float], conditional: bool, autoguided
     if guided and not autoguided and not conditional:
         raise ValueError("--guidance_scale needs a conditional model (or --guide_weights for autoguidance)")
     if autoguided and not guided:
-        raise ValueError("--guide_weights needs --guidance_scale")
+        raise ValueError("a guide model (--guide_weights or --guide_ckpt_path) needs --guidance_scale")
     interval = None
     if sigma_min > 0 or sigma_max != float("inf"):
         if guidance_scale is None:
@@ -136,14 +143,26 @@ def _load_model(config: str, weights: Optional[str], dev: torch.device, fused: s
     return config, model
 
 
+def _load_checkpoint_model(ckpt_path: str, step: Optional[int], load_ema: bool, ema_index: int,
+                           dev: torch.device, fused: str):
+    """(a name for messages, model) from a trainer's checkpoint directory."""
+    _, model, _, state = load_edm_from_checkpoint(ckpt_path, step=step, load_ema=load_ema,
+                                                  ema_index=ema_index, device=dev, fused=fused)
+    return f"checkpoint step {state.step}", model
+
+
 def generate(
     output_dir: str,
     num_samples: int,
     image_size: int,
     batch_size: int,
     *,
-    config: str = "cifar10",
+    config: Optional[str] = None,
     weights: Optional[str] = None,
+    ckpt_path: Optional[str] = None,
+    load_ema: bool = False,
+    ckpt_step: Optional[int] = None,
+    ema_index: int = 0,
     device: Optional[str] = None,
     num_steps: int = 32,
     mean: Sequence[float] = CIFAR10_MEAN,
@@ -158,6 +177,9 @@ def generate(
     s_max: float = float("inf"),
     guidance_scale: Optional[float] = None,
     guide_weights: Optional[str] = None,
+    guide_ckpt_path: Optional[str] = None,
+    guide_ckpt_step: Optional[int] = None,
+    guide_ema_index: int = 0,
     guidance_sigma_min: float = 0.0,
     guidance_sigma_max: float = float("inf"),
     fused: str = "auto",
@@ -165,7 +187,12 @@ def generate(
 ) -> dict:
     """Sample ``num_samples`` images and write them as PNGs.
 
-    ``weights`` replaces ``config`` by the config name stored with them.
+    ``weights`` replaces ``config`` (cifar10 by default) by the config name
+    stored with them. ``ckpt_path`` (a trainer's checkpoint directory)
+    replaces both: the model comes from its embedded config, with the train
+    weights or, with ``load_ema``, EMA tree ``ema_index``, at ``ckpt_step``
+    (the latest by default); ``guide_ckpt_path`` likewise gives the
+    autoguidance model in place of ``guide_weights``.
     ``num_classes``: 0 for an unconditional model, else its class count
     (labels are drawn from that many classes); None takes the model's.
     ``solver``, ``s_*``, ``guidance_*`` and ``guide_weights`` are the CLI's
@@ -174,20 +201,36 @@ def generate(
     seconds, img/s, the device's peak memory (None on the CPU) and, with
     ``keep_samples``, the fp32 NHWC samples."""
     sampler = make_solver(solver, num_steps, solver_dtype, s_churn, s_noise, s_min, s_max)
+    if ckpt_path is not None and (weights is not None or config is not None):
+        raise ValueError("--ckpt_path excludes --weights and --config (the checkpoint carries its config)")
+    if ckpt_path is None and (load_ema or ckpt_step is not None):
+        raise ValueError("--load_ema and --ckpt_step need --ckpt_path")
+    if guide_ckpt_path is not None and guide_weights is not None:
+        raise ValueError("--guide_ckpt_path and --guide_weights exclude each other")
     dev = resolve_device(device)
-    config, model = _load_model(config, weights, dev, fused, seed)
+    if ckpt_path is not None:
+        config, model = _load_checkpoint_model(ckpt_path, ckpt_step, load_ema, ema_index, dev, fused)
+        if load_ema:
+            print("EMA weights loaded.")
+    else:
+        config, model = _load_model(config or "cifar10", weights, dev, fused, seed)
     model_classes = model.embedding.num_classes if model.conditional else 0
     if num_classes is not None and num_classes != model_classes:
         raise ValueError(
             f"num_classes={num_classes} but the {config} model has "
             f"{model_classes or 'no'} classes (0 means unconditional)"
         )
-    scale, interval = guidance_plan(guidance_scale, model.conditional, guide_weights is not None,
+    guide_source = guide_weights if guide_ckpt_path is None else guide_ckpt_path
+    scale, interval = guidance_plan(guidance_scale, model.conditional, guide_source is not None,
                                     guidance_sigma_min, guidance_sigma_max)
     denoise_fn = model
-    if guide_weights is not None:
-        guide_config, guide = _load_model(config, guide_weights, dev, fused, seed)
-        print(f"[generate] autoguidance with the {guide_config} model from {guide_weights}")
+    if guide_source is not None:
+        if guide_ckpt_path is not None:
+            guide_config, guide = _load_checkpoint_model(guide_ckpt_path, guide_ckpt_step, load_ema,
+                                                         guide_ema_index, dev, fused)
+        else:
+            guide_config, guide = _load_model(config, guide_weights, dev, fused, seed)
+        print(f"[generate] autoguidance with the {guide_config} model from {guide_source}")
         denoise_fn = autoguidance_denoise_fn(model, guide, scale, interval)
     elif scale == 0.0 and interval is None:
         # fully unconditional: one null-label forward, no stacked batch
@@ -247,7 +290,7 @@ def generate(
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="Sample images with Heun, DPM-Solver++(2M) or churn")
-    parser.add_argument("--config", type=str, default="cifar10")
+    parser.add_argument("--config", type=str, default=None, help="a configs.py name (default cifar10)")
     parser.add_argument("--weights", type=str, default=None,
                         help="weights from save_weights (default: seeded init)")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
@@ -274,6 +317,15 @@ def main(argv=None) -> None:
                              "--guide_weights: autoguidance. 1 = the main model")
     parser.add_argument("--guide_weights", type=str, default=None,
                         help="autoguidance: a weaker model's weights from save_weights")
+    parser.add_argument("--ckpt_path", type=str, default=None,
+                        help="a trainer's checkpoint directory (excludes --weights and --config)")
+    parser.add_argument("--load_ema", action="store_true", help="sample with the checkpoint's EMA weights")
+    parser.add_argument("--ckpt_step", type=int, default=None, help="checkpoint step (default: latest)")
+    parser.add_argument("--ema_index", type=int, default=0, help="EMA profile of a multi-profile checkpoint")
+    parser.add_argument("--guide_ckpt_path", type=str, default=None,
+                        help="autoguidance: the guide model's checkpoint directory")
+    parser.add_argument("--guide_ckpt_step", type=int, default=None)
+    parser.add_argument("--guide_ema_index", type=int, default=0)
     parser.add_argument("--guidance_sigma_min", type=float, default=0.0,
                         help="guide only while guidance_sigma_min < sigma <= guidance_sigma_max")
     parser.add_argument("--guidance_sigma_max", type=float, default=float("inf"))
@@ -283,8 +335,8 @@ def main(argv=None) -> None:
     given = [f"--{flag}" for flag in _NOT_PORTED if getattr(args, flag) is not None]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: not ported yet (checkpoints and multi-GPU sampling are "
-            "later slices; see ROADMAP.md section 1)"
+            f"{', '.join(given)}: not ported yet (multi-GPU sampling is a later slice; "
+            "see ROADMAP.md section 1, item 8)"
         )
     generate(
         args.output_dir,
@@ -293,6 +345,10 @@ def main(argv=None) -> None:
         args.batch_size,
         config=args.config,
         weights=args.weights,
+        ckpt_path=args.ckpt_path,
+        load_ema=args.load_ema,
+        ckpt_step=args.ckpt_step,
+        ema_index=args.ema_index,
         device=args.device,
         num_steps=args.num_steps,
         mean=tuple(args.mean),
@@ -307,6 +363,9 @@ def main(argv=None) -> None:
         s_max=args.S_max,
         guidance_scale=args.guidance_scale,
         guide_weights=args.guide_weights,
+        guide_ckpt_path=args.guide_ckpt_path,
+        guide_ckpt_step=args.guide_ckpt_step,
+        guide_ema_index=args.guide_ema_index,
         guidance_sigma_min=args.guidance_sigma_min,
         guidance_sigma_max=args.guidance_sigma_max,
     )

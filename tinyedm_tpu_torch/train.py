@@ -1,0 +1,117 @@
+"""Training CLI of the port: ``python -m tinyedm_tpu_torch.train --config-name=cifar10``.
+
+Counterpart of ``experiments/train.py``, with its surface: ``--config-name``
+picks ``<config-path>/<name>.yaml`` (``experiments/conf`` by default, read by
+the port's own YAML reader), trailing ``key=value`` arguments are dotted
+overrides (interpolations resolve after them, so overriding a source reaches
+its references), ``--resume`` continues from the latest checkpoint in the
+run's ``out_dir`` and ``--max-epochs`` replaces ``trainer.max_epochs``.
+``--device`` picks the device: the card by default, ``cpu`` when asked for.
+``--multihost`` (several processes) is not ported. Examples:
+
+    python -m tinyedm_tpu_torch.train --config-name=smoke --device cpu
+    python -m tinyedm_tpu_torch.train --config-name=cifar10 \\
+        datamodule.data_dir=/data/cifar10   # holds cifar-10-batches-py/
+    python -m tinyedm_tpu_torch.train --config-name=cifar10 --resume --max-epochs 300 \\
+        datamodule.data_dir=/data/cifar10
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from tinyedm_tpu_torch.config.registry import apply_overrides, deinstantiate, instantiate, load_config
+
+CONFIG_PATH = Path(__file__).resolve().parents[1] / "experiments" / "conf"
+
+
+def main(argv: Optional[list[str]] = None):
+    """Train as the command line says; returns the ``Trainer`` after ``fit``."""
+    parser = argparse.ArgumentParser(description="Train an EDM diffusion model with the PyTorch port")
+    parser.add_argument("--config-name", required=True, help="<config-path>/<name>.yaml")
+    parser.add_argument("--config-path", default=str(CONFIG_PATH))
+    parser.add_argument("--resume", action="store_true", help="resume from the latest checkpoint")
+    parser.add_argument("--max-epochs", type=int, default=None)
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    parser.add_argument("--multihost", action="store_true", help="not ported (one process, one GPU)")
+    parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    args = parser.parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError("--multihost: multi-process training is not ported (ROADMAP.md section 1, item 8)")
+
+    cfg = load_config(Path(args.config_path) / f"{args.config_name}.yaml", resolve=not args.overrides)
+    if args.overrides:
+        cfg = apply_overrides(cfg, args.overrides)
+    if args.max_epochs is not None:
+        cfg["trainer"]["max_epochs"] = args.max_epochs
+
+    from tinyedm_tpu_torch.training.trainer import Trainer
+    from tinyedm_tpu_torch.utils.cuda import resolve_device
+    from tinyedm_tpu_torch.utils.logging import MetricLogger
+
+    device = resolve_device(args.device)
+    seed = cfg.get("seed", 42)
+    tcfg = cfg.get("trainer", {})
+    # wandb.watch(model, log="all") of the reference: grad/param norms from the step
+    watch_cfg = cfg.get("wandb_watch") or {}
+    spec = instantiate(
+        cfg["model"],
+        accum_steps=tcfg.get("accumulate_grad_batches", 1),
+        log_norms=bool(watch_cfg.get("enabled", bool(watch_cfg))),
+        log_norms_per_layer=bool(watch_cfg.get("per_layer", False)),
+    )
+    datamodule = instantiate(cfg["datamodule"])
+    if hasattr(datamodule, "seed"):
+        datamodule.seed = seed
+
+    callbacks = []
+    ckpt_cfg = {}
+    for name, cb_cfg in (cfg.get("callbacks") or {}).items():
+        if name == "checkpoint_callback":
+            ckpt_cfg = cb_cfg or {}
+        elif cb_cfg and "_target_" in cb_cfg:
+            callbacks.append(instantiate(cb_cfg))
+
+    wandb_cfg = cfg.get("wandb_logger") or {}
+    out_dir = tcfg.get("out_dir", f"runs/{args.config_name}")
+    logger = MetricLogger(
+        out_dir,
+        use_wandb=bool(wandb_cfg.get("enabled", False)),
+        wandb_kwargs={k: v for k, v in wandb_cfg.items() if k != "enabled"},
+    )
+    trainer = Trainer(
+        spec=spec,
+        datamodule=datamodule,
+        max_epochs=tcfg.get("max_epochs", 1),
+        check_val_every_n_epoch=tcfg.get("check_val_every_n_epoch", 10),
+        callbacks=callbacks,
+        logger=logger,
+        out_dir=out_dir,
+        ckpt_every_n_epochs=ckpt_cfg.get("every_n_epochs", 100),
+        ckpt_top_k=ckpt_cfg.get("save_top_k", 3),
+        ckpt_save_last=ckpt_cfg.get("save_last", True),
+        ckpt_monitor=ckpt_cfg.get("monitor", "val_loss"),
+        ckpt_mode=ckpt_cfg.get("mode", "min"),
+        log_every_n_steps=tcfg.get("log_every_n_steps", 50),
+        seed=seed,
+        config={"model": deinstantiate(spec), "seed": seed},
+        zero1=bool(tcfg.get("zero1", False)),
+        model_parallel=int(tcfg.get("model_parallel", 1)),
+        device_preprocess=bool(tcfg.get("device_preprocess", False)),
+        device=device,
+    )
+    name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
+    print(f"device: {device}{name}", flush=True)
+    try:
+        trainer.fit(resume=args.resume)
+    finally:
+        logger.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

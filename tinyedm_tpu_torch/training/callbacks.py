@@ -1,8 +1,17 @@
-"""PNG writer for generated batches.
+"""Training callbacks (sample previews) and the PNG writer.
 
-Counterpart of ``tinyedm_tpu/training/callbacks.py::PreditionWriter`` (the
-reference's spelling kept). PNGs are encoded with the standard library
-(zlib + struct): the machine with the card has no Pillow.
+Counterpart of ``tinyedm_tpu/training/callbacks.py``: ``Callback``, the
+``make_grid`` tiling, ``GenerateCallback`` (every N epochs, solve from a
+fixed noise batch drawn at train start and log a grid of the samples),
+``LatentsGenerateCallback`` and ``PreditionWriter`` (the reference's
+spelling kept). The trainer drives the callbacks and hands them itself.
+PNGs are encoded with the standard library (zlib + struct): the machine with
+the card has no Pillow.
+
+``LatentsGenerateCallback`` logs a grid of the latents' first three channels:
+the VAE that would decode them is not ported (ROADMAP.md section 1, item 6),
+so it takes the branch the JAX callback takes when the VAE cannot be loaded,
+with the same warning.
 """
 
 from __future__ import annotations
@@ -10,9 +19,10 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -72,3 +82,138 @@ class PreditionWriter:
             images = (np.clip(images, 0.0, 1.0) * 255.0).astype(np.uint8)
         for index, image in zip(batch_indices, images):
             (self.output_dir / f"{index}.png").write_bytes(encode_png(image))
+
+
+class Callback:
+    """The hooks the trainer calls (a subset of Lightning's)."""
+
+    def on_train_start(self, trainer) -> None: ...
+
+    def on_train_epoch_end(self, trainer) -> None: ...
+
+    def on_validation_end(self, trainer) -> None: ...
+
+    def on_fit_end(self, trainer) -> None: ...
+
+
+def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2) -> np.ndarray:
+    """Tile a batch of NHWC uint8 images into one HWC grid image."""
+    n, h, w, c = images.shape
+    ncol = nrow
+    nrows = (n + ncol - 1) // ncol
+    grid = np.zeros((nrows * (h + padding) + padding, ncol * (w + padding) + padding, c), dtype=images.dtype)
+    for idx in range(n):
+        r, cl = divmod(idx, ncol)
+        y = r * (h + padding) + padding
+        x = cl * (w + padding) + padding
+        grid[y : y + h, x : x + w] = images[idx]
+    return grid
+
+
+def _nhwc(x: torch.Tensor) -> np.ndarray:
+    return x.float().permute(0, 2, 3, 1).cpu().numpy()
+
+
+class GenerateCallback(Callback):
+    """Every ``every_n_epochs`` epochs: solve the ODE from a fixed noise batch
+    drawn at train start (a generator seeded ``seed ^ 0x5EED`` on the
+    trainer's device), with the EMA weights where the trainer tracks them,
+    denormalize through the datamodule and log the grid as "Generated".
+    Conditional models get labels ``arange(num_samples) % num_classes``."""
+
+    def __init__(
+        self,
+        solver,
+        img_shape: tuple[int, int, int],  # (C, H, W)
+        num_samples: int = 8,
+        every_n_epochs: int = 5,
+        guidance_scale: Optional[float] = None,
+    ):
+        self.solver = solver
+        self.img_shape = tuple(img_shape)
+        self.num_samples = num_samples
+        self.every_n_epochs = every_n_epochs
+        self.guidance_scale = guidance_scale  # CFG previews of label-dropout runs
+        self.x0: Optional[torch.Tensor] = None
+        self.class_labels: Optional[torch.Tensor] = None
+
+    def on_train_start(self, trainer) -> None:
+        gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed ^ 0x5EED)
+        self.x0 = torch.randn((self.num_samples, *self.img_shape), generator=gen, device=trainer.device)
+        self.class_labels = None
+        if trainer.model.conditional:
+            n_cls = trainer.model.embedding.num_classes
+            self.class_labels = torch.arange(self.num_samples, device=trainer.device) % n_cls
+
+    def on_train_epoch_end(self, trainer) -> None:
+        if self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
+            return
+        xT = trainer.solve(self.solver, self.x0, self.class_labels, use_ema=trainer.use_ema,
+                           guidance_scale=self.guidance_scale)
+        images = trainer.datamodule.denormalize(_nhwc(xT))
+        trainer.logger.log_image("Generated", make_grid(images), step=trainer.epoch)
+
+
+def _load_vae(name: str):
+    raise NotImplementedError(f"the VAE decoder ({name}) is not ported yet (ROADMAP.md section 1, item 6)")
+
+
+class LatentsGenerateCallback(Callback):
+    """Latent-space previews after validation, every ``every_n_epochs``
+    epochs: solve from fixed noise (generator seeded ``seed ^ 0x1A7E``) for
+    ``num_classes`` drawn labels, ``num_samples_per_class`` each, un-normalize
+    with the dataset's latent ``mean`` and ``std`` and log a grid of the
+    first three channels scaled to [0, 255] (the VAE decode is not ported)."""
+
+    def __init__(
+        self,
+        solver,
+        img_shape: tuple[int, int, int],
+        mean: Sequence[float],
+        std: Sequence[float],
+        value_range: tuple[float, float] = (0.0, 1.0),
+        num_samples_per_class: int = 8,
+        num_classes: int = 10,
+        every_n_epochs: int = 100,
+        vae_name: str = "stabilityai/sd-vae-ft-ema",
+        guidance_scale: Optional[float] = None,
+    ):
+        self.guidance_scale = guidance_scale
+        self.solver = solver
+        self.img_shape = tuple(img_shape)
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.value_range = value_range
+        self.num_samples_per_class = num_samples_per_class
+        self.num_classes = num_classes
+        self.every_n_epochs = every_n_epochs
+        self.vae_name = vae_name
+        self.x0: Optional[torch.Tensor] = None
+        self.class_labels: Optional[torch.Tensor] = None
+        self._vae = None
+
+    def on_train_start(self, trainer) -> None:
+        n = self.num_samples_per_class * self.num_classes
+        gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed ^ 0x1A7E)
+        self.x0 = torch.randn((n, *self.img_shape), generator=gen, device=trainer.device)
+        labels = torch.randint(0, trainer.model.embedding.num_classes, (self.num_classes,), generator=gen,
+                               device=trainer.device)
+        self.class_labels = labels.repeat(self.num_samples_per_class)
+        try:
+            self._vae = _load_vae(self.vae_name)
+        except NotImplementedError as e:
+            trainer.logger.log_text("warn", f"LatentsGenerateCallback: VAE unavailable ({e}); logging latents")
+            self._vae = None
+
+    def on_validation_end(self, trainer) -> None:
+        if self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
+            return
+        xT = trainer.solve(self.solver, self.x0, self.class_labels, use_ema=trainer.use_ema,
+                           guidance_scale=self.guidance_scale)
+        lat = _nhwc(xT) * self.std.reshape(1, 1, 1, -1) * 2.0 + self.mean.reshape(1, 1, 1, -1)
+        if self._vae is not None:
+            raise NotImplementedError("the VAE decode of latent previews is not ported (ROADMAP.md section 1, item 6)")
+        lo, hi = lat.min(), lat.max()
+        vis = (lat[..., :3] - lo) / max(hi - lo, 1e-6)
+        images = (vis * 255.0).astype(np.uint8)
+        trainer.logger.log_image("Generated", make_grid(images, nrow=self.num_classes), step=trainer.epoch)

@@ -1,0 +1,102 @@
+"""EDMSpec: the experiment description that a config's ``model`` block names.
+
+Counterpart of ``tinyedm_tpu/training/experiment.py``, with the same fields,
+defaults and checks. The config's ``embedding`` and ``denoiser`` arrive as
+``ModuleSpec``s (the registry does not build a module, which would own its
+weights); ``build_model`` builds them into the port's ``EDM``, with the same
+constructors as ``configs.model_from_config``, parameters allocated but not
+drawn. ``build_optimizer_config`` and ``build_ema_config`` give the port's
+``OptimizerConfig`` and ``EMAConfig``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from tinyedm_tpu_torch.config.registry import ModuleSpec
+from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
+from tinyedm_tpu_torch.models.edm import EDM
+from tinyedm_tpu_torch.training.ema import EMAConfig
+from tinyedm_tpu_torch.training.train_step import OptimizerConfig
+
+
+@dataclasses.dataclass
+class EDMSpec:
+    diffuser: Diffuser
+    embedding: ModuleSpec  # of models.layers.Embedding
+    denoiser: ModuleSpec  # of models.unet.Denoiser
+    use_ema: bool = False
+    use_uncertainty: bool = False
+    steady_steps: int = 1
+    rampup_steps: int = 0
+    scheduler_interval: str = "epoch"
+    sigma_data: Optional[float] = None
+    lr: float = 1e-4
+    betas: tuple[float, float] = (0.9, 0.999)
+    ema_length: Optional[float] = None
+    # several tracked EMA profiles (post-hoc reconstruction); defaults to
+    # (ema_length,)
+    ema_lengths: Optional[tuple[float, ...]] = None
+    validate_original_weights: bool = False
+    every_n_steps: int = 1
+    # accepted for config parity; the EMA update runs on the card in the step
+    cpu_offload: bool = False
+    accum_steps: int = 1
+    log_norms: bool = False  # global grad/param norms as step metrics
+    log_norms_per_layer: bool = False  # and per depth-2 group
+    grad_clip_norm: Optional[float] = None  # None = off
+    label_dropout: float = 0.0  # CFG training: null-label probability
+    val_ema_index: int = 0  # the EMA profile that validation evaluates
+
+    def __post_init__(self) -> None:
+        if self.use_ema and self.ema_length is None and not self.ema_lengths:
+            raise ValueError("ema_length must be specified when use_ema is True.")
+        if self.use_ema:
+            n_profiles = len(self.ema_lengths or (self.ema_length,))
+            if not 0 <= self.val_ema_index < n_profiles:
+                raise ValueError(
+                    f"val_ema_index={self.val_ema_index} out of range for {n_profiles} tracked EMA profile(s)"
+                )
+        if not 0.0 <= self.label_dropout < 1.0:
+            raise ValueError(f"label_dropout must be in [0, 1), got {self.label_dropout}")
+        if self.label_dropout > 0.0 and not self.conditional:
+            raise ValueError("label_dropout needs a conditional model (num_classes set)")
+        if self.sigma_data is not None and self.sigma_data != self.denoiser.sigma_data:
+            # one source of truth, as the JAX spec keeps it
+            self.denoiser = self.denoiser.replace(sigma_data=self.sigma_data)
+
+    @property
+    def conditional(self) -> bool:
+        # -1 is the Embedding's unconditional sentinel
+        n = self.embedding.num_classes
+        return n is not None and n != -1
+
+    def build_model(self, inference_fast: bool = False, *, fused: str = "auto") -> EDM:
+        """The spec's EDM, parameters allocated but not drawn.
+        ``inference_fast`` selects nothing in the port: the JAX package uses
+        it to put sampling on its Pallas attention kernel, and the port's
+        fused CUDA kernels are already the default route (``fused="auto"``)."""
+        del inference_fast
+        return EDM(self.embedding.build(), self.denoiser.build(fused=fused),
+                   use_uncertainty=self.use_uncertainty)
+
+    def build_optimizer_config(self) -> OptimizerConfig:
+        return OptimizerConfig(
+            lr=self.lr,
+            betas=tuple(self.betas),
+            rampup_steps=self.rampup_steps,
+            steady_steps=self.steady_steps,
+            scheduler_interval=self.scheduler_interval,
+            accum_steps=self.accum_steps,
+            log_norms=self.log_norms,
+            log_norms_per_layer=self.log_norms_per_layer,
+            grad_clip_norm=self.grad_clip_norm,
+            label_dropout=self.label_dropout,
+        )
+
+    def build_ema_config(self) -> Optional[EMAConfig]:
+        if not self.use_ema:
+            return None
+        sigma_rels = self.ema_lengths or (self.ema_length,)
+        return EMAConfig(sigma_rels=tuple(sigma_rels), every_n_steps=self.every_n_steps)

@@ -36,6 +36,9 @@ class OptimizerConfig:
     eps: float = 1e-8  # torch.optim.Adam's default
     rampup_steps: int = 0
     steady_steps: int = 1
+    # what the schedule's count ticks with: "epoch" (the epoch counter) or
+    # "step" (the optimizer step); the caller passes the count to the step
+    scheduler_interval: str = "epoch"
     accum_steps: int = 1  # gradient accumulation microbatches
     log_norms: bool = False  # global pre-clip grad norm and param norm as metrics
     # also per depth-2 group of the JAX params tree (grad_norm/<top>.<child>,
