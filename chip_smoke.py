@@ -151,14 +151,53 @@ with a non-zero exit code:
     memory; then --resume --max-epochs 3 (the resume line, step 60, finite
     losses) and generate --ckpt_path --load_ema for 128 samples (128 PNGs),
     whose samples equal bit for bit those of generate() from the same EMA
-    weights passed as a weights file.
+    weights passed as a weights file;
+25. ImageNet-64 through the CLI with Lightning's reading of
+    accumulate_grad_batches: experiments/conf/imagenet.yaml with
+    datamodule.batch_size=528 (3 microbatches of 176) on synthetic CHW
+    .npy latents in the train/ + val/ layout (4 steps of 528, a validation
+    batch of 528), one epoch, no preview, a checkpoint: exact launches (3 x
+    (7 + 8) forward and backward per loop step, 7 + 8 per validation),
+    finite losses; the loop's ms/step beside phase 23's bare step, the
+    validation's seconds, the save's seconds and GB, the peak;
+26. ImageNet-512 through the CLI on a latpack store: 1000 synthetic .npy
+    latents packed by python -m tinyedm_tpu_torch.data.latpack (a gather
+    from the store equal to the files bit for bit), then
+    experiments/conf/imagenet512.yaml with datamodule.data_file on it,
+    prefetch on, 2 epochs of 7 steps of 4 x 32, two EMA profiles,
+    validation, the Heun-32 latent preview and a checkpoint every epoch:
+    exact launches (7 + 8 forward and 7 + 8 backward per microbatch), the
+    metrics rows, the checkpoints, the latest restored bit for bit; the
+    loop's ms/step beside phase 12's bare step, samples/s, validation, the
+    saves and the restore in seconds with the GB on disk, the peak;
+27. post-hoc EMA: python -m tinyedm_tpu_torch.posthoc_ema over phase 26's
+    two checkpoints (4 snapshots) at sigma_rel 0.13, which reproduces the
+    latest step's tracked 0.13 tree within relative L2 1e-5 (a unit weight),
+    with a one-profile config; then generate --ckpt_path --load_ema
+    --num_classes 1000 --num_channels 4 at batch 32, Heun-32, equal bit for
+    bit to generate() from the same tree as a weights file; the seconds and
+    the GB written;
+28. FID on CIFAR-10 with a seeded rehearsal InceptionV3 weight file
+    (save_converted(..., pretrained=False) of a He-scaled random
+    torchvision-layout state dict): the features on the card in fp32
+    (TF32 off) against the CPU for 16 images (relative L2 <= 1e-4) and the
+    img/s of feature extraction at batch 64 and 256; eval_fid stats on
+    synthetic CIFAR-10 pickle batches and eval_fid score of 1000 Heun-32
+    samples (batch 128) of a seeded full-width checkpoint, with proxy and
+    inception-unverified features and --kid: finite FID and KID, FID of
+    the sample directory against itself at most 1e-9 of the covariance's
+    trace; the default features refuse the rehearsal file
+    (UnverifiedInceptionWeights); then cifar10.yaml for one epoch with
+    FIDCallback on proxy features (256 samples), which logs fid. No number
+    of this phase is an Inception FID.
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
 forwards by batch size (a wrapper of EDM.forward) beside the launches. The
 forward kernel rows also hold the kernel at CFG's stacked batches (MNIST
 256, ImageNet-512 64), the backward rows at MNIST's 128 and ImageNet-64's
-176.
+176. The rows of the CIFAR-10, ImageNet-512 and ImageNet-64 shapes carry
+their launches per loop step (phases 24, 26 and 25).
 
 Then one JSON line of per-kernel numbers, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -174,6 +213,7 @@ import json
 import math
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -280,6 +320,19 @@ LOOP_EPOCHS, LOOP_RESUMED_EPOCHS = 2, 3
 LOOP_PREVIEW_FORWARDS = 2 * 18 - 1  # the recipe's Heun-18 preview
 CHURN = dict(s_churn=40.0, s_min=0.05, s_max=50.0, s_noise=1.003)  # EDM's ImageNet-64 settings
 CFG_INTERVAL = (0.28, 2.9)  # 14 of Heun-32's 63 half-steps lie in it
+# ImageNet-64 through the CLI (phase 25): Lightning's reading of
+# imagenet.yaml's accumulate_grad_batches (3 microbatches of 176), on
+# synthetic latents in the train/ + val/ layout: 4 steps, one val batch
+IN64_BATCH, IN64_STEPS, IN64_VAL = 3 * 176, 4, 3 * 176
+# ImageNet-512 through the CLI (phase 26): 1000 synthetic latents in one
+# latpack store (990 train: 7 steps of 4 x 32 per epoch; 10 val)
+IN512_SAMPLES, IN512_EPOCHS = 1000, 2
+IN512_PREVIEW = (32, 2 * 32 - 1)  # imagenet512.yaml's preview: 8 classes x 4 latents, Heun-32
+POSTHOC_TARGET = 0.13  # one of the tracked profiles: exactly representable at the latest step
+# FID on CIFAR-10 (phase 28)
+FID_SAMPLES, FID_BATCH, FID_KID_SUBSETS = 1000, 128, 10
+FID_CALLBACK_SAMPLES = 256
+INCEPTION_BATCHES = (64, 256)  # the JAX feature function's sub-batch, and a larger one
 
 
 def fail(msg: str) -> None:
@@ -1032,9 +1085,10 @@ def _write_cifar10(directory: Path, seed: int = 0) -> None:
             pickle.dump(batch, f)
 
 
-def _run_train(args: list[str]):
-    """tinyedm_tpu_torch.train.main(args) with its output echoed; returns
-    (trainer, output, seconds to the end of the run on the card)."""
+def _run_train(args: list[str], tag: str = "24 run loop"):
+    """tinyedm_tpu_torch.train.main(args) with its output echoed under
+    ``tag``; returns (trainer, output, seconds to the end of the run on the
+    card)."""
     import torch
 
     from tinyedm_tpu_torch import train
@@ -1047,7 +1101,7 @@ def _run_train(args: list[str]):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     for line in out.getvalue().splitlines():
-        print(f"[24 run loop]   {line}", flush=True)
+        print(f"[{tag}]   {line}", flush=True)
     return trainer, out.getvalue(), seconds
 
 
@@ -1120,13 +1174,7 @@ def phase_run_loop(smi: str, bare: dict) -> dict:
             fail("run loop: the restored checkpoint differs from the trained state")
 
         # one validation, one save and one restore, timed on the card
-        _clear_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        val_loss = trainer.validate()
-        torch.cuda.synchronize()
-        val_s = time.perf_counter() - t0
-        val_counts = _kernel_calls()
+        val_loss, val_s, val_counts = _timed_validate(trainer)
         if val_counts != {("fwd", n): c * val_batches for n, c in calls.items()} or not math.isfinite(val_loss):
             fail(f"validation: val_loss {val_loss}, launches {val_counts}")
         timed = CheckpointManager(tmp / "timed", max_to_keep=None, monitor=None)
@@ -1193,6 +1241,430 @@ def phase_run_loop(smi: str, bare: dict) -> dict:
               f"for bit to generate() from the EMA weights as a weights file ({from_ckpt['img_per_s']:.2f} img/s "
               f"Heun-32 at batch {n})", flush=True)
     return per_step
+
+
+def _write_latents(root: Path, n: int, seed: int):
+    """``n`` synthetic samples as the JAX extractor writes them: CHW fp32
+    latents and int64 labels, one ``{i}.npy`` each under ``latents/`` and
+    ``labels/``; returns (latents, labels)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lat = rng.standard_normal((n, 4, 64, 64), dtype=np.float32)
+    lab = rng.integers(0, 1000, n)
+    (root / "latents").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for i in range(n):
+        np.save(root / "latents" / f"{i}.npy", lat[i])
+        np.save(root / "labels" / f"{i}.npy", np.int64(lab[i]))
+    return lat, lab
+
+
+@contextlib.contextmanager
+def _timed_saves():
+    """Seconds of each ``CheckpointManager.save`` while active (the card
+    synchronized first), by step."""
+    import torch
+
+    from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
+
+    seconds = {}
+    save = CheckpointManager.save
+
+    def timed(self, step, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, step, *args, **kwargs)
+        seconds[step] = time.perf_counter() - t0
+
+    CheckpointManager.save = timed
+    try:
+        yield seconds
+    finally:
+        CheckpointManager.save = save
+
+
+def _state_gb(directory: Path, step: int) -> float:
+    return (directory / str(step) / "state.pt").stat().st_size / 1e9
+
+
+def _loop_numbers(run: Path, batch: int) -> tuple[list, list, float, float]:
+    """(epoch rows, val rows, ms/step and samples/s of the last epoch) of a
+    run's metrics.jsonl."""
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    epoch_rows = [r for r in rows if "samples_per_sec" in r]
+    val_rows = [r for r in rows if "val_loss" in r]
+    sps = epoch_rows[-1]["samples_per_sec"]
+    return epoch_rows, val_rows, 1e3 * batch / sps, sps
+
+
+def _timed_validate(trainer) -> tuple[float, float, dict]:
+    """(val_loss, seconds, fused launches) of one validation, without the
+    callbacks that run after it (a latent preview)."""
+    import torch
+
+    callbacks, trainer.callbacks = trainer.callbacks, []
+    _clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        val_loss = trainer.validate()
+        torch.cuda.synchronize()
+    finally:
+        trainer.callbacks = callbacks
+    return val_loss, time.perf_counter() - t0, _kernel_calls()
+
+
+def phase_imagenet64_cli(smi: str, bare: dict) -> dict:
+    """imagenet.yaml through tinyedm_tpu_torch.train with
+    datamodule.batch_size=528 (docstring, phase 25). ``bare``: phase 23's
+    result. Returns the fused launches per loop step by (direction, n)."""
+    import torch
+
+    p = PATHS["imagenet"]
+    calls, a = p["calls"], IN64_BATCH // p["microbatch"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        _write_latents(tmp / "latents" / "train", IN64_STEPS * IN64_BATCH, seed=0)
+        _write_latents(tmp / "latents" / "val", IN64_VAL, seed=1)
+        write_s = time.perf_counter() - t0
+        run = tmp / "run"
+        args = ["--config-name=imagenet", f"--config-path={ROOT / 'experiments' / 'conf'}",
+                f"datamodule.data_dir={tmp / 'latents'}", f"datamodule.batch_size={IN64_BATCH}",
+                f"trainer.out_dir={run}", "trainer.max_epochs=1", "trainer.check_val_every_n_epoch=1",
+                "callbacks.checkpoint_callback.every_n_epochs=1", "callbacks.generate_callback=null"]
+        torch.cuda.reset_peak_memory_stats()
+        _clear_counts()
+        with _timed_saves() as saves:
+            trainer, _, fit_s = _run_train(args, "25 imagenet-64 cli")
+        counts, flash = _kernel_calls(), _flash_calls()
+        peak = torch.cuda.max_memory_allocated()
+        epoch_rows, val_rows, loop_ms, sps = _loop_numbers(run, IN64_BATCH)
+        val_loss, val_s, val_counts = _timed_validate(trainer)
+        spec = trainer.spec
+        train_fwd = {n: IN64_STEPS * a * c for n, c in calls.items()}
+        expected = {**{("fwd", n): train_fwd[n] + c for n, c in calls.items()},
+                    **{("bwd", n): train_fwd[n] for n in calls}}
+        ok = (trainer.global_step == IN64_STEPS and spec.accum_steps == a and counts == expected and not flash
+              and val_counts == {("fwd", n): c for n, c in calls.items()} and trainer.ckpt.all_steps == [IN64_STEPS]
+              and math.isfinite(val_loss) and all(math.isfinite(r["train_loss"]) for r in epoch_rows)
+              and [r["step"] for r in val_rows] == [IN64_STEPS])
+        if not ok:
+            fail(f"imagenet-64 CLI: {trainer.global_step} steps, accum {spec.accum_steps}, launches {counts} (expected "
+                 f"{expected}), flash {flash}, validation launches {val_counts}, checkpoints {trainer.ckpt.all_steps}, "
+                 f"val_loss {val_loss}, rows {epoch_rows} {val_rows}")
+        gb = _state_gb(run / "checkpoints", IN64_STEPS)
+        del trainer
+        torch.cuda.empty_cache()
+    per_step = {(d, n): a * c for n, c in calls.items() for d in ("fwd", "bwd")}
+    print(f"[25 imagenet-64 cli] imagenet.yaml via tinyedm_tpu_torch.train with datamodule.batch_size={IN64_BATCH} "
+          f"({a} x {IN64_BATCH // a}, Lightning's reading), {IN64_STEPS} steps on {IN64_STEPS * IN64_BATCH} synthetic "
+          f"CHW .npy latents (written in {write_s:.3f} s) and one validation batch of {IN64_VAL}, no preview, "
+          f"{fit_s:.3f} s in all: launches {_fmt(counts)}, flash 0; per loop step {_fmt(per_step)} ({a} per "
+          f"microbatch x {calls}); train_loss {epoch_rows[-1]['train_loss']:.4f}, val_loss {val_rows[-1]['val_loss']:.4f}",
+          flush=True)
+    print(f"[25 imagenet-64 cli] loop (1 epoch, samples_per_sec of metrics.jsonl): {loop_ms:.3f} ms/step, {sps:.2f} "
+          f"samples/s; the bare 3 x 176 step in this run (phase 23): {bare['ms']:.3f} ms/step (loop / bare "
+          f"{loop_ms / bare['ms']:.3f}); validation of {IN64_VAL} in one batch {val_s:.3f} s; checkpoint save "
+          f"{saves[IN64_STEPS]:.3f} s, {gb:.3f} GB on disk; peak {peak / 2**30:.3f} GiB | {smi}", flush=True)
+    return per_step
+
+
+def phase_imagenet512_cli(smi: str, bare: dict, tmp: Path) -> dict:
+    """imagenet512.yaml through tinyedm_tpu_torch.train on a latpack store
+    (docstring, phase 26), in ``tmp``, which keeps the run for phase 27.
+    ``bare``: phase 12's result. Returns the run directory, its checkpoint
+    steps and the fused launches per loop step by (direction, n)."""
+    import numpy as np
+    import torch
+
+    from tinyedm_tpu_torch.data.latpack import PackedLatents
+
+    p = PATHS["imagenet512"]
+    calls = p["calls"]
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    t0 = time.perf_counter()
+    _write_latents(tmp / "npy", IN512_SAMPLES, seed=2)
+    write_s = time.perf_counter() - t0
+    store = tmp / "latents.latpack"
+    t0 = time.perf_counter()
+    packed = subprocess.run([sys.executable, "-m", "tinyedm_tpu_torch.data.latpack", str(tmp / "npy" / "latents"),
+                             str(tmp / "npy" / "labels"), str(store)], cwd=ROOT, capture_output=True, text=True,
+                            timeout=600)
+    pack_s = time.perf_counter() - t0
+    if packed.returncode != 0 or f"packed {IN512_SAMPLES} samples" not in packed.stdout:
+        fail(f"latpack CLI: rc {packed.returncode}\n{packed.stdout}\n{packed.stderr}")
+    idx = np.asarray([0, IN512_SAMPLES - 1, 17, 17, 500])
+    s = PackedLatents(store, gather_threads=8)
+    lat, lab = s.gather(idx)
+    s.close()
+    files = np.stack([np.load(tmp / "npy" / "latents" / f"{i}.npy").transpose(1, 2, 0) for i in idx])
+    labels = np.asarray([int(np.load(tmp / "npy" / "labels" / f"{i}.npy")) for i in idx])
+    if lat.dtype != np.float32 or not np.array_equal(lat, files) or not np.array_equal(lab, labels):
+        fail("latpack: a gather from the store differs from the .npy files")
+
+    run = tmp / "run"
+    args = ["--config-name=imagenet512", f"--config-path={ROOT / 'experiments' / 'conf'}",
+            f"datamodule.data_file={store}", f"trainer.out_dir={run}", f"trainer.max_epochs={IN512_EPOCHS}",
+            "trainer.check_val_every_n_epoch=1", "callbacks.checkpoint_callback.every_n_epochs=1",
+            "callbacks.generate_callback.every_n_epochs=1"]
+    torch.cuda.reset_peak_memory_stats()
+    _clear_counts()
+    with _timed_saves() as saves:
+        trainer, _, fit_s = _run_train(args, "26 imagenet-512 cli")
+    counts, flash = _kernel_calls(), _flash_calls()
+    peak = torch.cuda.max_memory_allocated()
+    dm = trainer.datamodule
+    spe, a, batch = dm.steps_per_epoch(), trainer.spec.accum_steps, dm.batch_size
+    steps = IN512_EPOCHS * spe
+    epoch_rows, val_rows, loop_ms, sps = _loop_numbers(run, batch)
+    val_loss, val_s, val_counts = _timed_validate(trainer)
+    n_profiles = len(trainer.state.ema)
+    val_fwd = -(-dm._n_val // batch) * n_profiles  # one forward per profile and val batch
+    outside = IN512_EPOCHS * (val_fwd + IN512_PREVIEW[1])  # the forwards of validations and previews
+    expected = {**{("fwd", n): (steps * a + outside) * c for n, c in calls.items()},
+                **{("bwd", n): steps * a * c for n, c in calls.items()}}
+    want = [spe * (e + 1) for e in range(IN512_EPOCHS)]
+    grids = sorted(x.name for x in (run / "images").glob("Generated_*.png"))
+    ok = (type(dm).__name__ == "PackedLatentsDataModule" and dm.prefetch and a == 4 and n_profiles == 2
+          and trainer.global_step == steps and counts == expected and not flash
+          and val_counts == {("fwd", n): val_fwd * c for n, c in calls.items()} and trainer.ckpt.all_steps == want
+          and [r["step"] for r in val_rows] == want and len(grids) == IN512_EPOCHS
+          and all(math.isfinite(r[k]) for r in val_rows for k in r if k.startswith("val_loss"))
+          and all(math.isfinite(r["train_loss"]) for r in epoch_rows) and math.isfinite(val_loss))
+    if not ok:
+        fail(f"imagenet-512 CLI: {type(dm).__name__}, accum {a}, {n_profiles} EMA trees, {trainer.global_step} steps, "
+             f"launches {counts} (expected {expected}), flash {flash}, validation launches {val_counts}, checkpoints "
+             f"{trainer.ckpt.all_steps} (expected {want}), previews {grids}, rows {epoch_rows} {val_rows}")
+    # the latest checkpoint restored bit for bit, timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, _ = trainer.ckpt.restore(device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    live = trainer.state
+    trees = [(live.params, restored.params), (live.mu, restored.mu), (live.nu, restored.nu)] + list(
+        zip(live.ema, restored.ema))
+    if not (all(torch.equal(x[k], y[k]) for x, y in trees for k in x) and restored.step == live.step):
+        fail("imagenet-512 CLI: the restored checkpoint differs from the trained state")
+    values = sum(v.numel() for v in live.params.values())
+    del restored, trees, live, trainer
+    torch.cuda.empty_cache()
+    gb = _state_gb(run / "checkpoints", want[-1])
+    per_step = {(d, n): a * c for n, c in calls.items() for d in ("fwd", "bwd")}
+    print(f"[26 imagenet-512 cli] {IN512_SAMPLES} synthetic CHW .npy latents written in {write_s:.3f} s, packed by "
+          f"python -m tinyedm_tpu_torch.data.latpack in {pack_s:.3f} s (g++ build included): "
+          f"{store.stat().st_size / 1e6:.1f} MB; a gather of {len(idx)} rows equals the .npy files bit for bit; "
+          f"{free_gb:.1f} GB free in the temporary directory", flush=True)
+    print(f"[26 imagenet-512 cli] imagenet512.yaml via tinyedm_tpu_torch.train on the store (prefetch on), "
+          f"{IN512_EPOCHS} epochs x {spe} steps of {batch} ({a} x {batch // a}), {n_profiles} EMA profiles, "
+          f"validation ({dm._n_val} samples), a Heun-32 preview of {IN512_PREVIEW[0]} and a checkpoint every epoch, "
+          f"{fit_s:.3f} s in all: launches {_fmt(counts)}, flash 0; per loop step {_fmt(per_step)} (per microbatch "
+          f"{calls} forward and backward); train_loss {epoch_rows[0]['train_loss']:.4f} .. "
+          f"{epoch_rows[-1]['train_loss']:.4f}, val_loss {val_rows[0]['val_loss']:.4f} .. "
+          f"{val_rows[-1]['val_loss']:.4f}; previews {grids}; checkpoints {want}, the latest restored bit for bit",
+          flush=True)
+    print(f"[26 imagenet-512 cli] loop (epoch {IN512_EPOCHS}): {loop_ms:.3f} ms/step, {sps:.2f} samples/s; the bare "
+          f"4 x 32 step in this run (phase 12): {bare['ms']:.3f} ms/step (loop / bare {loop_ms / bare['ms']:.3f}); "
+          f"validation {val_s:.3f} s; checkpoint ({values} values per tree, 5 fp32 trees) saves "
+          f"{', '.join(f'{t:.3f}' for t in saves.values())} s, restore {restore_s:.3f} s, {gb:.3f} GB on disk; "
+          f"peak {peak / 2**30:.3f} GiB | {smi}", flush=True)
+    return dict(run=run, steps=want, per_step=per_step)
+
+
+def _tree_rel_l2(ours: dict, ref: dict) -> float:
+    num = sum(float((ours[k].double() - ref[k].double()).pow(2).sum()) for k in ref)
+    den = sum(float(ref[k].double().pow(2).sum()) for k in ref)
+    return math.sqrt(num / den)
+
+
+def phase_posthoc(smi: str, run: Path, steps: list[int], tmp: Path) -> None:
+    """Post-hoc EMA over phase 26's checkpoints, then sampling from it
+    (docstring, phase 27)."""
+    import numpy as np
+    import torch
+
+    from tinyedm_tpu_torch import posthoc_ema
+    from tinyedm_tpu_torch.configs import build_model
+    from tinyedm_tpu_torch.generate import generate
+    from tinyedm_tpu_torch.generate import main as generate_main
+    from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
+    from tinyedm_tpu_torch.training.ema import sigma_rel_to_gamma, solve_posthoc_weights
+    from tinyedm_tpu_torch.utils.interop import save_weights
+
+    ckpt, out = run / "checkpoints", tmp / "posthoc"
+    out_io = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out_io):
+        written = posthoc_ema.main(["--ckpt_path", str(ckpt), "--target_sigma_rel", str(POSTHOC_TARGET),
+                                    "--out_dir", str(out), "--steps", *map(str, steps)])
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    for line in out_io.getvalue().splitlines():
+        print(f"[27 posthoc]   {line}", flush=True)
+    gammas = [sigma_rel_to_gamma(sr) for sr in (0.05, 0.13)] * len(steps)
+    w = solve_posthoc_weights([s + 1 for s in steps for _ in range(2)], gammas, steps[-1] + 1,
+                              sigma_rel_to_gamma(POSTHOC_TARGET))
+    latest, config = CheckpointManager(ckpt).restore(steps[-1], device="cuda")
+    err = _tree_rel_l2(written.ema[0], latest.ema[1])  # the tracked 0.13 profile
+    del latest
+    model_cfg = config["model"]
+    if not err <= 1e-5:
+        fail(f"post-hoc sigma_rel {POSTHOC_TARGET} at step {steps[-1]}: rel L2 {err} to the tracked tree (> 1e-5)")
+    gb = _state_gb(out, steps[-1])
+    written_cfg = json.loads((out / str(steps[-1]) / "config.json").read_text())["model"]
+    if (written_cfg["ema_length"], written_cfg["ema_lengths"], written_cfg["val_ema_index"]) != (POSTHOC_TARGET, None, 0):
+        fail(f"post-hoc output config: {written_cfg}")
+    print(f"[27 posthoc] python -m tinyedm_tpu_torch.posthoc_ema over steps {steps} ({2 * len(steps)} snapshots of "
+          f"sigma_rels {model_cfg['ema_lengths']}) -> sigma_rel {POSTHOC_TARGET}: weights "
+          f"{np.array2string(w, precision=6)}; rel L2 to step {steps[-1]}'s tracked {POSTHOC_TARGET} tree {err:.3g} "
+          f"(<= 1e-5); {rec_s:.3f} s (two restores to the card, the combination, the save), {gb:.3f} GB written; "
+          f"its config declares one profile", flush=True)
+
+    # sample from it through the CLI, and from the same tree as a weights file
+    n = PATHS["imagenet512"]["batch"]
+    common = dict(num_classes=1000, num_channels=4, mean=LATENT_MEAN, std=LATENT_STD, keep_samples=True)
+    generate_main(["--ckpt_path", str(out), "--load_ema", "--num_classes", "1000", "--num_channels", "4",
+                   "--image_size", "64", "--num_samples", str(n), "--batch_size", str(n), "--output_dir",
+                   str(tmp / "cli"), "--mean", *map(str, LATENT_MEAN), "--std", *map(str, LATENT_STD)])
+    pngs = sorted((tmp / "cli").glob("*.png"))
+    from_ckpt = generate(str(tmp / "ckpt"), n, 64, n, ckpt_path=str(out), load_ema=True, **common)
+    model = build_model("imagenet512", "cpu")
+    model.load_state_dict({**written.ema[0], **written.constants})
+    del written
+    save_weights(model, tmp / "posthoc.pt", "imagenet512")
+    del model
+    direct = generate(str(tmp / "direct"), n, 64, n, weights=str(tmp / "posthoc.pt"), **common)
+    same_png = all((tmp / "cli" / x.name).read_bytes() == (tmp / "direct" / x.name).read_bytes() for x in pngs)
+    equal = np.array_equal(from_ckpt["samples"], direct["samples"])
+    if len(pngs) != n or not same_png or not equal or not np.isfinite(direct["samples"]).all():
+        fail(f"generate --ckpt_path <post-hoc> --load_ema: {len(pngs)} PNGs, PNGs equal {same_png}, samples equal "
+             f"{equal}")
+    torch.cuda.empty_cache()
+    print(f"[27 posthoc] generate --ckpt_path <post-hoc> --load_ema --num_classes 1000 --num_channels 4: {len(pngs)} "
+          f"RGBA PNGs, samples equal bit for bit to generate() from the same tree as a weights file "
+          f"({from_ckpt['img_per_s']:.2f} img/s Heun-32 at batch {n}) | {smi}", flush=True)
+
+
+def _write_cifar_checkpoint(directory: Path) -> None:
+    """A checkpoint of cifar10.yaml's spec with the seeded full-width model
+    (gain_out 1) as params and EMA."""
+    from tinyedm_tpu_torch.config.registry import deinstantiate, instantiate, load_config
+    from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
+    from tinyedm_tpu_torch.training.train_step import init_train_state
+
+    spec = instantiate(load_config(ROOT / "experiments" / "conf" / "cifar10.yaml")["model"])
+    model = _seeded("cifar10")
+    state = init_train_state(model, spec.build_optimizer_config(), spec.build_ema_config())
+    CheckpointManager(directory, max_to_keep=None, monitor=None).save(0, state, config={"model": deinstantiate(spec)})
+
+
+def _features_per_s(fn, images) -> float:
+    fn(images[: len(images) // 4])  # warm-up
+    t0 = time.perf_counter()
+    fn(images)  # the features reach the host: the card is done
+    return len(images) / (time.perf_counter() - t0)
+
+
+def phase_fid(smi: str) -> None:
+    """FID on CIFAR-10 with seeded rehearsal Inception weights and proxy
+    features (docstring, phase 28)."""
+    import numpy as np
+    import torch
+
+    from tinyedm_tpu_torch import eval_fid
+    from tinyedm_tpu_torch.utils import fid
+    from tinyedm_tpu_torch.utils import inception
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        weights = tmp / "inception_v3_pool3.npz"
+        inception.save_converted(inception.convert_torch_inception(inception.random_torch_state_dict(0)), weights,
+                                 pretrained=False)
+        default, inception.DEFAULT_WEIGHTS = inception.DEFAULT_WEIGHTS, weights
+        try:
+            # (b) the card against the CPU, fp32 without TF32
+            imgs = np.random.default_rng(0).integers(0, 256, (16, 32, 32, 3), dtype=np.uint8)
+            card = inception.inception_feature_fn(weights, allow_unverified=True)
+            on_card, on_cpu = card(imgs), inception.inception_feature_fn(weights, allow_unverified=True,
+                                                                        device="cpu")(imgs)
+            err = rel_l2(torch.from_numpy(on_card), torch.from_numpy(on_cpu))
+            rms = float(np.sqrt(np.mean(on_cpu.astype(np.float64) ** 2)))
+            if not (err <= 1e-4 and rms > 0.1):
+                fail(f"Inception features on the card vs the CPU: rel L2 {err} (<= 1e-4), RMS {rms}")
+            many = np.random.default_rng(1).integers(0, 256, (1024, 32, 32, 3), dtype=np.uint8)
+            rates = {b: _features_per_s(inception.inception_feature_fn(weights, batch=b, allow_unverified=True), many)
+                     for b in INCEPTION_BATCHES}
+            print(f"[28 fid] rehearsal InceptionV3 (seeded He-scale weights, random BN statistics, not pretrained): "
+                  f"16 images on the card vs the CPU, fp32 without TF32, rel L2 {err:.3g} (<= 1e-4), feature RMS "
+                  f"{rms:.3f}; feature extraction of 1024 32x32 images (resize to 299 included) "
+                  + ", ".join(f"{r:.1f} img/s at batch {b}" for b, r in rates.items()), flush=True)
+
+            # (c) stats, then score a checkpoint's samples with both kinds of features
+            _write_cifar10(tmp / "cifar10")
+            _write_cifar_checkpoint(tmp / "ckpt")
+            stats = {}
+            for kind in ("proxy", "inception-unverified"):
+                stats[kind] = tmp / f"{kind}.npz"
+                t0 = time.perf_counter()
+                eval_fid.main(["stats", "--data-dir", str(tmp / "cifar10"), "--out", str(stats[kind]), "--features",
+                               kind, "--kid-features", str(FID_SAMPLES)])
+                print(f"[28 fid]   eval_fid stats --features {kind}: {5 * LOOP_TRAIN_BATCH} images in "
+                      f"{time.perf_counter() - t0:.3f} s", flush=True)
+            samples = tmp / "samples"
+            score = ["score", "--ckpt_path", str(tmp / "ckpt"), "--load_ema", "--num_samples", str(FID_SAMPLES),
+                     "--batch_size", str(FID_BATCH), "--kid", "--kid_subsets", str(FID_KID_SUBSETS), "--sample_dir",
+                     str(samples)]
+            results = {}
+            for kind in ("proxy", "inception-unverified"):
+                t0 = time.perf_counter()
+                extra = [] if kind == "proxy" else ["--skip_generate"]  # the first run writes the samples
+                results[kind] = eval_fid.main([*score, "--stats", str(stats[kind]), "--features", kind, *extra])
+                results[kind]["seconds"] = time.perf_counter() - t0
+            try:  # (a) the default features refuse a rehearsal weight file
+                eval_fid.main([*score, "--stats", str(stats["proxy"]), "--skip_generate"])
+                fail("eval_fid score without --features inception-unverified accepted rehearsal weights")
+            except inception.UnverifiedInceptionWeights:
+                pass
+            for kind, res in results.items():
+                fn, _ = fid.resolve_feature_fn(kind)
+                same = fid.fid_between_dirs(samples, samples, fn)
+                trace = float(np.trace(fid.load_stats(stats[kind])[1]))
+                if not (math.isfinite(res["fid"]) and math.isfinite(res["kid"]) and same <= 1e-9 * trace):
+                    fail(f"eval_fid score --features {kind}: FID {res['fid']}, KID {res['kid']}, FID(dir, dir) {same} "
+                         f"(<= 1e-9 x {trace})")
+                print(f"[28 fid] eval_fid score --features {kind} (NOT an Inception FID): {FID_SAMPLES} Heun-32 "
+                      f"samples of a seeded cifar10 checkpoint at batch {FID_BATCH}: FID {res['fid']:.4f}, KID "
+                      f"{res['kid']:.6f} ({FID_KID_SUBSETS} subsets); FID(dir, same dir) {same:.3g} (<= 1e-9 x trace "
+                      f"{trace:.4g}); {res['seconds']:.3f} s in all"
+                      + (f" ({FID_SAMPLES / res['seconds']:.2f} img/s, sampling included)" if kind == "proxy" else
+                         f", scoring the written PNGs {res['score_seconds']:.3f} s"), flush=True)
+            print("[28 fid] eval_fid score without --features inception-unverified: UnverifiedInceptionWeights, as "
+                  "required", flush=True)
+
+            # (d) a CIFAR-10 loop with FIDCallback on proxy features
+            cb = "callbacks.fid_callback"
+            run = tmp / "run"
+            _, _, fit_s = _run_train([
+                "--config-name=cifar10", f"--config-path={ROOT / 'experiments' / 'conf'}",
+                f"datamodule.data_dir={tmp / 'cifar10'}", f"trainer.out_dir={run}", "trainer.max_epochs=1",
+                "callbacks.generate_callback=null", f"{cb}._target_=tinyedm_tpu.training.callbacks.FIDCallback",
+                f"{cb}.img_shape=[3, 32, 32]", f"{cb}.stats_path={stats['proxy']}",
+                f"{cb}.num_samples={FID_CALLBACK_SAMPLES}", f"{cb}.batch_size={FID_BATCH}", f"{cb}.every_n_epochs=1",
+                f"{cb}.features=proxy", f"{cb}.solver._target_=tinyedm_tpu.diffusion.solver.DeterministicSolver",
+                f"{cb}.solver.num_steps=32"], "28 fid")
+            rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+            fid_rows = [r for r in rows if "fid" in r]
+            if len(fid_rows) != 1 or not math.isfinite(fid_rows[0]["fid"]):
+                fail(f"FIDCallback: fid rows {fid_rows}")
+            torch.cuda.empty_cache()
+            print(f"[28 fid] cifar10.yaml, 1 epoch, with FIDCallback (proxy features, {FID_CALLBACK_SAMPLES} "
+                  f"Heun-32 samples at batch {FID_BATCH}): logged fid {fid_rows[0]['fid']:.4f} at step "
+                  f"{fid_rows[0]['step']}; {fit_s:.3f} s in all | {smi}", flush=True)
+        finally:
+            inception.DEFAULT_WEIGHTS = default
 
 
 def _block_inputs(b, n, c, dtype, seed):
@@ -1614,8 +2086,17 @@ def main() -> int:
     train_counts["imagenet"] = train_results["imagenet"]["counts"]
     torch.cuda.empty_cache()
     # 24: the run loop at CIFAR-10 full width
-    loop_per_step = phase_run_loop(smi, train_results["cifar10"])
+    loop_per_step = {"cifar10": phase_run_loop(smi, train_results["cifar10"])}
     torch.cuda.empty_cache()
+    # 25: ImageNet-64 through the CLI at Lightning's 3 x 176
+    loop_per_step["imagenet"] = phase_imagenet64_cli(smi, train_results["imagenet"])
+    # 26-27: ImageNet-512 through the CLI on a latpack store, post-hoc EMA
+    with tempfile.TemporaryDirectory() as tmp:
+        in512 = phase_imagenet512_cli(smi, train_results["imagenet512"], Path(tmp))
+        loop_per_step["imagenet512"] = in512["per_step"]
+        phase_posthoc(smi, in512["run"], in512["steps"], Path(tmp))
+    # 28: FID on CIFAR-10
+    phase_fid(smi)
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -1634,8 +2115,8 @@ def main() -> int:
         if key in train_counts:
             steps = PATHS[key]["warmup"] + PATHS[key]["timed"]
             e["launches_per_train_step"] = train_counts[key][direction, n] // steps
-        if key == "cifar10":
-            e["launches_per_loop_step"] = loop_per_step[direction, n]
+        if key in loop_per_step:
+            e["launches_per_loop_step"] = loop_per_step[key][direction, n]
     # flash kernels: the layer check's calls; the models' paths launch none
     for e in flash_entries:
         direction = "flash_bwd" if "bwd" in e["name"] else "flash_fwd"

@@ -1,0 +1,63 @@
+"""Run the workflow phases of chip_smoke.py alone on the card.
+
+    python experiments/torch_smoke_phases.py [25] [26] [28]
+
+Phases 1 (environment) and 2 (the kernels' build), the bare train steps
+that phases 25 and 26 are read against (12: ImageNet-512, 23: ImageNet-64),
+then the phases named (all three by default): 25, ImageNet-64 through the
+CLI at 3 x 176; 26, ImageNet-512 through the CLI on a latpack store,
+followed by 27, post-hoc EMA over its checkpoints and sampling from it;
+28, FID on CIFAR-10. Each phase prints its lines and gates as in
+chip_smoke.py, and its seconds. Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from tinyedm_tpu_torch.utils.cuda import resolve_device  # noqa: E402
+
+
+def main(phases: list[str]) -> None:
+    print(subprocess.run("df -h /tmp .; free -g; nproc", shell=True, capture_output=True, text=True).stdout,
+          flush=True)
+    resolve_device("cuda")  # fp32 without TF32
+    t0 = time.perf_counter()
+    smi = cs.phase_environment()
+    cs.phase_build()
+    bare12 = cs.phase_train("12", "imagenet512")
+    torch.cuda.empty_cache()
+    bare23 = cs.phase_train("23", "imagenet", eval_profiles=1)
+    torch.cuda.empty_cache()
+    for name in phases:
+        t = time.perf_counter()
+        if name == "25":
+            print(cs.phase_imagenet64_cli(smi, bare23))
+        elif name == "26":
+            with tempfile.TemporaryDirectory() as tmp:
+                run = cs.phase_imagenet512_cli(smi, bare12, Path(tmp))
+                print(run["per_step"])
+                t27 = time.perf_counter()
+                cs.phase_posthoc(smi, run["run"], run["steps"], Path(tmp))
+                print(f"[phases] phase 27 {time.perf_counter() - t27:.1f} s", flush=True)
+        elif name == "28":
+            cs.phase_fid(smi)
+        else:
+            raise SystemExit(f"unknown phase {name} (25, 26 or 28)")
+        torch.cuda.empty_cache()
+        print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or ["25", "26", "28"])

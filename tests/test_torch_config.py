@@ -29,11 +29,12 @@ from tinyedm_tpu.config import registry as jax_registry
 from tinyedm_tpu_torch import configs
 from tinyedm_tpu_torch.config import registry, yaml_subset
 from tinyedm_tpu_torch.config.registry import ModuleSpec
+from tinyedm_tpu_torch.data.latpack import PackedLatentsDataModule
 from tinyedm_tpu_torch.diffusion.solver import DeterministicSolver
 from tinyedm_tpu_torch.models.edm import EDM
 from tinyedm_tpu_torch.models.layers import Embedding
 from tinyedm_tpu_torch.models.unet import Denoiser
-from tinyedm_tpu_torch.training.callbacks import GenerateCallback, LatentsGenerateCallback
+from tinyedm_tpu_torch.training.callbacks import FIDCallback, GenerateCallback, LatentsGenerateCallback
 from tinyedm_tpu_torch.training.experiment import EDMSpec
 
 CONF = Path(__file__).resolve().parent.parent / "experiments" / "conf"
@@ -138,13 +139,12 @@ def test_resolve_target_maps_names_and_aliases():
     assert registry.resolve_target("tinyedm.callbacks.GenerateCallback") is GenerateCallback
     assert registry.resolve_target(
         "tinyedm_tpu.training.callbacks.LatentsGenerateCallback") is LatentsGenerateCallback
-    for target in ("tinyedm_tpu.data.latpack.PackedLatentsDataModule",
-                   "tinyedm_tpu.training.callbacks.FIDCallback"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            registry.resolve_target(target)
+    assert registry.resolve_target("tinyedm_tpu.data.latpack.PackedLatentsDataModule") is PackedLatentsDataModule
+    assert registry.resolve_target("tinyedm_tpu.training.callbacks.FIDCallback") is FIDCallback
     cfg = registry.load_config(CONF / "imagenet512.yaml")
-    with pytest.raises(NotImplementedError, match="latpack"):
-        registry.instantiate(cfg["datamodule"])
+    dm = registry.instantiate(cfg["datamodule"])
+    assert isinstance(dm, PackedLatentsDataModule)
+    assert (dm.batch_size, dm.num_workers, dm.data_file) == (128, 8, "datasets/imagenet512/latents.latpack")
 
 
 def _spec(name: str, **overrides) -> EDMSpec:

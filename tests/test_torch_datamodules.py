@@ -7,8 +7,10 @@ MNIST (plain and ``.gz`` IDX files, in ``data_dir`` and in the torchvision
 (with and without ``skip``), ``train_batches_raw`` and ``val_batches`` of
 each port module equal the JAX module's bit for bit (exact equality of the
 arrays and their dtypes), and so do ``steps_per_epoch``, ``num_classes``,
-``denormalize`` and the synthetic modules. A real resize and a packed
-latent store raise ``NotImplementedError`` in the port.
+``denormalize`` and the synthetic modules. A ``.latpack`` store beside the
+``.npy`` directories loads bit-equal to the JAX module's (two raise
+``ValueError``, in both). A real resize raises ``NotImplementedError`` in
+the port.
 """
 
 from __future__ import annotations
@@ -150,14 +152,34 @@ def test_synthetic_modules_match_jax():
                         jdm.RandomNoiseDataModule(**kw).predict_batches())
 
 
-def test_resize_and_packed_latents_are_not_ported(mnist_dir_plain, tmp_path):
+def test_resize_and_packed_latents_are_not_ported(mnist_dir_plain):
+    """The resize to another image_size is not ported (the packed store is:
+    test_packed_latents_beside_the_npy_dirs_match_jax)."""
     with pytest.raises(NotImplementedError, match="resiz"):
         pdm.MNISTDataModule(batch_size=8, image_size=32, data_dir=str(mnist_dir_plain)).setup()
-    d = tmp_path / "packed"
-    d.mkdir()
-    (d / "latents.latpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="latpack"):
-        pdm.ImageNetLatentsDataModule(batch_size=4, data_dir=str(d)).setup()
+
+
+def test_packed_latents_beside_the_npy_dirs_match_jax(tmp_path):
+    """One ``*.latpack`` per split, packed from the ``.npy`` files, loads
+    bit-equal to the JAX module and to the files themselves; two raise."""
+    from tinyedm_tpu_torch.data.latpack import pack
+
+    npy, packed = tmp_path / "npy", tmp_path / "packed"
+    _write_latents(npy, 37, np.random.default_rng(2))
+    packed.mkdir()
+    assert pack(npy / "latents", npy / "labels", packed / "all.latpack") == 37
+    kw = dict(batch_size=4, num_workers=2, image_size=8, seed=1)
+    ours = pdm.ImageNetLatentsDataModule(data_dir=str(packed), **kw)
+    _assert_modules_equal(ours, jdm.ImageNetLatentsDataModule(data_dir=str(packed), **kw))
+    files = pdm.ImageNetLatentsDataModule(data_dir=str(npy), **kw)
+    files.setup()
+    for name in ("train_images", "train_labels", "val_images", "val_labels"):
+        a, b = getattr(ours, name), getattr(files, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    (packed / "stale.latpack").write_bytes((packed / "all.latpack").read_bytes())
+    for module in (pdm, jdm):
+        with pytest.raises(ValueError, match="multiple .latpack files"):
+            module.ImageNetLatentsDataModule(data_dir=str(packed), **kw).setup()
 
 
 @pytest.fixture

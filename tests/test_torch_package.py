@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "flax", "tinyedm_tpu"}
 # what the machine with the card lacks: never imported by the port, and
 # wandb only inside a function (MetricLogger's guarded import)
-ABSENT_ON_THE_CARD = {"yaml", "PIL", "orbax"}
+ABSENT_ON_THE_CARD = {"yaml", "PIL", "orbax", "torchvision", "tf_keras"}
 MODULE_LEVEL_ONLY = {"wandb"}
 
 
@@ -76,9 +76,11 @@ def test_importing_the_port_loads_no_jax():
         "import sys, tinyedm_tpu_torch, tinyedm_tpu_torch.generate, "
         "tinyedm_tpu_torch.utils.interop, tinyedm_tpu_torch.training.train_step, "
         "tinyedm_tpu_torch.data.datamodules, tinyedm_tpu_torch.diffusion.loss, "
-        "tinyedm_tpu_torch.train, tinyedm_tpu_torch.training.trainer, tinyedm_tpu_torch.utils.profiling\n"
+        "tinyedm_tpu_torch.train, tinyedm_tpu_torch.training.trainer, tinyedm_tpu_torch.utils.profiling, "
+        "tinyedm_tpu_torch.data.latpack, tinyedm_tpu_torch.posthoc_ema, tinyedm_tpu_torch.eval_fid, "
+        "tinyedm_tpu_torch.utils.fid, tinyedm_tpu_torch.utils.inception\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "{'jax', 'flax', 'tinyedm_tpu', 'yaml', 'PIL', 'orbax', 'wandb'})\n"
+        "{'jax', 'flax', 'tinyedm_tpu', 'yaml', 'PIL', 'orbax', 'wandb', 'torchvision', 'tf_keras'})\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -9,8 +9,11 @@ the JAX package as hand-written CUDA (``csrc/``, built on first use). The
 run loop reads ``experiments/conf/*.yaml`` (``config``), feeds the data
 modules (``data``) to the ``training.trainer.Trainer`` (validation,
 checkpoints, previews, resume) behind the CLI ``train``; ``generate
---ckpt_path`` samples what it saved. Entry points run on the card unless
-``device="cpu"`` is asked for.
+--ckpt_path`` samples what it saved. EDM2's ImageNet-512 workflow: latents
+packed into one store (``data.latpack``), post-hoc EMA reconstruction
+(``posthoc_ema``) and FID/KID with an InceptionV3 in PyTorch (``eval_fid``,
+``utils.fid``, ``utils.inception``, ``training.callbacks.FIDCallback``).
+Entry points run on the card unless ``device="cpu"`` is asked for.
 """
 
 from tinyedm_tpu_torch.configs import CONFIGS, build_model, build_training

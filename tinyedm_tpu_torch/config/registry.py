@@ -67,19 +67,10 @@ TARGET_ALIASES = {
     "tinyedm.datamodules.RandomNoiseDataModule": "tinyedm_tpu.data.datamodules.RandomNoiseDataModule",
 }
 
-# targets of the shipped configs that the port does not have yet, with the
-# ROADMAP.md item that ports them
-NOT_PORTED = {
-    "tinyedm_tpu.data.latpack.PackedLatentsDataModule": "section 1, item 2 (data/latpack.py)",
-    "tinyedm_tpu.training.callbacks.FIDCallback": "section 1, item 4 (FID)",
-}
-
 
 def port_name(target: str) -> str:
     """The port's dotted name for a config target (aliases resolved)."""
     target = TARGET_ALIASES.get(target, target)
-    if target in NOT_PORTED:
-        raise NotImplementedError(f"{target} is not ported yet (ROADMAP.md {NOT_PORTED[target]})")
     if target.split(".")[0] == _JAX_PACKAGE:
         return _PORT_PACKAGE + target[len(_JAX_PACKAGE):]
     return target

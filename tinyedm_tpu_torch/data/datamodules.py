@@ -6,12 +6,13 @@ batches, ImageNet VAE latents as ``.npy`` files), per-epoch shuffling and
 horizontal flips are vectorized numpy seeded with ``np.random.default_rng``,
 so one seed gives the same batches bit for bit in both packages. Batches are
 NHWC, normalized to "std 0.5" ((x/255 - 0.5) / 0.5); ``to_device`` turns one
-into the port's NCHW tensors.
+into the port's NCHW tensors. A split of ImageNet latents may be one packed
+``*.latpack`` store (``data/latpack.py``) in place of the ``.npy``
+directories; it is read whole, on ``num_workers`` gather threads.
 
 Not ported: resizing to another ``image_size`` (the JAX package uses PIL,
 which the machine with the card lacks; every shipped config uses its
-dataset's native size) and packed ``.latpack`` latent stores
-(``data/latpack.py``). Both raise ``NotImplementedError`` (ROADMAP.md).
+dataset's native size). It raises ``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -266,11 +267,20 @@ class ImageNetLatentsDataModule(AbstractDataModule):
     @staticmethod
     def _load_split(root: Path, num_workers: int = 16) -> tuple[np.ndarray, np.ndarray]:
         packs = sorted(root.glob("*.latpack"))
-        if packs:
-            raise NotImplementedError(
-                f"{packs[0]}: packed latent stores are not ported yet (ROADMAP.md section 1, item 2, "
-                "data/latpack.py); use the per-file latents/ and labels/ npy directories"
+        if len(packs) > 1:
+            raise ValueError(
+                f"multiple .latpack files under {root}: {[p.name for p in packs]} - keep exactly one per split "
+                "(repack with data/latpack.py, or point data_dir at the one you mean)"
             )
+        if packs:
+            from tinyedm_tpu_torch.data.latpack import PackedLatents
+
+            store = PackedLatents(packs[0], gather_threads=max(1, num_workers))
+            try:
+                lats, labs = store.gather(np.arange(store.n))
+            finally:
+                store.close()
+            return lats, labs.astype(np.int64)
         lat_dir = root / "latents"
         lab_dir = root / "labels"
         files = sorted(lat_dir.glob("*.npy"), key=lambda p: int(p.stem))

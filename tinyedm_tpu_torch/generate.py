@@ -1,10 +1,10 @@
 """Generation CLI: samples from random noise, written as PNGs.
 
 Counterpart of ``tinyedm_tpu/generate.py`` with its flag names where they
-apply (``--output_dir --num_samples --image_size --num_classes --batch_size
---num_steps --seed --mean --std --solver_dtype --solver --S_churn --S_noise
---S_min --S_max --guidance_scale --guidance_sigma_min
---guidance_sigma_max --ckpt_path --load_ema --ckpt_step --ema_index
+apply (``--output_dir --num_samples --image_size --num_classes --num_channels
+--batch_size --num_workers --num_steps --seed --mean --std --solver_dtype
+--solver --S_churn --S_noise --S_min --S_max --guidance_scale
+--guidance_sigma_min --guidance_sigma_max --ckpt_path --load_ema --ckpt_step --ema_index
 --guide_ckpt_path --guide_ckpt_step --guide_ema_index``), plus ``--config``
 (a name in ``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
 ``utils.interop.save_weights``; without it, or a checkpoint, the weights are
@@ -18,8 +18,10 @@ carries, with the train weights or, with ``--load_ema``, the EMA tree
 same ``--load_ema``) excludes ``--guide_weights``; with ``--load_ema`` it
 prints "EMA weights loaded.", as the JAX CLI does. ``--num_classes`` has the
 JAX meaning (0: unconditional, else the class count) and must agree with the
-model; left out, the model's own count is taken. The samplers: Heun (default), ``--solver dpmpp2m`` (DPM-Solver++
-(2M), one forward per step), and Heun with churn (``--S_churn > 0``, EDM
+model; left out, the model's own count is taken, and so is
+``--num_channels``'s. ``--num_workers`` is taken for the JAX CLI's command
+lines and unused: the noise is drawn on the device. The samplers: Heun
+(default), ``--solver dpmpp2m`` (DPM-Solver++ (2M), one forward per step), and Heun with churn (``--S_churn > 0``, EDM
 Algorithm 2; its noise comes from a generator seeded from ``seed ^ 0xC4A2``
 and the batch index). Guidance follows the JAX CLI's rules: a scale alone is
 classifier-free guidance (one stacked forward of twice the batch), with
@@ -170,6 +172,7 @@ def generate(
     solver_dtype: Optional[str] = None,
     seed: int = 0,
     num_classes: Optional[int] = None,
+    num_channels: Optional[int] = None,
     solver: str = "heun",
     s_churn: float = 0.0,
     s_noise: float = 1.0,
@@ -195,6 +198,7 @@ def generate(
     autoguidance model in place of ``guide_weights``.
     ``num_classes``: 0 for an unconditional model, else its class count
     (labels are drawn from that many classes); None takes the model's.
+    ``num_channels`` must equal the model's channel count; None takes it.
     ``solver``, ``s_*``, ``guidance_*`` and ``guide_weights`` are the CLI's
     flags (module docstring). ``fused="off"`` runs the attention unfused
     (the comparison path), in the guide model too. Returns the image count,
@@ -220,6 +224,9 @@ def generate(
             f"num_classes={num_classes} but the {config} model has "
             f"{model_classes or 'no'} classes (0 means unconditional)"
         )
+    model_channels = model.denoiser.conv_in.weight.shape[1] - 1
+    if num_channels is not None and num_channels != model_channels:
+        raise ValueError(f"num_channels={num_channels} but the {config} model has {model_channels} channels")
     guide_source = guide_weights if guide_ckpt_path is None else guide_ckpt_path
     scale, interval = guidance_plan(guidance_scale, model.conditional, guide_source is not None,
                                     guidance_sigma_min, guidance_sigma_max)
@@ -242,7 +249,7 @@ def generate(
         image_size=image_size,
         num_samples=num_samples,
         num_classes=model_classes,
-        num_channels=model.denoiser.conv_in.weight.shape[1] - 1,
+        num_channels=model_channels,
         seed=seed,
     )
     writer = PreditionWriter(output_dir, "batch", mean=mean, std=std)
@@ -299,7 +306,11 @@ def main(argv=None) -> None:
     parser.add_argument("--image_size", type=int, default=32)
     parser.add_argument("--num_classes", type=int, default=None,
                         help="0 = unconditional, else the class count (default: the model's)")
+    parser.add_argument("--num_channels", type=int, default=None,
+                        help="sample channels; must equal the model's (default: the model's)")
     parser.add_argument("--batch_size", type=int, required=True)
+    parser.add_argument("--num_workers", type=int, default=16,
+                        help="unused: the noise is drawn on the device (taken for the JAX CLI's command lines)")
     parser.add_argument("--num_steps", type=int, default=32)
     parser.add_argument("--mean", type=float, nargs="+", default=list(CIFAR10_MEAN))
     parser.add_argument("--std", type=float, nargs="+", default=list(CIFAR10_STD))
@@ -356,6 +367,7 @@ def main(argv=None) -> None:
         solver_dtype=args.solver_dtype,
         seed=args.seed,
         num_classes=args.num_classes,
+        num_channels=args.num_channels,
         solver=args.solver,
         s_churn=args.S_churn,
         s_noise=args.S_noise,

@@ -7,7 +7,13 @@ overrides (interpolations resolve after them, so overriding a source reaches
 its references), ``--resume`` continues from the latest checkpoint in the
 run's ``out_dir`` and ``--max-epochs`` replaces ``trainer.max_epochs``.
 ``--device`` picks the device: the card by default, ``cpu`` when asked for.
-``--multihost`` (several processes) is not ported. Examples:
+``--multihost`` (several processes) is not ported.
+
+``trainer.accumulate_grad_batches`` splits the step batch (the datamodule's
+``batch_size``) into that many equal microbatches, as the JAX driver does. A
+batch it does not split raises before the trainer is built, with the
+override that gives Lightning's reading (that many microbatches of the
+batch): ``imagenet.yaml`` needs ``datamodule.batch_size=528``. Examples:
 
     python -m tinyedm_tpu_torch.train --config-name=smoke --device cpu
     python -m tinyedm_tpu_torch.train --config-name=cifar10 \\
@@ -27,6 +33,19 @@ import torch
 from tinyedm_tpu_torch.config.registry import apply_overrides, deinstantiate, instantiate, load_config
 
 CONFIG_PATH = Path(__file__).resolve().parents[1] / "experiments" / "conf"
+
+
+def check_accumulation(batch_size: int, accum_steps: int) -> None:
+    """Raise where ``accum_steps`` does not split the step batch into equal
+    microbatches, naming the batch of Lightning's reading (``accum_steps``
+    microbatches of ``batch_size``)."""
+    if batch_size % accum_steps:
+        raise ValueError(
+            f"a batch of {batch_size} does not split into {accum_steps} equal microbatches "
+            f"(trainer.accumulate_grad_batches={accum_steps}, datamodule.batch_size={batch_size}); "
+            f"for Lightning's reading, {accum_steps} microbatches of {batch_size}, pass "
+            f"datamodule.batch_size={accum_steps * batch_size}"
+        )
 
 
 def main(argv: Optional[list[str]] = None):
@@ -67,6 +86,7 @@ def main(argv: Optional[list[str]] = None):
     datamodule = instantiate(cfg["datamodule"])
     if hasattr(datamodule, "seed"):
         datamodule.seed = seed
+    check_accumulation(datamodule.batch_size, spec.accum_steps)
 
     callbacks = []
     ckpt_cfg = {}

@@ -5,8 +5,12 @@ Counterpart of ``tinyedm_tpu/training/callbacks.py``: ``Callback``, the
 fixed noise batch drawn at train start and log a grid of the samples),
 ``LatentsGenerateCallback`` and ``PreditionWriter`` (the reference's
 spelling kept). The trainer drives the callbacks and hands them itself.
-PNGs are encoded with the standard library (zlib + struct): the machine with
-the card has no Pillow.
+PNGs are encoded and read with the standard library (zlib + struct): the
+machine with the card has no Pillow. ``read_png`` decodes what PIL writes
+for 8-bit images (grey, grey + alpha, RGB, RGBA, palette; every row filter)
+into RGB, as PIL's ``convert("RGB")`` does, and raises on anything else.
+``FIDCallback`` scores samples during training (FID, and KID when asked;
+``utils/fid.py``).
 
 ``LatentsGenerateCallback`` logs a grid of the latents' first three channels:
 the VAE that would decode them is not ported (ROADMAP.md section 1, item 6),
@@ -59,6 +63,90 @@ def encode_png(image: np.ndarray) -> bytes:
         + _chunk(b"IDAT", zlib.compress(raw))
         + _chunk(b"IEND", b"")
     )
+
+
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG color type -> samples per pixel
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (None, Sub, Up, Average, Paeth), with uint8
+    wrap-around; returns (h, stride) uint8."""
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h + 1, stride), np.uint8)  # row 0: the zero row above the image
+    for y in range(h):
+        ftype, line, prev = rows[y, 0], rows[y, 1:], out[y]
+        if ftype == 0:
+            out[y + 1] = line
+        elif ftype == 1:
+            out[y + 1] = line.reshape(-1, bpp).cumsum(axis=0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:
+            out[y + 1] = line + prev
+        elif ftype in (3, 4):
+            cur, up = bytearray(line.tobytes()), prev.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 0xFF
+            out[y + 1] = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"bad PNG row filter {ftype}")
+    return out[1:]
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """The (H, W, 3) uint8 RGB pixels of an 8-bit, non-interlaced PNG (grey,
+    grey + alpha, RGB, RGBA or palette), as PIL's ``convert("RGB")`` gives
+    them: grey repeated, alpha dropped, palette indices looked up. Any other
+    file raises ``ValueError`` naming it."""
+    path = Path(path)
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, palette, idat = 8, None, None, []
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or interlace != 0 or color not in _CHANNELS or (color == 3 and palette is None):
+        raise ValueError(
+            f"{path}: only 8-bit, non-interlaced grey, grey+alpha, RGB, RGBA and palette PNGs are read "
+            f"(bit depth {depth}, color type {color}, interlace {interlace})"
+        )
+    ch = _CHANNELS[color]
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt image data ({e})") from None
+    if len(raw) != h * (w * ch + 1):
+        raise ValueError(f"{path}: {len(raw)} bytes of image data, expected {h * (w * ch + 1)}")
+    try:
+        pixels = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    if color == 3:
+        if int(pixels.max(initial=0)) >= len(palette):
+            raise ValueError(f"{path}: palette index past the {len(palette)}-entry palette")
+        return palette[pixels[..., 0]]
+    if color in (0, 4):
+        return np.repeat(pixels[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(pixels[..., :3])
 
 
 class PreditionWriter:
@@ -217,3 +305,106 @@ class LatentsGenerateCallback(Callback):
         vis = (lat[..., :3] - lo) / max(hi - lo, 1e-6)
         images = (vis * 255.0).astype(np.uint8)
         trainer.logger.log_image("Generated", make_grid(images, nrow=self.num_classes), step=trainer.epoch)
+
+
+class FIDCallback(Callback):
+    """Every ``every_n_epochs`` epochs: sample ``num_samples`` images with
+    the EMA tree ``ema_index`` (the train weights without EMA), featurize
+    them and log ``fid`` (and ``kid`` when asked) against a stats file of
+    ``eval_fid stats``; the values also go to the epoch's checkpoint
+    metrics, so a checkpoint monitor can select on ``fid``.
+
+    The stats file and the feature extractor are checked at train start
+    (``features``: a ``utils.fid.resolve_feature_fn`` spec, on the trainer's
+    device), so a missing weight file fails the run before its first step.
+    Image-space models only (a latent model would need the VAE decode).
+    Noise comes from a generator seeded ``seed ^ 0xF1D`` folded with the
+    epoch, on the trainer's device: each evaluation draws fresh samples,
+    the same ones for a given epoch."""
+
+    def __init__(
+        self,
+        solver,
+        img_shape: tuple[int, int, int],  # (C, H, W)
+        stats_path: str,
+        num_samples: int = 1024,
+        batch_size: int = 128,
+        every_n_epochs: int = 100,
+        features: Optional[str] = None,
+        kid: bool = False,
+        kid_subset_size: int = 1000,
+        kid_subsets: int = 100,
+        ema_index: int = 0,
+        guidance_scale: Optional[float] = None,
+    ):
+        self.solver = solver
+        self.img_shape = tuple(img_shape)
+        self.stats_path = stats_path
+        self.num_samples = num_samples
+        self.batch_size = batch_size
+        self.every_n_epochs = every_n_epochs
+        self.features = features
+        self.kid = kid
+        self.kid_subset_size = kid_subset_size
+        self.kid_subsets = kid_subsets
+        self.ema_index = ema_index
+        self.guidance_scale = guidance_scale
+        self._ref = None  # (mu, sigma, feature rows or None) of the stats file
+        self._feature_fn = None
+
+    def on_train_start(self, trainer) -> None:
+        from tinyedm_tpu_torch.utils.fid import load_features, load_stats, resolve_feature_fn
+
+        self._feature_fn, _ = resolve_feature_fn(self.features, trainer.device)
+        mu, sigma = load_stats(self.stats_path)
+        ref_feats = load_features(self.stats_path)
+        if self.kid and ref_feats is None:
+            raise ValueError(
+                f"{self.stats_path} has no stored feature rows - regenerate it with `eval_fid stats "
+                "--kid-features N` to track KID"
+            )
+        self._ref = (mu, sigma, ref_feats)
+
+    def _sample_batches(self, trainer):
+        """Denormalized uint8 NHWC sample batches, one solve per batch."""
+        from tinyedm_tpu_torch.utils.cuda import folded_generator
+
+        n_cls = trainer.model.embedding.num_classes if trainer.model.conditional else None
+        gen = folded_generator(trainer.seed ^ 0xF1D, trainer.epoch, trainer.device)
+        done = 0
+        while done < self.num_samples:
+            n = min(self.batch_size, self.num_samples - done)
+            # one batch shape throughout; the tail is trimmed after the solve
+            x0 = torch.randn((self.batch_size, *self.img_shape), generator=gen, device=trainer.device)
+            labels = None
+            if n_cls:
+                labels = torch.arange(done, done + self.batch_size, device=trainer.device) % n_cls
+            xT = trainer.solve(self.solver, x0, labels, use_ema=trainer.use_ema, ema_index=self.ema_index,
+                               guidance_scale=self.guidance_scale)
+            yield trainer.datamodule.denormalize(_nhwc(xT[:n]))
+            done += n
+
+    def on_train_epoch_end(self, trainer) -> None:
+        # the (epoch + 1) cadence of validation and checkpoints, so that fid
+        # lands in the same epoch's save
+        if self._ref is None or (trainer.epoch + 1) % self.every_n_epochs != 0:
+            return
+        from tinyedm_tpu_torch.utils.fid import (
+            compute_stats,
+            compute_stats_and_features,
+            frechet_distance,
+            kid_score,
+        )
+
+        mu2, s2, ref_feats = self._ref
+        if self.kid:
+            mu1, s1, feats = compute_stats_and_features(self._sample_batches(trainer), self._feature_fn,
+                                                        max_features=max(self.kid_subset_size, len(ref_feats)))
+        else:
+            mu1, s1 = compute_stats(self._sample_batches(trainer), self._feature_fn)
+        metrics = {"fid": frechet_distance(mu1, s1, mu2, s2)}
+        if self.kid:
+            metrics["kid"] = kid_score(feats, ref_feats, subset_size=self.kid_subset_size,
+                                       num_subsets=self.kid_subsets)
+        trainer.logger.log_metrics(metrics, step=trainer.global_step)
+        trainer.extra_ckpt_metrics.update(metrics)

@@ -7,13 +7,20 @@ Counterpart of the tracking half of ``tinyedm_tpu/training/ema.py``:
   * ema <- decay * ema + (1 - decay) * theta
   * updated every ``every_n_steps``, checked on the pre-increment step, so
     step 0 gives decay 0 and the EMA starts at theta.
-EMA trees are dicts of tensors, updated in place. Post-hoc reconstruction
-is not ported yet (ROADMAP.md).
+EMA trees are dicts of tensors, updated in place.
+
+Post-hoc reconstruction (EDM2, Algorithm 3): ``solve_posthoc_weights`` finds
+the least-squares weights of stored EMA snapshots for the profile of any
+target ``sigma_rel``, in numpy fp64 (snapshots close in step and gamma make
+the Gram matrix nearly singular, so the solve never runs in fp32), and
+``reconstruct_posthoc_ema`` combines the snapshot trees with them in fp32 on
+the trees' own device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,3 +82,58 @@ class EMAConfig:
     @property
     def gammas(self) -> tuple[float, ...]:
         return tuple(sigma_rel_to_gamma(sr) for sr in self.sigma_rels)
+
+
+def _p_dot_p(t_a, gamma_a, t_b, gamma_b):
+    """Inner product <p_a, p_b> of two power-EMA response profiles."""
+    t_ratio = t_a / t_b
+    t_exp = np.where(t_a < t_b, gamma_b, -gamma_a)
+    t_max = np.maximum(t_a, t_b)
+    num = (gamma_a + 1) * (gamma_b + 1) * t_ratio**t_exp
+    den = (gamma_a + gamma_b + 1) * t_max
+    return num / den
+
+
+def solve_posthoc_weights(
+    snapshot_steps: Sequence[int],
+    snapshot_gammas: Sequence[float],
+    target_step: int,
+    target_gamma: float,
+) -> np.ndarray:
+    """Least-squares weights w_i such that sum_i w_i * ema_i approximates the
+    EMA of exponent ``target_gamma`` at ``target_step``; snapshot i is the
+    EMA of exponent ``snapshot_gammas[i]`` at ``snapshot_steps[i]``. Time is
+    1-indexed: pass step + 1."""
+    t_i = np.asarray(snapshot_steps, np.float64).reshape(-1, 1)
+    g_i = np.asarray(snapshot_gammas, np.float64).reshape(-1, 1)
+    t_r = np.asarray([target_step], np.float64).reshape(1, -1)
+    g_r = np.asarray([target_gamma], np.float64).reshape(1, -1)
+    a = _p_dot_p(t_i, g_i, t_i.T, g_i.T)
+    b = _p_dot_p(t_i, g_i, t_r, g_r)
+    return np.linalg.solve(a, b).reshape(-1)
+
+
+@torch.no_grad()
+def reconstruct_posthoc_ema(
+    snapshots: Sequence[dict[str, torch.Tensor]],
+    snapshot_steps: Sequence[int],
+    snapshot_gammas: Sequence[float],
+    target_sigma_rel: float,
+    target_step: Optional[int] = None,
+) -> dict[str, torch.Tensor]:
+    """The EMA tree that a run tracking ``target_sigma_rel`` would hold at
+    ``target_step`` (the latest snapshot's by default), combined from the
+    snapshot trees (dicts of tensors, any device) in fp32."""
+    if target_step is None:
+        target_step = max(snapshot_steps)
+    w = solve_posthoc_weights(
+        [s + 1 for s in snapshot_steps],
+        snapshot_gammas,
+        target_step + 1,
+        sigma_rel_to_gamma(target_sigma_rel),
+    )
+    out = {k: v.float() * float(w[0]) for k, v in snapshots[0].items()}
+    for wi, snap in zip(w[1:], snapshots[1:]):
+        for k, o in out.items():
+            o.add_(snap[k].float(), alpha=float(wi))
+    return out
