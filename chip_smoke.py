@@ -8,9 +8,10 @@ with a non-zero exit code:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: nvcc builds every CUDA kernel of the paths from the sources in
-   tinyedm_tpu_torch/csrc (into tinyedm_tpu_torch/build/), one nvcc per
-   source, all started together; ptxas's registers and spills of the flash
-   backward and the block libraries' kernels;
+   tinyedm_tpu_torch/csrc (into tinyedm_tpu_torch/build/), and the nvJPEG
+   binding of phase 30, one nvcc per source, all started together; ptxas's
+   registers and spills of the flash backward and the block libraries'
+   kernels;
 3. fused forward kernel vs plain: the cosine-attention forward kernel
    against its plain PyTorch version at the sampling paths' shapes (CIFAR-10
    at batch 128, 4 heads of 64; ImageNet-512 at batch 32, 4 heads of 144 at
@@ -169,7 +170,8 @@ with a non-zero exit code:
     exact launches (7 + 8 forward and 7 + 8 backward per microbatch), the
     metrics rows, the checkpoints, the latest restored bit for bit; the
     loop's ms/step beside phase 12's bare step, samples/s, validation, the
-    saves and the restore in seconds with the GB on disk, the peak;
+    saves and the restore in seconds with the GB on disk, the peak; its
+    previews decode through the VAE (phase 31);
 27. post-hoc EMA: python -m tinyedm_tpu_torch.posthoc_ema over phase 26's
     two checkpoints (4 snapshots) at sigma_rel 0.13, which reproduces the
     latest step's tracked 0.13 tree within relative L2 1e-5 (a unit weight),
@@ -190,6 +192,35 @@ with a non-zero exit code:
     (UnverifiedInceptionWeights); then cifar10.yaml for one epoch with
     FIDCallback on proxy features (256 samples), which logs fid. No number
     of this phase is an Inception FID.
+29. the SD VAE (data/vae.py) at sd-vae-ft-ema's width with seeded random
+    weights (83,653,863 parameters), written by the port's safetensors
+    writer into a fake Hugging Face cache in a temporary $HF_HOME and as a
+    .bin: load_vae by the default name (the cache) and from the .bin, both
+    equal to the seeded state dict; the card against the CPU in fp32 (TF32
+    off) on a 128x128 image and its 16x16 latent (mean, logvar and decode
+    within relative L2 1e-4); img/s, achieved TFLOP/s against the fp32
+    bound (operations counted on the meta device) and the peak memory of
+    encode_moments of 16 images at 512x512 and of decode of 32 and of 80
+    latents (the previews' batches), and the mid-block attentions' time
+    alone; the decode of 32 in bf16 and with TF32 timed against fp32, with
+    their relative L2 to it (no gate);
+30. latent extraction: nvJPEG (csrc/nvjpeg_decode.cu, with libjpeg's
+    chroma upsampling and YCbCr conversion in torch) on the committed JPEG
+    fixtures against PIL's decodes (mean abs <= 1 level, max reported), the
+    CMYK fixture refused naming the file; then an ImageFolder of PNGs
+    written by the port (RGB, L, LA, RGBA, P; short sides from 260 to 1100,
+    the BOX halvings from 1024) and the JPEG fixtures through python -m
+    tinyedm_tpu_torch.data.extract_latents at --image-size 512, batch 8,
+    flips on, the VAE found by name in the cache: the file count, names,
+    labels and HWC float32 shapes; the output packed by the latpack CLI and
+    read by PackedLatentsDataModule (a gather equal to the files); img/s
+    with the seconds of decode, crop, encode and write;
+31. the decoded preview: phase 26's run finds the VAE by its default name in
+    the cache, so imagenet512.yaml's LatentsGenerateCallback (32 samples,
+    Heun-32) decodes its previews: no "VAE unavailable" warning, each grid
+    4 x 8 images of 512x512; one more preview on the trained state with its
+    seconds, the decode's seconds, the peak memory beside the training state
+    and the launches of rows 1-2 in its solve (63 forwards of 7 + 8).
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
@@ -273,6 +304,7 @@ FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20
              (2, 1030, 2, 144), (2, 1030, 2, 128), (1, 1030, 1, 256)]
 KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "attention_block_fwd", "attention_block_bwd", "winograd_fwd")
+LIBRARIES = ("nvjpeg_decode",)  # built beside the kernels; no TPU kernel's port (phase 30's JPEGs)
 PTXAS_SHOWN = ("flash_attention_bwd", "attention_block_fwd", "attention_block_bwd")  # ptxas -v in phase 2
 # the whole-block kernels at the CIFAR-10 attention widths: (batch, n) per
 # direction, the sampling batch forward and the training batch backward
@@ -333,6 +365,26 @@ POSTHOC_TARGET = 0.13  # one of the tracked profiles: exactly representable at t
 FID_SAMPLES, FID_BATCH, FID_KID_SUBSETS = 1000, 128, 10
 FID_CALLBACK_SAMPLES = 256
 INCEPTION_BATCHES = (64, 256)  # the JAX feature function's sub-batch, and a larger one
+# the latent pipeline (phases 29-31): the sd-vae-ft-ema architecture with
+# seeded random weights; encode at 512 (batch 16), decode at the previews'
+# batches (imagenet512.yaml's 32, imagenet.yaml's 80), the card against the
+# CPU at 128x128 (Inception's gate)
+VAE_SEED, VAE_PARAMS = 0, 83_653_863
+VAE_ENCODE, VAE_DECODES, VAE_CPU_SIDE, VAE_TOL = (16, 512), (32, 80), 128, 1e-4
+# extraction (phase 30): an ImageFolder of PNGs written by the port (class,
+# name, mode, height, width; short sides >= 1024 take the BOX halvings) and
+# the committed JPEG fixtures, through the CLI at 512 in batches of 8
+JPEG_FIXTURES = ROOT / "tests" / "torch_fixtures"
+JPEG_READ = ("rgb420", "rgb422", "rgb444", "grey", "progressive")
+JPEG_REFUSED = ("cmyk",)
+JPEG_MEAN_TOL = 1.0  # levels: nvJPEG's IDCT against libjpeg's
+EXTRACT_SIZE, EXTRACT_BATCH = 512, 8
+EXTRACT_PNGS = [("cat", "rgb_box", "RGB", 1100, 1300), ("cat", "grey", "L", 600, 700),
+                ("cat", "rgba", "RGBA", 520, 780), ("cat", "palette_box", "P", 1040, 1200),
+                ("cat", "rgb_wide", "RGB", 513, 1500), ("dog", "la", "LA", 700, 530),
+                ("dog", "rgb", "RGB", 530, 610), ("dog", "grey_box", "L", 1200, 1024),
+                ("dog", "rgb_small", "RGB", 300, 260)]
+EXTRACT_JPEGS = [("cat", "rgb420"), ("cat", "grey"), ("dog", "rgb444"), ("dog", "rgb422"), ("dog", "progressive")]
 
 
 def fail(msg: str) -> None:
@@ -391,12 +443,14 @@ def phase_build() -> None:
     from tinyedm_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # nvcc runs outside the GIL
-        paths = list(pool.map(lambda k: _build.build(k, ptxas_verbose=True), KERNELS))
-    for name, path in zip(KERNELS, paths):
+    sources = KERNELS + LIBRARIES
+    with ThreadPoolExecutor(len(sources)) as pool:  # nvcc runs outside the GIL
+        paths = list(pool.map(lambda k: _build.build(k, ptxas_verbose=True), sources))
+    for name, path in zip(sources, paths):
         _build.load_library(name)
         print(f"[2 build] {name}.cu -> {path.relative_to(ROOT)}", flush=True)
-    print(f"[2 build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"[2 build] {len(KERNELS)} kernels and {', '.join(LIBRARIES)} in {time.perf_counter() - t0:.2f}s",
+          flush=True)
     for name in PTXAS_SHOWN:  # empty where an earlier run built the library
         for line in _build.ptxas_log.get(name, "").splitlines():
             if re.search(r"Compiling entry function|spill stores|Used \d+ registers", line):
@@ -1371,11 +1425,13 @@ def phase_imagenet64_cli(smi: str, bare: dict) -> dict:
     return per_step
 
 
-def phase_imagenet512_cli(smi: str, bare: dict, tmp: Path) -> dict:
+def phase_imagenet512_cli(smi: str, bare: dict, tmp: Path, vae_files: dict) -> dict:
     """imagenet512.yaml through tinyedm_tpu_torch.train on a latpack store
-    (docstring, phase 26), in ``tmp``, which keeps the run for phase 27.
-    ``bare``: phase 12's result. Returns the run directory, its checkpoint
-    steps and the fused launches per loop step by (direction, n)."""
+    (docstring, phase 26), in ``tmp``, which keeps the run for phase 27,
+    with ``$HF_HOME`` on ``vae_files``' cache, so that its previews decode
+    (phase 31, run on the trained state before it is freed). ``bare``: phase
+    12's result. Returns the run directory, its checkpoint steps and the
+    fused launches per loop step by (direction, n)."""
     import numpy as np
     import torch
 
@@ -1411,8 +1467,8 @@ def phase_imagenet512_cli(smi: str, bare: dict, tmp: Path) -> dict:
             "callbacks.generate_callback.every_n_epochs=1"]
     torch.cuda.reset_peak_memory_stats()
     _clear_counts()
-    with _timed_saves() as saves:
-        trainer, _, fit_s = _run_train(args, "26 imagenet-512 cli")
+    with _timed_saves() as saves, _hf_home(vae_files["hf_home"]):
+        trainer, run_output, fit_s = _run_train(args, "26 imagenet-512 cli")
     counts, flash = _kernel_calls(), _flash_calls()
     peak = torch.cuda.max_memory_allocated()
     dm = trainer.datamodule
@@ -1449,7 +1505,9 @@ def phase_imagenet512_cli(smi: str, bare: dict, tmp: Path) -> dict:
     if not (all(torch.equal(x[k], y[k]) for x, y in trees for k in x) and restored.step == live.step):
         fail("imagenet-512 CLI: the restored checkpoint differs from the trained state")
     values = sum(v.numel() for v in live.params.values())
-    del restored, trees, live, trainer
+    del restored, trees, live
+    phase_preview(smi, trainer, run_output, [run / "images" / g for g in grids])
+    del trainer
     torch.cuda.empty_cache()
     gb = _state_gb(run / "checkpoints", want[-1])
     per_step = {(d, n): a * c for n, c in calls.items() for d in ("fwd", "bwd")}
@@ -1665,6 +1723,378 @@ def phase_fid(smi: str) -> None:
                   f"{fid_rows[0]['step']}; {fit_s:.3f} s in all | {smi}", flush=True)
         finally:
             inception.DEFAULT_WEIGHTS = default
+
+
+# ---------------------------------------------------------------------------
+# phases 29-31: the latent pipeline (the SD VAE, extraction, decoded previews)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _hf_home(path: Path):
+    """``$HF_HOME`` set to ``path`` while active (the VAE's lookup reads it)."""
+    import os
+
+    old = os.environ.get("HF_HOME")
+    os.environ["HF_HOME"] = str(path)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["HF_HOME"]
+        else:
+            os.environ["HF_HOME"] = old
+
+
+def write_vae_files(tmp: Path) -> dict:
+    """The seeded random sd-vae weights (VAE_SEED) as a fake Hugging Face
+    cache under ``tmp/hf`` (``diffusion_pytorch_model.safetensors``, written
+    by the port's own writer, in a snapshot that ``refs/main`` names) and as
+    ``tmp/vae.bin`` (``torch.save``); returns the paths and the seconds."""
+    import torch
+
+    from tinyedm_tpu_torch.data.vae import random_state_dict
+    from tinyedm_tpu_torch.utils.safetensors import save_safetensors
+
+    t0 = time.perf_counter()
+    sd = random_state_dict(VAE_SEED)
+    repo = tmp / "hf" / "hub" / "models--stabilityai--sd-vae-ft-ema"
+    snapshot = repo / "snapshots" / "0123456789abcdef"
+    snapshot.mkdir(parents=True)
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text("0123456789abcdef")
+    save_safetensors(sd, snapshot / "diffusion_pytorch_model.safetensors", metadata={"format": "pt"})
+    torch.save(sd, tmp / "vae.bin")
+    return dict(hf_home=tmp / "hf", bin=tmp / "vae.bin", seconds=time.perf_counter() - t0,
+                mb=(snapshot / "diffusion_pytorch_model.safetensors").stat().st_size / 1e6)
+
+
+def _vae_flops(method: str, shape: tuple) -> int:
+    """Multiply-adds x 2 of one ``AutoencoderKL`` call at ``shape``: every
+    conv and projection from its output's size, plus the two attention
+    products, counted on the meta device."""
+    import torch
+
+    from tinyedm_tpu_torch.data import vae as V
+
+    with torch.device("meta"):
+        model = V.AutoencoderKL()
+    total = [0]
+
+    def conv(mod, _, out):
+        total[0] += 2 * out.numel() * mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+
+    def linear(mod, _, out):
+        total[0] += 2 * out.numel() * mod.in_features
+
+    def attn(_, args, out):
+        b, c, h, w = args[0].shape
+        total[0] += 2 * 2 * b * (h * w) ** 2 * c
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(conv)
+        elif isinstance(m, torch.nn.Linear):
+            m.register_forward_hook(linear)
+        elif isinstance(m, V.AttnBlock):
+            m.register_forward_hook(attn)
+    with torch.no_grad():
+        getattr(model, method)(torch.empty(shape, device="meta"))
+    return total[0]
+
+
+def _peak_gib(fn) -> tuple[float, object]:
+    """(GiB the call allocated above what was live before it, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30, out
+
+
+def phase_vae(smi: str, files: dict) -> None:
+    """The SD VAE at full sd-vae-ft-ema width (docstring, phase 29)."""
+    import torch
+
+    from tinyedm_tpu_torch.data import vae as V
+    from tinyedm_tpu_torch.utils.cuda import set_precision
+
+    # loading: from the fake HF cache by the default name, and from a .bin
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _hf_home(files["hf_home"]):
+        where = V.find_vae_weights(V.DEFAULT_VAE)
+        vae = V.load_vae(V.DEFAULT_VAE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    from_bin = V.load_vae(str(files["bin"]))
+    ref = V.random_state_dict(VAE_SEED)
+    sd, sd_bin = vae.state_dict(), from_bin.state_dict()
+    n_params = sum(t.numel() for t in sd.values())
+    if not (set(sd) == set(ref) == set(sd_bin) and all(torch.equal(sd[k].cpu(), ref[k]) for k in ref)
+            and all(torch.equal(sd_bin[k].cpu(), ref[k]) for k in ref)):
+        fail("load_vae: the weights read from the HF cache or the .bin differ from the seeded state dict")
+    if n_params != VAE_PARAMS or where.parent.name != "0123456789abcdef" or where.suffix != ".safetensors":
+        fail(f"load_vae: {n_params} parameters (expected {VAE_PARAMS}), resolved to {where}")
+    del from_bin, sd_bin
+    print(f"[29 vae] {V.DEFAULT_VAE} resolved in the HF cache at {where.relative_to(files['hf_home'])} "
+          f"({files['mb']:.1f} MB, written by the port's safetensors writer in {files['seconds']:.3f} s with the "
+          f".bin) and loaded to the card in {load_s:.3f} s; the .bin through load_vae too: both equal to the seeded "
+          f"state dict, {n_params} parameters", flush=True)
+
+    # the card against the CPU, fp32 (TF32 off on the card)
+    g = torch.Generator().manual_seed(VAE_SEED + 1)
+    x = torch.rand((1, 3, VAE_CPU_SIDE, VAE_CPU_SIDE), generator=g) * 2 - 1
+    cpu = V.build_vae(ref, "cpu")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        mean0, logvar0 = cpu.encode_moments(x)
+        dec0 = cpu.decode(mean0)
+        cpu_s = time.perf_counter() - t0
+        mean1, logvar1 = vae.encode_moments(x.cuda())
+        dec1 = vae.decode(mean0.cuda())
+    errs = [rel_l2(a.cpu(), b) for a, b in ((mean1, mean0), (logvar1, logvar0), (dec1, dec0))]
+    if not all(e <= VAE_TOL for e in errs) or not all(torch.isfinite(t).all() for t in (mean1, logvar1, dec1)):
+        fail(f"VAE card vs CPU at {VAE_CPU_SIDE}x{VAE_CPU_SIDE}: rel L2 mean/logvar/decode {errs} (> {VAE_TOL})")
+    del cpu
+    print(f"[29 vae] card vs CPU (fp32, TF32 off) on a {VAE_CPU_SIDE}x{VAE_CPU_SIDE} image and its "
+          f"{VAE_CPU_SIDE // 8}x{VAE_CPU_SIDE // 8} latent: rel L2 mean {errs[0]:.3g}, logvar {errs[1]:.3g}, decode "
+          f"{errs[2]:.3g} (<= {VAE_TOL}); the CPU took {cpu_s:.3f} s", flush=True)
+
+    # throughput and peak memory at the pipeline's batches
+    numbers = {}
+    b, side = VAE_ENCODE
+    xb = torch.rand((b, 3, side, side), device="cuda") * 2 - 1
+    with torch.no_grad():
+        gib, _ = _peak_gib(lambda: vae.encode_moments(xb))
+        ms = time_ms(lambda: vae.encode_moments(xb), iters=1, reps=3)
+        flops = _vae_flops("encode_moments", (b, 3, side, side))
+        numbers["encode"] = dict(batch=b, ms=ms, gib=gib, flops=flops)
+        del xb
+        for b in VAE_DECODES:
+            z = torch.randn((b, 4, 64, 64), device="cuda")
+            gib, out = _peak_gib(lambda: vae.decode(z))
+            if out.shape != (b, 3, 512, 512) or not torch.isfinite(out).all():
+                fail(f"VAE decode of {b}: {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+            del out
+            ms = time_ms(lambda: vae.decode(z), iters=1, reps=1 if b > 32 else 2)
+            numbers[f"decode{b}"] = dict(batch=b, ms=ms, gib=gib, flops=_vae_flops("decode", (b, 4, 64, 64)))
+            del z
+        for name, side_attn, b, key in (("encoder", 64, VAE_ENCODE[0], "encode"),
+                                        ("decoder", 64, VAE_DECODES[0], f"decode{VAE_DECODES[0]}")):
+            block = getattr(vae, name).mid_block.attentions[0]
+            h = torch.randn((b, 512, side_attn, side_attn), device="cuda")
+            numbers[key]["attn_ms"] = time_ms(lambda: block(h.clone()), iters=2, reps=3)
+            del h
+        # the open question of PERF.md section 7: the decode of 32 in bf16
+        # and with TF32, against fp32 (no gate)
+        z = torch.randn((VAE_DECODES[0], 4, 64, 64), device="cuda")
+        ref32 = vae.decode(z)
+        bf16 = V.build_vae(ref, "cuda", dtype=torch.bfloat16)
+        variants = {"bf16": (time_ms(lambda: bf16.decode(z), iters=1, reps=2), rel_l2(bf16.decode(z).float(), ref32))}
+        del bf16
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            variants["tf32"] = (time_ms(lambda: vae.decode(z), iters=1, reps=2), rel_l2(vae.decode(z), ref32))
+        finally:
+            set_precision()
+        del z, ref32
+    torch.cuda.empty_cache()
+    for key, r in numbers.items():
+        what = "encode_moments" if key == "encode" else "decode"
+        shape = f"{r['batch']} images at 512x512" if key == "encode" else f"{r['batch']} latents at 64x64"
+        bound = 1e3 * r["flops"] / PEAK_FLOPS["float32"]
+        attn = (f"; the mid-block attention alone (one head of 512 over 4096 tokens) {r['attn_ms']:.2f} ms, "
+                f"{r['attn_ms'] / r['ms']:.4f} of it") if "attn_ms" in r else ""
+        print(f"[29 vae] {what} of {shape}, fp32: {r['ms']:.1f} ms, {1e3 * r['batch'] / r['ms']:.2f} img/s, "
+              f"{r['ms'] / r['batch']:.2f} ms/img, {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s achieved "
+              f"({r['flops'] / r['batch'] / 1e12:.3f} TFLOP/img; fp32 bound {bound / r['batch']:.2f} ms/img at 67 "
+              f"TFLOP/s, {bound / r['ms']:.3f} of it); peak {r['gib']:.2f} GiB above the weights{attn} | {smi}",
+              flush=True)
+    fp32_ms = numbers[f"decode{VAE_DECODES[0]}"]["ms"]
+    print(f"[29 vae] decode of {VAE_DECODES[0]} in other arithmetic (no gate): "
+          + "; ".join(f"{k} {ms:.1f} ms ({fp32_ms / ms:.2f}x fp32's speed), rel L2 to fp32 {err:.3g}"
+                      for k, (ms, err) in variants.items()) + f" | {smi}", flush=True)
+    del vae
+    torch.cuda.empty_cache()
+
+
+def _structured_image(h: int, w: int, channels: int, seed: int):
+    """Smooth gradients, a disc and mild noise, uint8 HWC (HW for 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    disc = ((yy - h / 2) ** 2 + (xx - w / 3) ** 2 < (min(h, w) / 3) ** 2) * 60.0
+    planes = [128 + 90 * np.sin(xx / (37 + 11 * c) + yy / (53 + 7 * c)) + disc for c in range(channels)]
+    img = np.stack(planes, -1) + rng.normal(0, 4, (h, w, channels)).astype(np.float32)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    return img[..., 0] if channels == 1 else img
+
+
+def _write_image_folder(root: Path) -> list[Path]:
+    """EXTRACT_PNGS written with the port's PNG writer (two classes), plus
+    the committed JPEG fixtures; returns the JPEGs."""
+    import numpy as np
+
+    from tinyedm_tpu_torch.training.callbacks import encode_png
+
+    for i, (cls, name, mode, h, w) in enumerate(EXTRACT_PNGS):
+        (root / cls).mkdir(parents=True, exist_ok=True)
+        if mode == "P":
+            rgb = _structured_image(h, w, 3, seed=i)
+            palette = np.unique(rgb.reshape(-1, 3) // 32 * 32 + 16, axis=0)[:256].astype(np.uint8)
+            idx = np.random.default_rng(i).integers(0, len(palette), (h, w)).astype(np.uint8)
+            data = encode_png(idx, palette=palette)
+        else:
+            data = encode_png(_structured_image(h, w, {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}[mode], seed=i))
+        (root / cls / f"{name}.png").write_bytes(data)
+    jpegs = []
+    for cls, name in EXTRACT_JPEGS:
+        dst = root / cls / f"{name}.jpg"
+        shutil.copyfile(JPEG_FIXTURES / f"{name}.jpg", dst)
+        jpegs.append(dst)
+    return jpegs
+
+
+def phase_jpeg(smi: str) -> None:
+    """nvJPEG against the committed PIL decodes (docstring, phase 30)."""
+    import numpy as np
+
+    from tinyedm_tpu_torch.data.images import JpegDecoder, read_image
+
+    dec = JpegDecoder("cuda")
+    try:
+        for name in JPEG_READ:
+            path = JPEG_FIXTURES / f"{name}.jpg"
+            got = read_image(path, dec).pixels
+            ref = np.load(JPEG_FIXTURES / f"{name}.npy")
+            if got.shape != ref.shape or got.dtype != np.uint8:
+                fail(f"nvJPEG {name}.jpg: {got.dtype} {got.shape}, PIL {ref.shape}")
+            diff = np.abs(got.astype(np.int16) - ref)
+            if not diff.mean() <= JPEG_MEAN_TOL:
+                fail(f"nvJPEG {name}.jpg vs PIL: mean abs {diff.mean():.4f} > {JPEG_MEAN_TOL} (max {diff.max()})")
+            print(f"[30 extract] nvJPEG {name}.jpg {ref.shape[1]}x{ref.shape[0]} vs PIL's decode: mean abs "
+                  f"{diff.mean():.4f} (<= {JPEG_MEAN_TOL}), max abs {diff.max()}", flush=True)
+        for name in JPEG_REFUSED:
+            try:
+                read_image(JPEG_FIXTURES / f"{name}.jpg", dec)
+            except ValueError as e:
+                if f"{name}.jpg" not in str(e):
+                    fail(f"the refusal of {name}.jpg does not name it: {e}")
+                print(f"[30 extract] {name}.jpg refused: {e}", flush=True)
+            else:
+                fail(f"{name}.jpg was decoded; nvJPEG's CMYK is not PIL's, so it must raise")
+    finally:
+        dec.close()
+
+
+def phase_extract(smi: str, files: dict, tmp: Path) -> None:
+    """Latent extraction through the CLI at 512, then the latpack CLI and
+    PackedLatentsDataModule (docstring, phase 30)."""
+    import numpy as np
+
+    from tinyedm_tpu_torch.data import extract_latents, latpack
+    from tinyedm_tpu_torch.data.latpack import PackedLatentsDataModule
+
+    phase_jpeg(smi)
+    folder, out = tmp / "folder", tmp / "latents"
+    _write_image_folder(folder)
+    n_files = len(EXTRACT_PNGS) + len(EXTRACT_JPEGS)
+    io_out = io.StringIO()
+    with _hf_home(files["hf_home"]), contextlib.redirect_stdout(io_out):
+        written = extract_latents.main(["--data-dir", str(folder), "--out-dir", str(out), "--image-size",
+                                        str(EXTRACT_SIZE), "--batch-size", str(EXTRACT_BATCH)])
+    for line in io_out.getvalue().splitlines():
+        print(f"[30 extract]   {line}", flush=True)
+    summary = io_out.getvalue().strip().splitlines()[-1]
+    names = sorted(p.name for p in (out / "latents").iterdir())
+    want = sorted(f"{i}.npy" for i in range(2 * n_files))
+    if written != 2 * n_files or names != want or sorted(p.name for p in (out / "labels").iterdir()) != want:
+        fail(f"extract_latents wrote {written} samples, files {names[:5]}..., expected {2 * n_files}")
+    classes = sorted({cls for cls, *_ in EXTRACT_PNGS} | {cls for cls, _ in EXTRACT_JPEGS})
+    per_class = [sum(1 for c, *_ in EXTRACT_PNGS if c == cls) + sum(1 for c, _ in EXTRACT_JPEGS if c == cls)
+                 for cls in classes]
+    want_labels = [ci for ci, k in enumerate(per_class) for _ in range(k)] * 2
+    lats = [np.load(out / "latents" / f"{i}.npy") for i in range(written)]
+    labels = [int(np.load(out / "labels" / f"{i}.npy")) for i in range(written)]
+    side = EXTRACT_SIZE // 8
+    if (labels != want_labels or any(a.shape != (side, side, 4) or a.dtype != np.float32 for a in lats)
+            or not all(np.isfinite(a).all() for a in lats)):
+        fail(f"extract_latents: labels {labels} (expected {want_labels}), shapes {sorted({a.shape for a in lats})}")
+    store = tmp / "extracted.latpack"
+    io_out = io.StringIO()
+    with contextlib.redirect_stdout(io_out):
+        latpack.main([str(out / "latents"), str(out / "labels"), str(store)])
+    dm = PackedLatentsDataModule(batch_size=EXTRACT_BATCH, data_file=str(store), val_fraction=0.1, prefetch=False)
+    dm.setup()
+    try:
+        batch, blabels, *_ = next(iter(dm.train_batches(0)))
+        got, glab = dm._require().gather(np.arange(written))
+    finally:
+        dm._require().close()
+    if (batch.shape != (EXTRACT_BATCH, side, side, 4) or not np.array_equal(got, np.stack(lats))
+            or not np.array_equal(glab, labels)):
+        fail(f"latpack of the extracted latents: batch {batch.shape}, gather equal to the files "
+             f"{np.array_equal(got, np.stack(lats))}")
+    print(f"[30 extract] python -m tinyedm_tpu_torch.data.extract_latents --image-size {EXTRACT_SIZE} --batch-size "
+          f"{EXTRACT_BATCH} (flips on) over {n_files} files ({len(EXTRACT_PNGS)} PNGs written by the port: RGB, L, "
+          f"LA, RGBA, P, short sides {min(min(h, w) for *_, h, w in EXTRACT_PNGS)} to "
+          f"{max(min(h, w) for *_, h, w in EXTRACT_PNGS)}, the BOX path from 1024; {len(EXTRACT_JPEGS)} JPEG "
+          f"fixtures): {written} HWC float32 latents {side}x{side}x4 and labels {sorted(set(labels))}, named "
+          f"0..{written - 1}; {io_out.getvalue().strip()}; PackedLatentsDataModule batch {tuple(batch.shape)}, the "
+          f"store equal to the files bit for bit | {smi}", flush=True)
+    print(f"[30 extract] {summary}", flush=True)
+
+
+def phase_preview(smi: str, trainer, run_output: str, grids: list) -> None:
+    """The decoded latent preview of phase 26's run (docstring, phase 31)."""
+    import numpy as np
+    import torch
+
+    from tinyedm_tpu_torch.training.callbacks import DECODE_BATCH, LatentsGenerateCallback, read_png
+
+    cb = next((c for c in trainer.callbacks if isinstance(c, LatentsGenerateCallback)), None)
+    if cb is None or cb._vae is None or "VAE unavailable" in run_output:
+        fail("imagenet512.yaml's LatentsGenerateCallback did not load the VAE from the HF cache "
+             f"({'warned' if 'VAE unavailable' in run_output else 'no warning'})")
+    n = cb.num_samples_per_class * cb.num_classes
+    rows = n // cb.num_classes
+    shape = (rows * 514 + 2, cb.num_classes * 514 + 2, 3)
+    for g in grids:
+        img = read_png(g)
+        if img.shape != shape:
+            fail(f"preview grid {g.name}: {img.shape}, expected {shape} ({rows} x {cb.num_classes} of 512x512)")
+    _clear_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cb.on_validation_end(trainer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _kernel_calls()
+    calls = PATHS["imagenet512"]["calls"]
+    expected = {("fwd", k): IN512_PREVIEW[1] * c for k, c in calls.items()}
+    if counts != expected:
+        fail(f"the preview's Heun-32 solve launched {counts}, expected {expected}")
+    latest = sorted((trainer.logger.out_dir / "images").glob("Generated_*.png"))[-1]
+    img = read_png(latest)
+    if img.shape != shape or not (img.std() > 0):
+        fail(f"the decoded preview grid {latest.name}: {img.shape}, std {img.std()}")
+    print(f"[31 preview] imagenet512.yaml's LatentsGenerateCallback in phase 26's run: the VAE found by its default "
+          f"name ({cb.vae_name}) in the HF cache, no 'VAE unavailable' warning, {len(grids)} decoded grids of "
+          f"{rows} x {cb.num_classes} images of 512x512 ({shape[1]}x{shape[0]} PNGs)", flush=True)
+    print(f"[31 preview] one more preview on the trained state: {seconds:.3f} s in all (Heun-32 at batch {n}: "
+          f"{IN512_PREVIEW[1]} forwards, fused launches {_fmt(counts)}), the decode of {n} latents "
+          f"{cb.last_decode_seconds:.3f} s ({n / cb.last_decode_seconds:.2f} img/s, in chunks of "
+          f"{DECODE_BATCH}); peak {peak / 2**30:.3f} GiB with the training state "
+          f"({base / 2**30:.3f} GiB live before it) | {smi}", flush=True)
 
 
 def _block_inputs(b, n, c, dtype, seed):
@@ -2090,13 +2520,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 25: ImageNet-64 through the CLI at Lightning's 3 x 176
     loop_per_step["imagenet"] = phase_imagenet64_cli(smi, train_results["imagenet"])
-    # 26-27: ImageNet-512 through the CLI on a latpack store, post-hoc EMA
-    with tempfile.TemporaryDirectory() as tmp:
-        in512 = phase_imagenet512_cli(smi, train_results["imagenet512"], Path(tmp))
-        loop_per_step["imagenet512"] = in512["per_step"]
-        phase_posthoc(smi, in512["run"], in512["steps"], Path(tmp))
-    # 28: FID on CIFAR-10
-    phase_fid(smi)
+    with tempfile.TemporaryDirectory() as vae_tmp:
+        # the seeded sd-vae weights in a fake HF cache (phases 26, 29-31)
+        vae_files = write_vae_files(Path(vae_tmp))
+        # 26-27 and 31: ImageNet-512 through the CLI on a latpack store, its
+        # decoded previews, post-hoc EMA
+        with tempfile.TemporaryDirectory() as tmp:
+            in512 = phase_imagenet512_cli(smi, train_results["imagenet512"], Path(tmp), vae_files)
+            loop_per_step["imagenet512"] = in512["per_step"]
+            phase_posthoc(smi, in512["run"], in512["steps"], Path(tmp))
+        # 28: FID on CIFAR-10
+        phase_fid(smi)
+        torch.cuda.empty_cache()
+        # 29-30: the VAE at full width, latent extraction through the CLI
+        phase_vae(smi, vae_files)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_extract(smi, vae_files, Path(tmp))
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per

@@ -1,14 +1,16 @@
 """Run the workflow phases of chip_smoke.py alone on the card.
 
-    python experiments/torch_smoke_phases.py [25] [26] [28]
+    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30]
 
 Phases 1 (environment) and 2 (the kernels' build), the bare train steps
-that phases 25 and 26 are read against (12: ImageNet-512, 23: ImageNet-64),
-then the phases named (all three by default): 25, ImageNet-64 through the
-CLI at 3 x 176; 26, ImageNet-512 through the CLI on a latpack store,
-followed by 27, post-hoc EMA over its checkpoints and sampling from it;
-28, FID on CIFAR-10. Each phase prints its lines and gates as in
-chip_smoke.py, and its seconds. Needs a CUDA device; imports nothing of JAX.
+that phases 25 and 26 are read against (12: ImageNet-512, 23: ImageNet-64;
+only when one of them is named), then the phases named (all by default):
+25, ImageNet-64 through the CLI at 3 x 176; 26, ImageNet-512 through the
+CLI on a latpack store with its decoded previews (31), followed by 27,
+post-hoc EMA over its checkpoints and sampling from it; 28, FID on
+CIFAR-10; 29, the SD VAE at full width; 30, latent extraction through the
+CLI. Each phase prints its lines and gates as in chip_smoke.py, and its
+seconds. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,29 +37,39 @@ def main(phases: list[str]) -> None:
     t0 = time.perf_counter()
     smi = cs.phase_environment()
     cs.phase_build()
-    bare12 = cs.phase_train("12", "imagenet512")
-    torch.cuda.empty_cache()
-    bare23 = cs.phase_train("23", "imagenet", eval_profiles=1)
-    torch.cuda.empty_cache()
-    for name in phases:
-        t = time.perf_counter()
-        if name == "25":
-            print(cs.phase_imagenet64_cli(smi, bare23))
-        elif name == "26":
-            with tempfile.TemporaryDirectory() as tmp:
-                run = cs.phase_imagenet512_cli(smi, bare12, Path(tmp))
-                print(run["per_step"])
-                t27 = time.perf_counter()
-                cs.phase_posthoc(smi, run["run"], run["steps"], Path(tmp))
-                print(f"[phases] phase 27 {time.perf_counter() - t27:.1f} s", flush=True)
-        elif name == "28":
-            cs.phase_fid(smi)
-        else:
-            raise SystemExit(f"unknown phase {name} (25, 26 or 28)")
+    bare = {}
+    if "26" in phases:
+        bare["26"] = cs.phase_train("12", "imagenet512")
         torch.cuda.empty_cache()
-        print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
+    if "25" in phases:
+        bare["25"] = cs.phase_train("23", "imagenet", eval_profiles=1)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as vae_tmp:
+        vae_files = cs.write_vae_files(Path(vae_tmp))
+        for name in phases:
+            t = time.perf_counter()
+            if name == "25":
+                print(cs.phase_imagenet64_cli(smi, bare["25"]))
+            elif name == "26":
+                with tempfile.TemporaryDirectory() as tmp:
+                    run = cs.phase_imagenet512_cli(smi, bare["26"], Path(tmp), vae_files)
+                    print(run["per_step"])
+                    t27 = time.perf_counter()
+                    cs.phase_posthoc(smi, run["run"], run["steps"], Path(tmp))
+                    print(f"[phases] phase 27 {time.perf_counter() - t27:.1f} s", flush=True)
+            elif name == "28":
+                cs.phase_fid(smi)
+            elif name == "29":
+                cs.phase_vae(smi, vae_files)
+            elif name == "30":
+                with tempfile.TemporaryDirectory() as tmp:
+                    cs.phase_extract(smi, vae_files, Path(tmp))
+            else:
+                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29 or 30)")
+            torch.cuda.empty_cache()
+            print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["25", "26", "28"])
+    main(sys.argv[1:] or ["25", "26", "28", "29", "30"])

@@ -153,10 +153,23 @@ def test_synthetic_modules_match_jax():
 
 
 def test_resize_and_packed_latents_are_not_ported(mnist_dir_plain):
-    """The resize to another image_size is not ported (the packed store is:
+    """The resize to another image_size, once not ported, now equals the JAX
+    module's PIL BILINEAR resize bit for bit (the packed store: see
     test_packed_latents_beside_the_npy_dirs_match_jax)."""
-    with pytest.raises(NotImplementedError, match="resiz"):
-        pdm.MNISTDataModule(batch_size=8, image_size=32, data_dir=str(mnist_dir_plain)).setup()
+    kw = dict(batch_size=2, num_workers=2, image_size=32, data_dir=str(mnist_dir_plain), seed=2)
+    ours = pdm.MNISTDataModule(**kw)
+    _assert_modules_equal(ours, jdm.MNISTDataModule(**kw))
+    assert ours.train_images.shape == (8, 32, 32, 1)
+
+
+@pytest.mark.parametrize("image_size", [16, 45])
+def test_cifar10_resize_matches_jax(cifar_dir, image_size):
+    """CIFAR-10 reduced and enlarged to another image_size: batches equal to
+    the JAX module's (PIL BILINEAR on RGB) bit for bit."""
+    kw = dict(batch_size=8, num_workers=2, image_size=image_size, data_dir=str(cifar_dir), seed=4)
+    ours = pdm.CIFAR10DataModule(**kw)
+    _assert_modules_equal(ours, jdm.CIFAR10DataModule(**kw))
+    assert ours.val_images.shape == (13, image_size, image_size, 3)
 
 
 def test_packed_latents_beside_the_npy_dirs_match_jax(tmp_path):

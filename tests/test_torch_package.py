@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "flax", "tinyedm_tpu"}
 # what the machine with the card lacks: never imported by the port, and
 # wandb only inside a function (MetricLogger's guarded import)
-ABSENT_ON_THE_CARD = {"yaml", "PIL", "orbax", "torchvision", "tf_keras"}
+ABSENT_ON_THE_CARD = {"yaml", "PIL", "orbax", "torchvision", "tf_keras", "safetensors", "diffusers"}
 MODULE_LEVEL_ONLY = {"wandb"}
 
 
@@ -78,10 +78,16 @@ def test_importing_the_port_loads_no_jax():
         "tinyedm_tpu_torch.data.datamodules, tinyedm_tpu_torch.diffusion.loss, "
         "tinyedm_tpu_torch.train, tinyedm_tpu_torch.training.trainer, tinyedm_tpu_torch.utils.profiling, "
         "tinyedm_tpu_torch.data.latpack, tinyedm_tpu_torch.posthoc_ema, tinyedm_tpu_torch.eval_fid, "
-        "tinyedm_tpu_torch.utils.fid, tinyedm_tpu_torch.utils.inception\n"
+        "tinyedm_tpu_torch.utils.fid, tinyedm_tpu_torch.utils.inception, tinyedm_tpu_torch.data.vae, "
+        "tinyedm_tpu_torch.data.extract_latents, tinyedm_tpu_torch.data.images, "
+        "tinyedm_tpu_torch.data.resample, tinyedm_tpu_torch.utils.safetensors\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "{'jax', 'flax', 'tinyedm_tpu', 'yaml', 'PIL', 'orbax', 'wandb', 'torchvision', 'tf_keras'})\n"
+        "{'jax', 'flax', 'tinyedm_tpu', 'yaml', 'PIL', 'orbax', 'wandb', 'torchvision', 'tf_keras', "
+        "'safetensors', 'diffusers'})\n"
         "assert not bad, bad\n"
+        # nothing is built or loaded at import: nvJPEG only at the first JPEG
+        "from tinyedm_tpu_torch.ops import _build\n"
+        "assert not _build._loaded, _build._loaded\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 

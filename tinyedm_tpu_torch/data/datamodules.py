@@ -8,11 +8,10 @@ so one seed gives the same batches bit for bit in both packages. Batches are
 NHWC, normalized to "std 0.5" ((x/255 - 0.5) / 0.5); ``to_device`` turns one
 into the port's NCHW tensors. A split of ImageNet latents may be one packed
 ``*.latpack`` store (``data/latpack.py``) in place of the ``.npy``
-directories; it is read whole, on ``num_workers`` gather threads.
-
-Not ported: resizing to another ``image_size`` (the JAX package uses PIL,
-which the machine with the card lacks; every shipped config uses its
-dataset's native size). It raises ``NotImplementedError`` (ROADMAP.md).
+directories; it is read whole, on ``num_workers`` gather threads. MNIST and
+CIFAR-10 at another ``image_size`` are resized with PIL's antialiased
+BILINEAR filter, repeated bit for bit by ``data/resample.py`` (the machine
+with the card has no PIL).
 """
 
 from __future__ import annotations
@@ -26,6 +25,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from tinyedm_tpu_torch.data.resample import BILINEAR, resize_batch
 
 
 class AbstractDataModule:
@@ -148,14 +149,12 @@ def _load_idx(path: Path) -> np.ndarray:
 
 
 def _resize_batch(images: np.ndarray, size: int) -> np.ndarray:
-    """NHWC images at ``size`` x ``size``: the identity when they already are.
-    A real resize is not ported (the JAX package resizes with PIL)."""
+    """NHWC uint8 images at ``size`` x ``size``: PIL's antialiased BILINEAR
+    resize, bit for bit (``data/resample.py``), as the JAX package resizes
+    with PIL; the identity when they already are that size."""
     if images.shape[1] == size and images.shape[2] == size:
         return images
-    raise NotImplementedError(
-        f"resizing {images.shape[1]}x{images.shape[2]} images to {size}x{size} is not ported "
-        "(ROADMAP.md section 1, item 2); use the dataset's native image_size"
-    )
+    return resize_batch(images, size, BILINEAR)
 
 
 class MNISTDataModule(AbstractDataModule):

@@ -3,9 +3,11 @@ with a plain C interface, and load it with ctypes.
 
 Nothing is built at import: the first call of ``load_library(name)`` runs
 ``nvcc`` for ``sm_90a`` into ``tinyedm_tpu_torch/build/`` (listed in
-``.gitignore``). The library's file name carries a hash of its source and of
-the headers beside it, so an edited source is rebuilt and a stale library is
-never loaded.
+``.gitignore``). The library's file name carries a hash of its source, of
+the headers beside it and of the flags, so an edited source is rebuilt and a
+stale library is never loaded. A source that needs a library of the toolkit
+names it in ``LINK``; it is linked with an rpath to the toolkit's library
+directory, so that ctypes finds it without ``LD_LIBRARY_PATH``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
+# source name -> the toolkit libraries it links
+LINK = {"nvjpeg_decode": ["nvjpeg"]}
+
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> what ptxas printed for the library's kernels, from build(...,
 # ptxas_verbose=True)
@@ -45,9 +50,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (neither on PATH nor under $CUDA_HOME/bin)")
 
 
+def _link_flags(name: str) -> list[str]:
+    if name not in LINK:
+        return []
+    lib_dir = Path(_nvcc()).resolve().parent.parent / "lib64"
+    return [f"-l{lib}" for lib in LINK[name]] + ["-Xlinker", f"-rpath={lib_dir}"]
+
+
 def library_path(name: str) -> Path:
     sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
-    blob = b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    flags = NVCC_FLAGS + _link_flags(name)
+    blob = b"".join(p.read_bytes() for p in sources) + " ".join(flags).encode()
     digest = hashlib.sha256(blob).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -66,7 +79,7 @@ def build(name: str, ptxas_verbose: bool = False) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-o", tmp, str(CSRC / f"{name}.cu")]
+           "-o", tmp, str(CSRC / f"{name}.cu"), *_link_flags(name)]
     try:
         done = subprocess.run(cmd, capture_output=ptxas_verbose, text=True)
         if done.returncode:

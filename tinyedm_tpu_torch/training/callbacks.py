@@ -12,15 +12,16 @@ into RGB, as PIL's ``convert("RGB")`` does, and raises on anything else.
 ``FIDCallback`` scores samples during training (FID, and KID when asked;
 ``utils/fid.py``).
 
-``LatentsGenerateCallback`` logs a grid of the latents' first three channels:
-the VAE that would decode them is not ported (ROADMAP.md section 1, item 6),
-so it takes the branch the JAX callback takes when the VAE cannot be loaded,
-with the same warning.
+``LatentsGenerateCallback`` decodes its latent previews with the SD VAE
+(``data/vae.py``) on the trainer's device; where no VAE weights can be found
+it logs the JAX callback's warning and a grid of the latents' first three
+channels, as the JAX callback does.
 """
 
 from __future__ import annotations
 
 import struct
+import time
 import zlib
 from pathlib import Path
 from typing import Optional, Sequence
@@ -33,24 +34,35 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
 
 
-def encode_png(image: np.ndarray) -> bytes:
-    """8-bit PNG of a (H, W) grey, (H, W, 1) grey, (H, W, 3) RGB or
-    (H, W, 4) RGBA uint8 image: the color types PIL writes for those shapes
-    (0, 2 and 6), so a 4-channel latent sample is written as RGBA, as the
-    JAX package's PreditionWriter writes it."""
+def encode_png(image: np.ndarray, palette: Optional[np.ndarray] = None) -> bytes:
+    """8-bit PNG of a (H, W) grey, (H, W, 1) grey, (H, W, 2) grey + alpha,
+    (H, W, 3) RGB or (H, W, 4) RGBA uint8 image: the color types PIL writes
+    for those shapes (0, 4, 2 and 6), so a 4-channel latent sample is written
+    as RGBA, as the JAX package's PreditionWriter writes it. With a
+    ``palette`` ((entries, 3) uint8, at most 256), ``image`` is (H, W)
+    palette indices, written as color type 3."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
         raise ValueError(f"encode_png takes uint8, got {image.dtype}")
     if image.ndim == 3 and image.shape[-1] == 1:
         image = image[..., 0]
-    color_types = {3: 2, 4: 6}
-    if image.ndim == 2:
+    color_types = {2: 4, 3: 2, 4: 6}
+    plte = b""
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        if image.ndim != 2 or palette.ndim != 2 or palette.shape[1] != 3 or not 0 < len(palette) <= 256:
+            raise ValueError(f"a palette PNG takes (H, W) indices and an (entries <= 256, 3) palette, got "
+                             f"{image.shape} and {palette.shape}")
+        if int(image.max(initial=0)) >= len(palette):
+            raise ValueError(f"palette index past the {len(palette)}-entry palette")
+        color_type, plte = 3, _chunk(b"PLTE", palette.tobytes())
+    elif image.ndim == 2:
         color_type = 0
     elif image.ndim == 3 and image.shape[-1] in color_types:
         color_type = color_types[image.shape[-1]]
     else:
         raise ValueError(
-            f"encode_png takes (H, W), (H, W, 1), (H, W, 3) or (H, W, 4), got {image.shape}"
+            f"encode_png takes (H, W), (H, W, 1), (H, W, 2), (H, W, 3) or (H, W, 4), got {image.shape}"
         )
     h, w = image.shape[:2]
     rows = np.ascontiguousarray(image).reshape(h, -1)
@@ -60,43 +72,10 @@ def encode_png(image: np.ndarray) -> bytes:
     return (
         b"\x89PNG\r\n\x1a\n"
         + _chunk(b"IHDR", header)
+        + plte
         + _chunk(b"IDAT", zlib.compress(raw))
         + _chunk(b"IEND", b"")
     )
-
-
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG color type -> samples per pixel
-
-
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters (None, Sub, Up, Average, Paeth), with uint8
-    wrap-around; returns (h, stride) uint8."""
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h + 1, stride), np.uint8)  # row 0: the zero row above the image
-    for y in range(h):
-        ftype, line, prev = rows[y, 0], rows[y, 1:], out[y]
-        if ftype == 0:
-            out[y + 1] = line
-        elif ftype == 1:
-            out[y + 1] = line.reshape(-1, bpp).cumsum(axis=0, dtype=np.uint8).reshape(-1)
-        elif ftype == 2:
-            out[y + 1] = line + prev
-        elif ftype in (3, 4):
-            cur, up = bytearray(line.tobytes()), prev.tobytes()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = up[i]
-                if ftype == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[i - bpp] if i >= bpp else 0
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                cur[i] = (cur[i] + pred) & 0xFF
-            out[y + 1] = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"bad PNG row filter {ftype}")
-    return out[1:]
 
 
 def read_png(path: str | Path) -> np.ndarray:
@@ -104,49 +83,11 @@ def read_png(path: str | Path) -> np.ndarray:
     grey + alpha, RGB, RGBA or palette), as PIL's ``convert("RGB")`` gives
     them: grey repeated, alpha dropped, palette indices looked up. Any other
     file raises ``ValueError`` naming it."""
-    path = Path(path)
-    data = path.read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file")
-    pos, header, palette, idat = 8, None, None, []
-    while pos + 8 <= len(data):
-        length, tag = struct.unpack(">I4s", data[pos : pos + 8])
-        body = data[pos + 8 : pos + 8 + length]
-        pos += 12 + length
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or interlace != 0 or color not in _CHANNELS or (color == 3 and palette is None):
-        raise ValueError(
-            f"{path}: only 8-bit, non-interlaced grey, grey+alpha, RGB, RGBA and palette PNGs are read "
-            f"(bit depth {depth}, color type {color}, interlace {interlace})"
-        )
-    ch = _CHANNELS[color]
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise ValueError(f"{path}: corrupt image data ({e})") from None
-    if len(raw) != h * (w * ch + 1):
-        raise ValueError(f"{path}: {len(raw)} bytes of image data, expected {h * (w * ch + 1)}")
-    try:
-        pixels = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
-    except ValueError as e:
-        raise ValueError(f"{path}: {e}") from None
-    if color == 3:
-        if int(pixels.max(initial=0)) >= len(palette):
-            raise ValueError(f"{path}: palette index past the {len(palette)}-entry palette")
-        return palette[pixels[..., 0]]
-    if color in (0, 4):
-        return np.repeat(pixels[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(pixels[..., :3])
+    from tinyedm_tpu_torch.data.images import read_png_native
+    from tinyedm_tpu_torch.data.resample import to_rgb
+
+    image = read_png_native(path)
+    return to_rgb(image.pixels, image.mode, image.palette)
 
 
 class PreditionWriter:
@@ -242,16 +183,32 @@ class GenerateCallback(Callback):
         trainer.logger.log_image("Generated", make_grid(images), step=trainer.epoch)
 
 
-def _load_vae(name: str):
-    raise NotImplementedError(f"the VAE decoder ({name}) is not ported yet (ROADMAP.md section 1, item 6)")
+# latents per VAE decode of a preview: at 512x512 in fp32 a decode of 32
+# peaks at 24 GiB and one of 80 (imagenet.yaml's preview) at 60 GiB, at the
+# same img/s on an H100 (chip_smoke.py phase 29), so chunks of 32 keep the larger
+# preview beside a training state
+DECODE_BATCH = 32
+
+
+def _load_vae(name: str, device):
+    from tinyedm_tpu_torch.data.vae import load_vae
+
+    return load_vae(name, device=device)
 
 
 class LatentsGenerateCallback(Callback):
     """Latent-space previews after validation, every ``every_n_epochs``
     epochs: solve from fixed noise (generator seeded ``seed ^ 0x1A7E``) for
     ``num_classes`` drawn labels, ``num_samples_per_class`` each, un-normalize
-    with the dataset's latent ``mean`` and ``std`` and log a grid of the
-    first three channels scaled to [0, 255] (the VAE decode is not ported)."""
+    with the dataset's latent ``mean`` and ``std``, decode with the VAE
+    ``vae_name`` (loaded at train start on the trainer's device; local files
+    only, ``data.vae.load_vae``), clamp to ``value_range``, map it onto
+    [0, 255] and log the grid, one column per class. The latents are decoded
+    ``DECODE_BATCH`` at a time (GroupNorm is per sample, so the images do not
+    depend on it). Without VAE weights,
+    the grid shows the latents' first three channels scaled to [0, 255],
+    after a warning. ``last_decode_seconds`` holds the latest decode's wall
+    time, the copy back to the host included."""
 
     def __init__(
         self,
@@ -279,6 +236,7 @@ class LatentsGenerateCallback(Callback):
         self.x0: Optional[torch.Tensor] = None
         self.class_labels: Optional[torch.Tensor] = None
         self._vae = None
+        self.last_decode_seconds: Optional[float] = None
 
     def on_train_start(self, trainer) -> None:
         n = self.num_samples_per_class * self.num_classes
@@ -288,10 +246,21 @@ class LatentsGenerateCallback(Callback):
                                device=trainer.device)
         self.class_labels = labels.repeat(self.num_samples_per_class)
         try:
-            self._vae = _load_vae(self.vae_name)
-        except NotImplementedError as e:
+            self._vae = _load_vae(self.vae_name, trainer.device)
+        except (OSError, ValueError, RuntimeError) as e:  # no weights, or weights that do not fit
             trainer.logger.log_text("warn", f"LatentsGenerateCallback: VAE unavailable ({e}); logging latents")
             self._vae = None
+
+    def decode(self, lat: np.ndarray, device) -> np.ndarray:
+        """NHWC latents -> NHWC fp32 images, decoded on ``device``."""
+        t0 = time.perf_counter()
+        z = torch.from_numpy(np.ascontiguousarray(lat)).to(device).permute(0, 3, 1, 2).contiguous()
+        step = DECODE_BATCH
+        with torch.no_grad():
+            out = [self._vae.decode(z[i : i + step]).float().permute(0, 2, 3, 1).cpu().numpy()
+                   for i in range(0, len(z), step)]
+        self.last_decode_seconds = time.perf_counter() - t0
+        return np.concatenate(out)
 
     def on_validation_end(self, trainer) -> None:
         if self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
@@ -300,10 +269,15 @@ class LatentsGenerateCallback(Callback):
                            guidance_scale=self.guidance_scale)
         lat = _nhwc(xT) * self.std.reshape(1, 1, 1, -1) * 2.0 + self.mean.reshape(1, 1, 1, -1)
         if self._vae is not None:
-            raise NotImplementedError("the VAE decode of latent previews is not ported (ROADMAP.md section 1, item 6)")
-        lo, hi = lat.min(), lat.max()
-        vis = (lat[..., :3] - lo) / max(hi - lo, 1e-6)
-        images = (vis * 255.0).astype(np.uint8)
+            # clamp to value_range, then map it onto [0, 1] for the uint8 grid
+            lo, hi = self.value_range
+            images = np.clip(self.decode(lat, trainer.device), lo, hi)
+            images = (images - lo) / max(hi - lo, 1e-12)
+            images = (images * 255.0).astype(np.uint8)
+        else:
+            lo, hi = lat.min(), lat.max()
+            vis = (lat[..., :3] - lo) / max(hi - lo, 1e-6)
+            images = (vis * 255.0).astype(np.uint8)
         trainer.logger.log_image("Generated", make_grid(images, nrow=self.num_classes), step=trainer.epoch)
 
 
