@@ -205,9 +205,11 @@ with a non-zero exit code:
     alone; the decode of 32 in bf16 and with TF32 timed against fp32, with
     their relative L2 to it (no gate);
 30. latent extraction: nvJPEG (csrc/nvjpeg_decode.cu, with libjpeg's
-    chroma upsampling and YCbCr conversion in torch) on the committed JPEG
-    fixtures against PIL's decodes (mean abs <= 1 level, max reported), the
-    CMYK fixture refused naming the file; then an ImageFolder of PNGs
+    chroma upsampling and YCbCr conversion in torch, and for the CMYK
+    fixture nvJPEG's four stored components with PIL's CMYK conversion) on
+    the committed JPEG fixtures against PIL's decodes (mean abs <= 1 level,
+    max reported); a JPEG whose SOF says 2 components (a fixture edited in
+    memory) refused naming the file; then an ImageFolder of PNGs
     written by the port (RGB, L, LA, RGBA, P; short sides from 260 to 1100,
     the BOX halvings from 1024) and the JPEG fixtures through python -m
     tinyedm_tpu_torch.data.extract_latents at --image-size 512, batch 8,
@@ -221,6 +223,31 @@ with a non-zero exit code:
     4 x 8 images of 512x512; one more preview on the trained state with its
     seconds, the decode's seconds, the peak memory beside the training state
     and the launches of rows 1-2 in its solve (63 forwards of 7 + 8).
+
+32. reference (Lightning) checkpoints at full width: CIFAR-10 (35.62 M
+    parameters, one EMA profile) and ImageNet-512 (272,949,794, two EMA
+    profiles, the uncertainty head) with seeded weights, non-zero Adam
+    moments and EMA trees, saved by the port, exported by python -m
+    tinyedm_tpu_torch.utils.interop export (ImageNet-512's second profile)
+    and imported back with --load_ema against the recipe's YAML: params,
+    the exported EMA profile and the step bit-equal; generate --ckpt_path
+    <imported> --load_ema (Heun-32 at the sampling batch, rows 1-2 launched
+    63 times per layer) equal bit for bit to generate() from the original
+    EMA tree as a weights file; a .ckpt of the reference layout made by this
+    script (its own renames, the qkv channels reordered (heads, hd, 3) by
+    its own reshape) imports to the same fp32 forward within relative L2
+    1e-4; the .ckpt sizes, export and import seconds;
+33. the model knobs: each recipe's train step (CIFAR-10 at 256,
+    ImageNet-512 at 4 x 32, bf16) with remat off, "full" and "convs":
+    ms/step, peak GiB, step 0's loss bit-equal; one step's gradients in
+    fp32 with cuDNN deterministic against remat off within relative L2
+    1e-6 (or the spread of two remat-off runs, if larger) and the loss
+    bit-equal; CIFAR-10 with mod_fp32=False (the bf16 island) against
+    mod_fp32=True: the forward's and one step's gradients' relative L2,
+    ms/step; CosineAttention(fused="on") at n 1024 and 961 (b 8, C 256, 4
+    heads) against fused="off" in bf16 (output 1e-2, gradients 2e-2) and
+    fp32 (1e-5), with rows 1-4's launches at those n, and rows 1-4's kernels
+    timed at n 1024 beside plain, SDPA and the bound.
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
@@ -375,8 +402,7 @@ VAE_ENCODE, VAE_DECODES, VAE_CPU_SIDE, VAE_TOL = (16, 512), (32, 80), 128, 1e-4
 # name, mode, height, width; short sides >= 1024 take the BOX halvings) and
 # the committed JPEG fixtures, through the CLI at 512 in batches of 8
 JPEG_FIXTURES = ROOT / "tests" / "torch_fixtures"
-JPEG_READ = ("rgb420", "rgb422", "rgb444", "grey", "progressive")
-JPEG_REFUSED = ("cmyk",)
+JPEG_READ = ("rgb420", "rgb422", "rgb444", "grey", "progressive", "cmyk")
 JPEG_MEAN_TOL = 1.0  # levels: nvJPEG's IDCT against libjpeg's
 EXTRACT_SIZE, EXTRACT_BATCH = 512, 8
 EXTRACT_PNGS = [("cat", "rgb_box", "RGB", 1100, 1300), ("cat", "grey", "L", 600, 700),
@@ -384,7 +410,8 @@ EXTRACT_PNGS = [("cat", "rgb_box", "RGB", 1100, 1300), ("cat", "grey", "L", 600,
                 ("cat", "rgb_wide", "RGB", 513, 1500), ("dog", "la", "LA", 700, 530),
                 ("dog", "rgb", "RGB", 530, 610), ("dog", "grey_box", "L", 1200, 1024),
                 ("dog", "rgb_small", "RGB", 300, 260)]
-EXTRACT_JPEGS = [("cat", "rgb420"), ("cat", "grey"), ("dog", "rgb444"), ("dog", "rgb422"), ("dog", "progressive")]
+EXTRACT_JPEGS = [("cat", "rgb420"), ("cat", "grey"), ("dog", "rgb444"), ("dog", "rgb422"), ("dog", "progressive"),
+                 ("dog", "cmyk")]
 
 
 def fail(msg: str) -> None:
@@ -1980,15 +2007,24 @@ def phase_jpeg(smi: str) -> None:
                 fail(f"nvJPEG {name}.jpg vs PIL: mean abs {diff.mean():.4f} > {JPEG_MEAN_TOL} (max {diff.max()})")
             print(f"[30 extract] nvJPEG {name}.jpg {ref.shape[1]}x{ref.shape[0]} vs PIL's decode: mean abs "
                   f"{diff.mean():.4f} (<= {JPEG_MEAN_TOL}), max abs {diff.max()}", flush=True)
-        for name in JPEG_REFUSED:
+        # a JPEG whose SOF says 2 components, made in memory from a fixture
+        data = bytearray((JPEG_FIXTURES / "rgb444.jpg").read_bytes())
+        i = 2
+        while data[i + 1] not in (0xC0, 0xC1, 0xC2):
+            i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+        data[i + 9] = 2  # marker, length, precision, height, width, then the component count
+        with tempfile.TemporaryDirectory() as tmp:
+            bad = Path(tmp) / "two_components.jpg"
+            bad.write_bytes(bytes(data))
             try:
-                read_image(JPEG_FIXTURES / f"{name}.jpg", dec)
+                read_image(bad, dec)
             except ValueError as e:
-                if f"{name}.jpg" not in str(e):
-                    fail(f"the refusal of {name}.jpg does not name it: {e}")
-                print(f"[30 extract] {name}.jpg refused: {e}", flush=True)
+                if bad.name not in str(e):
+                    fail(f"the refusal of {bad.name} does not name it: {e}")
+                print(f"[30 extract] {bad.name} (the SOF of rgb444.jpg set to 2 components) refused: {e}",
+                      flush=True)
             else:
-                fail(f"{name}.jpg was decoded; nvJPEG's CMYK is not PIL's, so it must raise")
+                fail(f"{bad.name} was decoded; a 2-component JPEG must raise")
     finally:
         dec.close()
 
@@ -2441,6 +2477,401 @@ def phase_winograd() -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phases 32-33: reference (Lightning) checkpoints and the model knobs
+# ---------------------------------------------------------------------------
+
+# the full-width models of phase 32 and their YAMLs (the import's config)
+REF_CONFIGS = {"cifar10": "cifar10.yaml", "imagenet512": "imagenet512.yaml"}
+REF_STEP = 1234
+REF_FWD_BATCH = 8
+# phase 33: the remat forms, the knobs' train steps (warm-up, timed) and the
+# fused="on" layer shapes (batch, channels, side): n = 1024 and the odd 961
+REMAT_FORMS = {"off": {}, "full": dict(remat=True, remat_policy="full"),
+               "convs": dict(remat=True, remat_policy="convs")}
+KNOB_STEPS = (2, 5)
+ON_LAYERS = [(8, 256, 32), (8, 256, 31)]
+ON_TOL = {"bfloat16": (1e-2, 2e-2), "float32": (1e-5, 1e-5)}  # output, gradients: relative L2
+
+
+def _seeded_state(config: str, spec, seed: int):
+    """The config's full-width model on the card (seeded weights, gain_out
+    1) and a train state over its weights: non-zero Adam moments at count
+    REF_STEP, one EMA tree per tracked profile (the weights plus seeded
+    noise), step REF_STEP."""
+    import torch
+
+    from tinyedm_tpu_torch.training.state import TrainState
+
+    model = _seeded(config, seed=seed)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def noise(scale: float) -> dict:
+        return {k: torch.randn(p.shape, generator=gen, device="cuda") * scale for k, p in params.items()}
+
+    n_ema = len(spec.ema_lengths or (spec.ema_length,)) if spec.use_ema else 0
+    ema = tuple({k: params[k] + v for k, v in noise(1e-2).items()} for _ in range(n_ema))
+    state = TrainState(step=REF_STEP, params=params, constants=dict(model.named_buffers()), mu=noise(1e-3),
+                       nu={k: v.square() for k, v in noise(1e-3).items()}, count=REF_STEP, ema=ema)
+    return model, state
+
+
+def _hand_built_reference(model, heads: int) -> dict:
+    """The reference layout of ``model``'s state dict, made here rather
+    than by utils/interop.py: the reference's names, and the qkv conv's
+    output channels reordered (3, heads, hd) -> (heads, hd, 3) by a reshape
+    of this script's own."""
+    renames = {"cat_factor.conv_0.": "cat_factor.layer1.", "cat_factor.conv_1.": "cat_factor.layer2."}
+    out = {}
+    for key, value in model.state_dict().items():
+        for old, new in renames.items():
+            key = key.replace(old, new)
+        key = {"u.linear.weight": "u.linear1.weight", "u.linear_out.weight": "u.linear2.weight"}.get(key, key)
+        value = value.detach().float().cpu()
+        if key.endswith("attention.qkv_conv.weight"):
+            o = value.shape[0]
+            value = value.reshape(3, heads, o // 3 // heads, *value.shape[1:]).movedim(0, 2).reshape(value.shape)
+        out[key] = value.contiguous().clone()
+    return out
+
+
+def _fp32_forward(config: str, weights: dict):
+    """The config's model in fp32 holding ``weights``: one forward at batch
+    REF_FWD_BATCH on seeded inputs."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import model_from_config
+
+    p = PATHS[config]
+    with torch.device("cuda"):
+        model = model_from_config(config, torch.float32).eval()
+    model.load_state_dict(weights)
+    channels = model.denoiser.conv_in.weight.shape[1] - 1
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((REF_FWD_BATCH, channels, p["side"], p["side"]), generator=g, device="cuda")
+    sigma = torch.exp(torch.randn((REF_FWD_BATCH,), generator=g, device="cuda") * 1.2 - 0.4)
+    labels = torch.randint(0, p["classes"] or 10, (REF_FWD_BATCH,), generator=g, device="cuda")
+    with torch.no_grad():
+        return model(x * sigma[:, None, None, None], sigma, labels)
+
+
+def phase_reference_checkpoints(smi: str, tmp: Path) -> None:
+    """Lightning .ckpt export and import at full width (docstring, phase 32)."""
+    import numpy as np
+    import torch
+
+    from tinyedm_tpu_torch.config.registry import deinstantiate, instantiate, load_config
+    from tinyedm_tpu_torch.configs import build_model
+    from tinyedm_tpu_torch.generate import generate
+    from tinyedm_tpu_torch.generate import main as generate_main
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from tinyedm_tpu_torch.utils import interop
+    from tinyedm_tpu_torch.utils.interop import save_weights
+
+    for config, yaml_name in REF_CONFIGS.items():
+        yaml_path = ROOT / "experiments" / "conf" / yaml_name
+        spec = instantiate(load_config(yaml_path)["model"])
+        model, state = _seeded_state(config, spec, seed=3)
+        n_params = sum(p.numel() for p in state.params.values())
+        src, ckpt, imported = tmp / f"{config}_src", tmp / f"{config}.ckpt", tmp / f"{config}_imported"
+        save_checkpoint(src, state, config={"model": deinstantiate(spec)})
+        index = len(state.ema) - 1  # ImageNet-512: the second profile (0.13)
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            interop.main(["export", "--ckpt_dir", str(src), "--out", str(ckpt), "--ema_index", str(index)])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            interop.main(["import", "--torch_ckpt", str(ckpt), "--config", str(yaml_path), "--out_dir",
+                          str(imported), "--load_ema"])
+        import_s = time.perf_counter() - t0
+        ckpt_mb = ckpt.stat().st_size / 1e6
+        back, _ = load_checkpoint(imported)
+        cpu = {k: v.cpu() for k, v in state.params.items()}
+        ema_cpu = {k: v.cpu() for k, v in state.ema[index].items()}
+        same_params = set(back.params) == set(cpu) and all(torch.equal(back.params[k], v) for k, v in cpu.items())
+        same_ema = len(back.ema) == 1 and all(torch.equal(back.ema[0][k], v) for k, v in ema_cpu.items())
+        if not (same_params and same_ema and back.step == REF_STEP and back.count == 0):
+            fail(f"{config} .ckpt round trip: params equal {same_params}, EMA profile {index} equal {same_ema}, "
+                 f"step {back.step} (expected {REF_STEP}), Adam count {back.count} (expected 0)")
+        print(f"[32 reference ckpt] {config} ({n_params:,} parameters, {len(state.ema)} EMA profile(s)): "
+              f"export -> {ckpt.name} {ckpt_mb:.1f} MB in {export_s:.3f} s, import --load_ema in {import_s:.3f} s "
+              f"({sum(p.stat().st_size for p in imported.rglob('*') if p.is_file()) / 1e6:.1f} MB written); "
+              f"params, EMA profile {index} and step {REF_STEP} bit-equal after the round trip", flush=True)
+        del back
+
+        # sampling through the CLI from the imported checkpoint, against the
+        # original EMA tree as a weights file
+        p = PATHS[config]
+        n, side = p["batch"], p["side"]
+        args = ["--ckpt_path", str(imported), "--load_ema", "--num_samples", str(n), "--batch_size", str(n),
+                "--image_size", str(side), "--output_dir", str(tmp / f"{config}_cli")]
+        common = dict(keep_samples=True)
+        if config == "imagenet512":
+            args += ["--num_classes", "1000", "--num_channels", "4", "--mean", *map(str, LATENT_MEAN),
+                     "--std", *map(str, LATENT_STD)]
+            common.update(num_classes=1000, num_channels=4, mean=LATENT_MEAN, std=LATENT_STD)
+        _clear_counts()
+        with contextlib.redirect_stdout(said):
+            generate_main(args)
+        counts = {k: v for k, v in fa.launch_counts.items() if v}
+        expected = {("fwd", m): 63 * c for m, c in p["calls"].items()}
+        if "EMA weights loaded." not in said.getvalue() or counts != expected:
+            fail(f"{config} generate --ckpt_path --load_ema: launches {counts}, expected {expected}")
+        from_ckpt = generate(str(tmp / f"{config}_a"), n, side, n, ckpt_path=str(imported), load_ema=True,
+                             **common)
+        ema_model = build_model(config, "cpu")
+        ema_model.load_state_dict({**ema_cpu, **{k: v.cpu() for k, v in state.constants.items()}})
+        save_weights(ema_model, tmp / f"{config}_ema.pt", config)
+        del ema_model
+        direct = generate(str(tmp / f"{config}_b"), n, side, n, weights=str(tmp / f"{config}_ema.pt"), **common)
+        pngs = sorted((tmp / f"{config}_cli").glob("*.png"))
+        same_png = all(x.read_bytes() == (tmp / f"{config}_b" / x.name).read_bytes() for x in pngs)
+        equal = np.array_equal(from_ckpt["samples"], direct["samples"])
+        if len(pngs) != n or not same_png or not equal or not np.isfinite(direct["samples"]).all():
+            fail(f"{config} generate from the imported .ckpt: {len(pngs)} PNGs, equal {same_png}, samples {equal}")
+        print(f"[32 reference ckpt] {config} generate --ckpt_path <imported> --load_ema (Heun-32, batch {n}): "
+              f"{len(pngs)} PNGs and samples bit-equal to generate() from the original EMA tree; launches "
+              f"{_fmt(counts)} ({from_ckpt['img_per_s']:.2f} img/s)", flush=True)
+
+        # a .ckpt of the reference layout made here, imported: the same forward
+        hand = _hand_built_reference(model, spec.denoiser.num_heads)
+        torch.save({"state_dict": hand, "global_step": 7}, tmp / f"{config}_hand.ckpt")
+        with contextlib.redirect_stdout(said):
+            interop.import_torch_checkpoint(tmp / f"{config}_hand.ckpt", yaml_path, tmp / f"{config}_hand")
+        hand_state, _ = load_checkpoint(tmp / f"{config}_hand")
+        ours = _fp32_forward(config, {k: v.float() for k, v in model.state_dict().items()})
+        theirs = _fp32_forward(config, {**hand_state.params, **hand_state.constants})
+        err = rel_l2(theirs, ours)
+        if not (torch.isfinite(theirs).all() and err <= 1e-4):
+            fail(f"{config} hand-built reference .ckpt: forward rel L2 {err} to the original (<= 1e-4)")
+        print(f"[32 reference ckpt] {config} hand-built reference layout (qkv reordered (heads, hd, 3) by this "
+              f"script's reshape, the reference's names): its import's fp32 forward at batch {REF_FWD_BATCH} "
+              f"within rel L2 {err:.3g} of the original (<= 1e-4), step {hand_state.step} | {smi}", flush=True)
+        del model, state, hand, hand_state, ours, theirs
+        for path in (src, ckpt, imported, tmp / f"{config}_hand", tmp / f"{config}_hand.ckpt"):
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
+        torch.cuda.empty_cache()
+
+
+def _knob_batches(config: str, batch: int, steps: int, channels: int):
+    from tinyedm_tpu_torch.data.datamodules import SyntheticDataModule, to_device
+
+    p = PATHS[config]
+    data = SyntheticDataModule(batch, image_size=p["side"], num_channels=channels, num_samples=batch * steps,
+                               num_classes_=p["classes"] or 10, seed=0)
+    return [to_device(x, y, "cuda") for x, y in data.train_batches(0)]
+
+
+def _knob_steps(config: str, knobs: dict) -> dict:
+    """The recipe's train step (bf16) with the Denoiser ``knobs``: KNOB_STEPS
+    warm-up and timed steps; ms/step, peak GiB, the losses, the launches."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import build_training
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    p = PATHS[config]
+    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", seed=0, knobs=knobs)
+    warm, timed = KNOB_STEPS
+    batches = _knob_batches(config, batch, warm + timed, model.denoiser.conv_in.weight.shape[1] - 1)
+    state = init_train_state(model, opt_cfg, ema_cfg)
+    step = make_train_step(model, diffuser, opt_cfg, ema_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    count = (lambda i: p["sched"] + i) if interval == "step" else (lambda i: p["sched"])
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _clear_counts()
+    for i in range(warm):
+        state, m = step(state, batches[i], gen, count(i))
+        losses.append(m["train_loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warm, warm + timed):
+        state, m = step(state, batches[i], gen, count(i))
+        losses.append(m["train_loss"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / timed
+    out = dict(ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30, batch=batch,
+               losses=torch.stack(losses).float().cpu(), counts={k: v for k, v in fa.launch_counts.items() if v})
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _knob_grads(config: str, knobs: dict, dtype) -> tuple:
+    """(loss, all gradients flat) of one step's grad_fn on the recipe's first
+    batch, the model in ``dtype`` with the Denoiser ``knobs``, cuDNN
+    deterministic."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import build_training
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_grad_fn
+
+    model, diffuser, opt_cfg, _, batch, _ = build_training(config, "cuda", dtype, seed=0, knobs=knobs)
+    batches = _knob_batches(config, batch, 1, model.denoiser.conv_in.weight.shape[1] - 1)
+    state = init_train_state(model, opt_cfg, None)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss, _, grads = make_grad_fn(model, diffuser, opt_cfg)(
+            state, *batches[0], torch.Generator(device="cuda").manual_seed(1))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    del model, state, grads
+    torch.cuda.empty_cache()
+    return loss.detach().float().cpu(), flat
+
+
+def phase_knobs(smi: str) -> list[dict]:
+    """remat, the bf16 island and fused="on" on the card (docstring, phase
+    33); returns the kernel entries of rows 1-4 at n 1024 under fused="on"."""
+    import torch
+    import torch.nn.functional as F
+
+    from tinyedm_tpu_torch.configs import build_model
+    from tinyedm_tpu_torch.models.layers import CosineAttention
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.ops.mp import pixel_norm
+
+    # remat: the recipe steps, then one step's fp32 gradients
+    remat_off = {}
+    for config in ("cifar10", "imagenet512"):
+        runs = {form: _knob_steps(config, knobs) for form, knobs in REMAT_FORMS.items()}
+        off = runs["off"]
+        remat_off[config] = off
+        for form, r in runs.items():
+            if not torch.isfinite(r["losses"]).all():
+                fail(f"{config} remat {form}: non-finite losses {r['losses'].tolist()}")
+            if not torch.equal(r["losses"][0], off["losses"][0]):
+                fail(f"{config} remat {form}: step 0 loss {r['losses'][0].item()} != {off['losses'][0].item()}")
+            print(f"[33 knobs] {config} recipe step b={r['batch']} bf16 remat {form}: {r['ms']:.3f} ms/step "
+                  f"({KNOB_STEPS[1]} timed after {KNOB_STEPS[0]}), peak {r['peak_gib']:.3f} GiB, step 0 loss "
+                  f"{r['losses'][0].item():.6f} (bit-equal to remat off), losses {r['losses'][0]:.4f} .. "
+                  f"{r['losses'][-1]:.4f}; launches {_fmt(r['counts'])}", flush=True)
+        loss_off, g_off = _knob_grads(config, {}, torch.float32)
+        _, g_off2 = _knob_grads(config, {}, torch.float32)
+        spread = rel_l2(g_off2, g_off)
+        gate = max(1e-6, spread)
+        del g_off2
+        for form in ("full", "convs"):
+            loss, g = _knob_grads(config, REMAT_FORMS[form], torch.float32)
+            err = rel_l2(g, g_off)
+            if not (torch.equal(loss, loss_off) and err <= gate):
+                fail(f"{config} remat {form} fp32: loss {loss.item()} vs {loss_off.item()}, gradients rel L2 "
+                     f"{err} > {gate}")
+            print(f"[33 knobs] {config} one step fp32 (cuDNN deterministic) remat {form} vs off: loss bit-equal, "
+                  f"gradients rel L2 {err:.3g} (<= {gate:.3g}: 1e-6 or the spread of two remat-off runs, "
+                  f"{spread:.3g}; {g.numel():,} values)", flush=True)
+            del g
+        del g_off
+        torch.cuda.empty_cache()
+
+    # the bf16 island: CIFAR-10 forward and step against mod_fp32=True
+    p = PATHS["cifar10"]
+    outs = {}
+    for mod_fp32 in (True, False):
+        model = build_model("cifar10", "cuda", seed=0, knobs=dict(mod_fp32=mod_fp32))
+        with torch.no_grad():
+            model.denoiser.gain_out.fill_(1.0)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((p["batch"], 3, p["side"], p["side"]), generator=g, device="cuda")
+        sigma = torch.exp(torch.randn((p["batch"],), generator=g, device="cuda") * 1.2 - 1.2)
+        with torch.no_grad():
+            outs[mod_fp32] = model(x * sigma[:, None, None, None], sigma)
+        del model
+    fwd_err = rel_l2(outs[False], outs[True])
+    loss_t, g_t = _knob_grads("cifar10", {}, torch.bfloat16)
+    loss_f, g_f = _knob_grads("cifar10", dict(mod_fp32=False), torch.bfloat16)
+    step_err = rel_l2(g_f, g_t)
+    island = _knob_steps("cifar10", dict(mod_fp32=False))
+    if not (torch.isfinite(outs[False]).all() and torch.isfinite(island["losses"]).all()):
+        fail("mod_fp32=False: non-finite forward or losses")
+    print(f"[33 knobs] cifar10 mod_fp32=False (the bf16 island) vs True: forward b={p['batch']} rel L2 "
+          f"{fwd_err:.3g}; one step's bf16 gradients rel L2 {step_err:.3g} (loss {loss_f.item():.6f} vs "
+          f"{loss_t.item():.6f}); {island['ms']:.3f} ms/step, peak {island['peak_gib']:.3f} GiB (mod_fp32=True, "
+          f"remat off above: {remat_off['cifar10']['ms']:.3f} ms/step, {remat_off['cifar10']['peak_gib']:.3f} GiB)",
+          flush=True)
+    del outs, g_t, g_f
+
+    # fused="on" past MAX_FUSED_TOKENS: the layer against fused="off"
+    _clear_counts()
+    for b, c, side in ON_LAYERS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            with torch.device("cuda"):
+                on, off = CosineAttention(c, HEADS, dtype=dtype, fused="on"), CosineAttention(c, HEADS, dtype=dtype,
+                                                                                             fused="off")
+            g = torch.Generator(device="cuda").manual_seed(side)
+            for m in (on, off):
+                m.qkv_conv.weight.data.normal_(generator=torch.Generator(device="cuda").manual_seed(1))
+                m.out_conv.weight.data.normal_(generator=torch.Generator(device="cuda").manual_seed(2))
+            x = torch.randn((b, c, side, side), generator=g, device="cuda").to(dtype)
+            cot = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+            res = []
+            for m in (on, off):
+                xi = x.clone().requires_grad_(True)
+                y = m(xi)
+                grads = torch.autograd.grad(y, [xi, m.qkv_conv.weight, m.out_conv.weight], cot)
+                res.append((y.detach(), grads))
+            out_tol, grad_tol = ON_TOL[name]
+            out_err = rel_l2(res[0][0], res[1][0])
+            grad_errs = [rel_l2(a, r) for a, r in zip(res[0][1], res[1][1])]
+            if not (out_err <= out_tol and max(grad_errs) <= grad_tol):
+                fail(f"fused='on' b={b} C={c} n={side * side} {name}: output rel L2 {out_err} (<= {out_tol}), "
+                     f"gradients (x, w_qkv, w_out) {grad_errs} (<= {grad_tol})")
+            print(f"[33 knobs] CosineAttention(fused='on') b={b} C={c} heads={HEADS} n={side * side} {name} vs "
+                  f"fused='off': output rel L2 {out_err:.3g} (<= {out_tol}), gradients x/w_qkv/w_out "
+                  f"{', '.join(f'{e:.3g}' for e in grad_errs)} (<= {grad_tol})", flush=True)
+    layer_counts = {k: v for k, v in fa.launch_counts.items() if v}
+    expected = {(d, side * side): 2 for _, _, side in ON_LAYERS for d in ("fwd", "bwd")}
+    if layer_counts != expected:
+        fail(f"fused='on' layer checks launched {layer_counts}, expected {expected}")
+    print(f"[33 knobs] fused='on' layer checks launched {_fmt(layer_counts)} (rows 1-4's kernels at n past "
+          f"MAX_FUSED_TOKENS = {fa.MAX_FUSED_TOKENS})", flush=True)
+
+    # rows 1-4's kernels at the n = 1024 layer shape, timed
+    entries = []
+    b, c, side = ON_LAYERS[0]
+    n, hd = side * side, c // HEADS
+    qkv = _qkv(b, n, HEADS, hd, torch.bfloat16, seed=n)
+    gy = _cotangent(b, n, HEADS, hd, torch.bfloat16, seed=n)
+    o = fa.cosine_attention_qkv_cuda(qkv, HEADS)
+    torch.cuda.synchronize()
+    err = _check(o, fa.cosine_attention_qkv_plain(qkv, HEADS), "bfloat16", f"fused=on fwd n={n}")
+    dq = fa.cosine_attention_qkv_bwd_cuda(qkv, gy, o, HEADS)
+    torch.cuda.synchronize()
+    berr, brel = _check_bwd(dq, fa.cosine_attention_qkv_bwd_plain(qkv, gy, o, HEADS), "bfloat16",
+                            f"fused=on bwd n={n}")
+    xq = pixel_norm(qkv.reshape(b, n, 3, HEADS, hd), dim=-1)
+    q, k, v = (t.transpose(1, 2).contiguous() for t in xq.unbind(2))
+    gh = gy.reshape(b, n, HEADS, hd).transpose(1, 2).contiguous()
+    fwd = dict(ms=time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, HEADS)),
+               plain_ms=time_ms(lambda: fa.cosine_attention_qkv_plain(qkv, HEADS), iters=5),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+    fwd["bound_ms"], fwd["bound_by"] = _bound(4 * b * n * c * 2, 4 * b * HEADS * n * n * hd, "bfloat16")
+    bwd = dict(ms=time_ms(lambda: fa.cosine_attention_qkv_bwd_cuda(qkv, gy, o, HEADS), iters=10),
+               plain_ms=time_ms(lambda: fa.cosine_attention_qkv_bwd_plain(qkv, gy, o, HEADS), iters=3),
+               library_ms=_sdpa_bwd_ms(q, k, v, gh)[0])
+    bwd["bound_ms"], bwd["bound_by"] = _bound(8 * b * n * c * 2, 10 * b * HEADS * n * n * hd, "bfloat16")
+    for direction, r, e, src, replaces in (("fwd", fwd, err, "cosine_attention_fwd.cu", f"{FUSED_FWD}:102"),
+                                           ("bwd", bwd, berr, "cosine_attention_bwd.cu", f"{FUSED_FWD}:144")):
+        print(f"[33 knobs] cosine_attention_{direction} fused='on' b={b} n={n} C={c} heads={HEADS} bfloat16: "
+              f"max_abs {e:.3g} | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {smi}", flush=True)
+        entries.append(_entry(
+            f"cosine_attention_{direction}[fused=on n={n} hd={hd}]", src, replaces, e, r["ms"], r["plain_ms"],
+            r["bound_ms"], r["bound_by"], r["library_ms"], launches=layer_counts[direction, n],
+            path="fused='on' layer check (CosineAttention at n 1024, bf16 and fp32)"))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2537,6 +2968,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             phase_extract(smi, vae_files, Path(tmp))
+    # 32: reference (Lightning) checkpoints at full width
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_reference_checkpoints(smi, Path(tmp))
+    # 33: remat, the bf16 island, fused="on"
+    knob_entries = phase_knobs(smi)
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -2570,7 +3006,7 @@ def main() -> int:
         e["launches"] = block_train["counts"][key]
         e["launches_per_train_step"] = e["launches"] // block_steps
         e["path"] = "cifar10 training run, fused=\"block\""
-    entries = fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries
+    entries = fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -6,10 +6,11 @@ of each, into tests/torch_fixtures/.
 Needs Pillow (the machine with the card has none; the files are committed).
 Each fixture is a seeded structured image (gradients, a disc, mild noise)
 saved by PIL at quality 90: 4:2:0, 4:2:2 and 4:4:4 chroma subsampling at odd
-sizes, a greyscale JPEG, a progressive one, and a CMYK one that the reader
-must refuse. Beside each readable file, ``<name>.npy`` holds PIL's pixels
-as RGB uint8 (``convert("RGB")``: grey repeated), the reference that
-chip_smoke.py holds nvJPEG's decode against (mean abs <= 1 level).
+sizes, a greyscale JPEG, a progressive one, and a CMYK one (Adobe
+transform 0, 4:4:4). Beside each file, ``<name>.npy`` holds PIL's pixels as
+RGB uint8 (``convert("RGB")``: grey repeated, CMYK through Pillow's
+``cmyk2rgb``), the reference that chip_smoke.py holds nvJPEG's decode
+against (mean abs <= 1 level).
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ FIXTURES = {
     "progressive": (64, 48, "RGB", {"subsampling": "4:2:0", "progressive": True}),
     "cmyk": (32, 24, "CMYK", {}),
 }
-REFUSED = ("cmyk",)  # nvJPEG decodes 1 or 3 components
 
 
 def structured(w: int, h: int, channels: int, seed: int) -> np.ndarray:
@@ -53,12 +53,10 @@ def main() -> None:
         pil = Image.fromarray(img[..., 0] if mode == "L" else img, mode)
         path = out / f"{name}.jpg"
         pil.save(path, quality=90, **options)
-        line = f"{path.name}: {w}x{h} {mode} {options} {path.stat().st_size} bytes"
-        if name not in REFUSED:
-            with Image.open(path) as im:
-                np.save(out / f"{name}.npy", np.asarray(im.convert("RGB")))
-            line += f", PIL's RGB decode in {name}.npy"
-        print(line)
+        with Image.open(path) as im:
+            np.save(out / f"{name}.npy", np.asarray(im.convert("RGB")))
+        print(f"{path.name}: {w}x{h} {mode} {options} {path.stat().st_size} bytes, "
+              f"PIL's RGB decode in {name}.npy")
 
 
 if __name__ == "__main__":

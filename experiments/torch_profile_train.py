@@ -1,7 +1,7 @@
 """Where a train step's time goes on the card, for the PyTorch port.
 
     python experiments/torch_profile_train.py [--config cifar10] [--steps 5] [--recompute-island]
-        [--fused block]
+        [--fused block] [--remat full|convs]
 
 Builds a training recipe of tinyedm_tpu_torch (``--config cifar10``: bf16,
 dropout 0.13, batch 256; ``imagenet512``: 64x64x4 latents with 1000
@@ -21,7 +21,10 @@ kernels launched per step, device time by kernel group and the top kernels.
 ``torch.utils.checkpoint`` (the JAX package's ``remat_island``): the backward
 recomputes it from the conv output, the (B, C) modulation and the saved
 dropout bits instead of keeping its fp32 tensors. Same numbers, other
-memory and time. Needs a CUDA device; imports nothing of JAX.
+memory and time. ``--remat`` builds the Denoiser with ``remat=True`` and
+that ``remat_policy``: every block recomputed in the backward (``full``),
+or only the elementwise chains between the convs, matmuls and attention
+kernels (``convs``). Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -81,15 +84,18 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--recompute-island", action="store_true")
     parser.add_argument("--fused", choices=("auto", "block"), default="auto")
+    parser.add_argument("--remat", choices=("off", "full", "convs"), default="off")
     args = parser.parse_args()
     with recompute_islands() if args.recompute_island else contextlib.nullcontext():
-        run(args.config, args.steps, args.recompute_island, args.fused)
+        run(args.config, args.steps, args.recompute_island, args.fused, args.remat)
 
 
-def run(config: str, steps: int, recompute_island: bool, fused: str = "auto") -> None:
+def run(config: str, steps: int, recompute_island: bool, fused: str = "auto", remat: str = "off") -> None:
     smi = card()
     side, classes, sched = PATHS[config]
-    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", fused=fused, seed=0)
+    knobs = {} if remat == "off" else dict(remat=True, remat_policy=remat)
+    model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training(config, "cuda", fused=fused, seed=0,
+                                                                        knobs=knobs)
     if config in LIGHTNING_BATCHES:
         batch *= opt_cfg.accum_steps
     n_batches = WARMUP_STEPS + 2 * steps
@@ -125,7 +131,7 @@ def run(config: str, steps: int, recompute_island: bool, fused: str = "auto") ->
     print(f"card: {smi}")
     print(f"{config} train step, batch {batch} ({opt_cfg.accum_steps} microbatches), bf16, "
           f"dropout {model.denoiser.encoder_blocks[0].dropout_rate}, fused={fused!r} attention, "
-          f"fp32 island {'recomputed' if recompute_island else 'saved'}, {steps} profiled steps: "
+          f"fp32 island {'recomputed' if recompute_island else 'saved'}, remat {remat}, {steps} profiled steps: "
           f"{batch / wall_ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB")
     summarize(prof, steps, "step", wall_ms, profiled_ms)
 

@@ -1,6 +1,6 @@
 """Run the workflow phases of chip_smoke.py alone on the card.
 
-    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30]
+    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30] [32] [33]
 
 Phases 1 (environment) and 2 (the kernels' build), the bare train steps
 that phases 25 and 26 are read against (12: ImageNet-512, 23: ImageNet-64;
@@ -9,7 +9,8 @@ only when one of them is named), then the phases named (all by default):
 CLI on a latpack store with its decoded previews (31), followed by 27,
 post-hoc EMA over its checkpoints and sampling from it; 28, FID on
 CIFAR-10; 29, the SD VAE at full width; 30, latent extraction through the
-CLI. Each phase prints its lines and gates as in chip_smoke.py, and its
+CLI; 32, reference (Lightning) checkpoints at full width; 33, remat, the
+bf16 island and fused="on". Each phase prints its lines and gates as in chip_smoke.py, and its
 seconds. Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -64,12 +65,17 @@ def main(phases: list[str]) -> None:
             elif name == "30":
                 with tempfile.TemporaryDirectory() as tmp:
                     cs.phase_extract(smi, vae_files, Path(tmp))
+            elif name == "32":
+                with tempfile.TemporaryDirectory() as tmp:
+                    cs.phase_reference_checkpoints(smi, Path(tmp))
+            elif name == "33":
+                print(cs.phase_knobs(smi))
             else:
-                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29 or 30)")
+                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29, 30, 32 or 33)")
             torch.cuda.empty_cache()
             print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["25", "26", "28", "29", "30"])
+    main(sys.argv[1:] or ["25", "26", "28", "29", "30", "32", "33"])

@@ -11,7 +11,10 @@ planes into the RGB that PIL gives.
 - On the card (``cuda`` marker; ``chip_smoke.py`` phase 30 runs the same
   check there): nvJPEG's decode of each fixture within a mean of 1 level of
   PIL's (``tests/torch_fixtures/*.npy``, from
-  ``experiments/make_torch_jpeg_fixtures.py``), the CMYK one refused.
+  ``experiments/make_torch_jpeg_fixtures.py``), the CMYK one through
+  nvJPEG's four stored components and PIL's conversion
+  (``tests/test_torch_cmyk.py`` holds the conversion exactly on the CPU); a
+  JPEG whose SOF says 2 components raises naming the file.
 """
 
 from __future__ import annotations
@@ -26,7 +29,16 @@ from PIL import Image
 from tinyedm_tpu_torch.data.images import read_image, upsample_chroma, ycbcr_to_rgb
 
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures"
-READ = ("rgb420", "rgb422", "rgb444", "grey", "progressive")
+
+
+def two_component_jpeg(data: bytes) -> bytes:
+    """``data`` with the component count of its SOF segment set to 2."""
+    i = 2
+    while data[i + 1] not in (0xC0, 0xC1, 0xC2):
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    nf = i + 9  # marker (2), length (2), precision (1), height (2), width (2)
+    return data[:nf] + bytes([2]) + data[nf + 1:]
+READ = ("rgb420", "rgb422", "rgb444", "grey", "progressive", "cmyk")
 
 
 @pytest.mark.parametrize("name", ["rgb420", "rgb422", "rgb444", "progressive"])
@@ -93,7 +105,7 @@ def test_upsample_chroma_equals_libjpeg_loops(fh, fv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", READ)
-def test_nvjpeg_matches_pil(name):
+def test_nvjpeg_matches_pil(name, tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: nvJPEG decodes on the card")
     from tinyedm_tpu_torch.data.images import JpegDecoder
@@ -101,8 +113,10 @@ def test_nvjpeg_matches_pil(name):
     dec = JpegDecoder("cuda")
     try:
         got = read_image(FIXTURES / f"{name}.jpg", dec).pixels
-        with pytest.raises(ValueError, match="cmyk.jpg"):
-            read_image(FIXTURES / "cmyk.jpg", dec)
+        bad = tmp_path / "two_components.jpg"
+        bad.write_bytes(two_component_jpeg((FIXTURES / "rgb444.jpg").read_bytes()))
+        with pytest.raises(ValueError, match="two_components.jpg"):
+            read_image(bad, dec)
     finally:
         dec.close()
     want = np.load(FIXTURES / f"{name}.npy")

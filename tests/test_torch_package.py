@@ -24,7 +24,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "flax", "tinyedm_tpu"}
 # what the machine with the card lacks: never imported by the port, and
 # wandb only inside a function (MetricLogger's guarded import)
-ABSENT_ON_THE_CARD = {"yaml", "PIL", "orbax", "torchvision", "tf_keras", "safetensors", "diffusers"}
+ABSENT_ON_THE_CARD = {"yaml", "PIL", "orbax", "torchvision", "tf_keras", "safetensors", "diffusers",
+                      "lightning", "pytorch_lightning", "omegaconf"}
 MODULE_LEVEL_ONLY = {"wandb"}
 
 
@@ -83,7 +84,7 @@ def test_importing_the_port_loads_no_jax():
         "tinyedm_tpu_torch.data.resample, tinyedm_tpu_torch.utils.safetensors\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "{'jax', 'flax', 'tinyedm_tpu', 'yaml', 'PIL', 'orbax', 'wandb', 'torchvision', 'tf_keras', "
-        "'safetensors', 'diffusers'})\n"
+        "'safetensors', 'diffusers', 'lightning', 'pytorch_lightning', 'omegaconf'})\n"
         "assert not bad, bad\n"
         # nothing is built or loaded at import: nvJPEG only at the first JPEG
         "from tinyedm_tpu_torch.ops import _build\n"

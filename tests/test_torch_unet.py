@@ -109,12 +109,15 @@ def test_from_jax_variables_maps_every_leaf():
 
 def test_attention_options_raise():
     """fused="block" builds and runs (the whole-block route, held against
-    the JAX module in test_torch_attention_block.py); use_pallas at n >= 1024
-    runs the flash route (held against the JAX module in
-    test_torch_flash_attention.py); an unknown fused value raises."""
+    the JAX module in test_torch_attention_block.py); fused="on" runs the
+    fused route past MAX_FUSED_TOKENS (held against the JAX module in
+    test_torch_model_knobs.py); use_pallas at n >= 1024 runs the flash route
+    (held against the JAX module in test_torch_flash_attention.py); an
+    unknown fused value raises."""
     with pytest.raises(ValueError, match="fused must be"):
-        CosineAttention(64, 2, fused="on")
-    for kwargs, side in ((dict(fused="block"), 8), (dict(use_pallas=True, fused="off"), 32)):
+        CosineAttention(64, 2, fused="always")
+    for kwargs, side in ((dict(fused="block"), 8), (dict(fused="on"), 24),
+                         (dict(use_pallas=True, fused="off"), 32)):
         attn = CosineAttention(64, 2, **kwargs)
         attn.qkv_conv.weight.data.normal_(generator=torch.Generator().manual_seed(0))
         attn.out_conv.weight.data.normal_(generator=torch.Generator().manual_seed(1))

@@ -226,21 +226,23 @@ def build_model(
     *,
     fused: str = "auto",
     seed: int = 0,
+    knobs: Optional[dict] = None,
 ) -> EDM:
     """The named config's EDM in eval mode on ``device`` (the card unless
     ``"cpu"`` is asked for), with weights drawn from ``seed``.
 
-    ``dtype`` overrides the config's compute dtype. The config's dropout
-    rate and ``use_pallas_attention`` are built in; dropout runs only in a
-    forward with ``train=True``."""
+    ``dtype`` overrides the config's compute dtype and ``knobs`` adds
+    Denoiser keywords (``remat``, ``remat_policy``, ``mod_fp32``,
+    ``scan_blocks``). The config's dropout rate and ``use_pallas_attention``
+    are built in; dropout runs only in a forward with ``train=True``."""
     dev = resolve_device(device)
-    model = model_from_config(name, dtype, fused=fused)
+    model = model_from_config(name, dtype, fused=fused, knobs=knobs)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 
 
 def model_from_config(name: str, dtype: Optional[torch.dtype] = None, *,
-                      fused: str = "auto") -> EDM:
+                      fused: str = "auto", knobs: Optional[dict] = None) -> EDM:
     """The named config's EDM with its parameters allocated but not drawn:
     under ``torch.device("meta")`` it allocates nothing, which is how a
     caller counts the parameters of a model too large to draw on the CPU."""
@@ -250,7 +252,7 @@ def model_from_config(name: str, dtype: Optional[torch.dtype] = None, *,
     use_uncertainty = TRAINING.get(name, {}).get("use_uncertainty", False)
     return EDM(
         Embedding(**cfg["embedding"]),
-        Denoiser(**den_kwargs, dtype=dtype or config_dtype, fused=fused),
+        Denoiser(**den_kwargs, **(knobs or {}), dtype=dtype or config_dtype, fused=fused),
         use_uncertainty=use_uncertainty,
     )
 
@@ -262,6 +264,7 @@ def build_training(
     *,
     fused: str = "auto",
     seed: int = 0,
+    knobs: Optional[dict] = None,
 ) -> tuple[EDM, Diffuser, OptimizerConfig, Optional[EMAConfig], int, str]:
     """(model, diffuser, optimizer config, EMA config, batch size, schedule
     interval) of the named config's training recipe; the model as
@@ -270,7 +273,7 @@ def build_training(
     ``"step"``. The EMA tracks every profile of ``ema_lengths`` where the
     recipe gives them, else ``ema_length``."""
     t = TRAINING[name]
-    model = build_model(name, device, dtype, fused=fused, seed=seed)
+    model = build_model(name, device, dtype, fused=fused, seed=seed, knobs=knobs)
     opt_cfg = OptimizerConfig(
         lr=t["lr"],
         rampup_steps=t["rampup_steps"],

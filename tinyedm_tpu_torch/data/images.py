@@ -13,9 +13,12 @@ the files are decoded here:
 - JPEG with nvJPEG on the card (``JpegDecoder``, ``csrc/nvjpeg_decode.cu``,
   built at the first JPEG): nvJPEG's Y, Cb and Cr planes, then libjpeg's
   chroma upsampling and YCbCr conversion in torch on the card, so that only
-  the IDCT's rounding differs from PIL; grey JPEGs come back as RGB. A JPEG
-  nvJPEG rejects (CMYK among them) raises naming the file; on the CPU a JPEG
-  raises, with no fallback decoder.
+  the IDCT's rounding differs from PIL; grey JPEGs come back as RGB. A
+  4-component JPEG comes back as nvJPEG's four stored components, which
+  PIL's conversion turns into RGB (``cmyk_to_rgb``, after ``ycck_to_cmyk``
+  for an Adobe YCCK file). A JPEG of another component count, or one nvJPEG
+  rejects, raises naming the file; on the CPU a JPEG raises, with no
+  fallback decoder.
 
 The format is read from the file's first bytes, not its suffix. Any other
 file raises naming it: none is skipped silently.
@@ -177,11 +180,62 @@ def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.T
     return torch.stack([r, g, b], -1).clamp_(0, 255).to(torch.uint8)
 
 
+def cmyk_to_rgb(c: torch.Tensor, m: torch.Tensor, y: torch.Tensor, k: torch.Tensor,
+                adobe_inverted: bool) -> torch.Tensor:
+    """PIL's CMYK -> RGB on int planes of one size (any device): Pillow's
+    ``cmyk2rgb`` (``libImaging/Convert.c``, as in Pillow 12),
+    ``R = MULDIV255(255 - C, 255 - K)`` with its rounding. ``adobe_inverted``
+    takes the planes as a JPEG stores them under the Adobe convention,
+    which PIL's JPEG reader assumes for every 4-component JPEG (raw mode
+    ``CMYK;I``: each component inverted first). Returns (H, W, 3) uint8."""
+    planes = [p.int() for p in (c, m, y, k)]
+    if adobe_inverted:
+        planes = [255 - p for p in planes]
+    nk = 255 - planes[3]
+    out = []
+    for p in planes[:3]:
+        t = (255 - p) * nk + 128
+        out.append((t + (t >> 8)) >> 8)
+    return torch.stack(out, -1).to(torch.uint8)
+
+
+def ycck_to_cmyk(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                 k: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """libjpeg's ``ycck_cmyk_convert`` on int planes of one size: R, G and
+    B from Y, Cb and Cr with the YCbCr tables (``ycbcr_to_rgb``), inverted;
+    K kept. Returns the four planes as a CMYK JPEG would store them, for
+    ``cmyk_to_rgb(..., adobe_inverted=True)``."""
+    rgb = ycbcr_to_rgb(y.int(), cb.int(), cr.int()).int()
+    return (*(255 - rgb).unbind(-1), k.int())
+
+
+def adobe_transform(data: bytes) -> Optional[int]:
+    """The transform byte of a JPEG's Adobe APP14 segment (0: CMYK or RGB
+    stored as is, 1: YCbCr, 2: YCCK), or None without one; the markers
+    before the first scan are read."""
+    i = 2
+    while i + 4 <= len(data) and data[i] == 0xFF:
+        marker = data[i + 1]
+        if marker == 0xFF:  # fill byte
+            i += 1
+            continue
+        if marker == 0xDA:  # start of scan
+            break
+        length = struct.unpack(">H", data[i + 2:i + 4])[0]
+        segment = data[i + 4:i + 2 + length]
+        if marker == 0xEE and segment.startswith(b"Adobe") and len(segment) >= 12:
+            return segment[11]
+        i += 2 + length
+    return None
+
+
 class JpegDecoder:
     """nvJPEG on one CUDA device, on a stream of its own (so that decoding
     overlaps the work on the current stream): the planes from nvJPEG, the
     chroma upsampling and RGB conversion as libjpeg does them
-    (``upsample_chroma``, ``ycbcr_to_rgb``). Thread-safe: one lock around
+    (``upsample_chroma``, ``ycbcr_to_rgb``), and for a 4-component JPEG
+    PIL's conversion of its stored components (``ycck_to_cmyk`` where the
+    Adobe transform is 2, then ``cmyk_to_rgb``). Thread-safe: one lock around
     each decode, whose Huffman stage runs on the host. ``close`` frees the
     decoder."""
 
@@ -198,7 +252,7 @@ class JpegDecoder:
         lib.tinyedm_jpeg_info.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t] + [
             ctypes.POINTER(ctypes.c_int)] * 4
         lib.tinyedm_jpeg_decode_planes.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t] + [
-            ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p]
         self._lib = lib
         handle = ctypes.c_void_p()
         with torch.cuda.device(self.device):
@@ -230,23 +284,37 @@ class JpegDecoder:
             self._check(self._lib.tinyedm_jpeg_info(self._handle, data, len(data), ctypes.byref(comps),
                                                     ctypes.byref(css), widths, heights), path, "read")
             n = comps.value
-            if n not in (1, 3) or (n == 3 and css.value not in _CSS_FACTORS):
+            if n not in (1, 3, 4) or (n == 3 and css.value not in _CSS_FACTORS):
                 raise ValueError(f"{path}: a JPEG of {n} components (subsampling {css.value}) is not decoded; "
-                                 "nvJPEG decodes grey and YCbCr here (CMYK and YCCK: ROADMAP.md section 3)")
+                                 "grey, YCbCr, CMYK and YCCK JPEGs are")
             planes = [torch.empty((max(heights[i], 1), max(widths[i], 1)), dtype=torch.uint8, device=self.device)
-                      for i in range(3)]
-            args = [a for p in planes for a in (p.data_ptr(), p.shape[1])]
+                      for i in range(max(n, 3))]
+            args = [a for p in planes for a in (p.data_ptr(), p.shape[1])] + [None, 0] * (4 - len(planes))
             self._check(self._lib.tinyedm_jpeg_decode_planes(self._handle, data, len(data), *args,
                                                              self._stream.cuda_stream), path, "decode")
             y = planes[0].int()
             if n == 1:
                 rgb = planes[0][..., None].expand(-1, -1, 3)
-            else:
+            elif n == 3:
                 fh, fv = _CSS_FACTORS[css.value]
                 cb, cr = (upsample_chroma(p.int(), fh, fv, *y.shape) for p in planes[1:])
                 rgb = ycbcr_to_rgb(y, cb, cr)
+            else:
+                full = [y] + [self._upsampled(p, *y.shape) for p in planes[1:]]
+                if adobe_transform(data) == 2:
+                    full = ycck_to_cmyk(*full)
+                rgb = cmyk_to_rgb(*full, adobe_inverted=True)
             pixels = rgb.cpu().numpy()  # on this stream: waits for this decode alone
         return np.ascontiguousarray(pixels)
+
+    @staticmethod
+    def _upsampled(plane: torch.Tensor, height: int, width: int) -> torch.Tensor:
+        """A component of a 4-component JPEG at full size: its sampling
+        factors from its size against the first component's."""
+        fh, fv = round(width / plane.shape[1]), round(height / plane.shape[0])
+        if (fh, fv) == (1, 1):
+            return plane.int()
+        return upsample_chroma(plane.int(), fh, fv, height, width)
 
 
 def read_image(path: str | Path, jpeg: Optional[JpegDecoder] = None) -> Decoded:

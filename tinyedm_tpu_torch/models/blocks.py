@@ -1,13 +1,19 @@
 """Encoder/decoder U-Net blocks.
 
 Counterpart of ``tinyedm_tpu/models/blocks.py``. NCHW. The per-block
-embedding modulation is an fp32 island: the embedding linear runs in fp32,
-the residual is cast to fp32, multiplied by ``g * gain + 1``, passed through
-``mp_silu`` and (in training) dropout in fp32, then cast back to the compute
-dtype (the JAX package's default ``mod_fp32=True``; its bf16 island is not
-ported). Autograd saves the island's fp32 tensors: the JAX package's
-``remat_island`` recompute is not ported, since on the H100 it made the
-CIFAR-10 train step about 10 ms slower to save 1.5 GiB of 80 (PERF.md).
+embedding modulation is an island: the embedding linear runs in fp32, the
+residual is cast to fp32 and multiplied by ``g * gain + 1``; with
+``mod_fp32=True`` (the default) ``mp_silu`` and (in training) dropout run in
+fp32 before the cast back to the compute dtype, with ``mod_fp32=False`` the
+product is cast to the compute dtype first and they run there (the JAX
+package's bf16 island). Autograd saves the island's tensors: the JAX
+package's ``remat_island`` recompute is not ported, since on the H100 it made
+the CIFAR-10 train step about 10 ms slower to save 1.5 GiB of 80 (PERF.md).
+
+A block's dropout bits are drawn by ``draw_bits`` before its computation
+(``run``), as the JAX package draws them outside ``jax.checkpoint``: a
+recompute of ``run`` (``Denoiser(remat=True)``) applies the same mask, since
+it draws nothing.
 """
 
 from __future__ import annotations
@@ -44,9 +50,11 @@ class _Block(nn.Module):
         use_pallas_attention: bool,
         fused: str,
         dropout_rate: float,
+        mod_fp32: bool,
     ):
         super().__init__()
         self.dtype = dtype
+        self.mod_fp32 = mod_fp32
         self.add_factor = add_factor
         self.dropout_rate = dropout_rate
         self.conv_3x3_1 = WNConv(res_channels, out_channels, 3, dtype=dtype)
@@ -68,25 +76,36 @@ class _Block(nn.Module):
     def _island(
         self, res: torch.Tensor, gmod: torch.Tensor, bits: Optional[torch.Tensor]
     ) -> torch.Tensor:
-        r = mp_silu(res.float() * gmod[:, :, None, None])
+        r = res.float() * gmod[:, :, None, None]
+        if not self.mod_fp32:
+            r = r.to(self.dtype)
+        r = mp_silu(r)
         if bits is not None:
             r = apply_dropout_bits(bits, r, self.dropout_rate)
         return r.to(self.dtype)
 
+    def _residual_size(self, h: int, w: int) -> tuple[int, int]:
+        raise NotImplementedError
+
+    def draw_bits(
+        self, x: torch.Tensor, train: bool, generator: Optional[torch.Generator]
+    ) -> Optional[torch.Tensor]:
+        """The dropout bits of a forward on block input ``x``, shaped as the
+        residual branch's first conv output; None outside training or when
+        the rate keeps everything."""
+        if not train or dropout_threshold(self.dropout_rate) >= 65536:
+            return None
+        if generator is None:
+            raise ValueError("training with dropout needs a generator")
+        b, _, h, w = x.shape
+        shape = (b, self.conv_3x3_2.weight.shape[0], *self._residual_size(h, w))
+        return dropout_bits(shape, generator, x.device)
+
     def _residual(
-        self,
-        res: torch.Tensor,
-        embedding: torch.Tensor,
-        train: bool,
-        generator: Optional[torch.Generator],
+        self, res: torch.Tensor, embedding: torch.Tensor, bits: Optional[torch.Tensor]
     ) -> torch.Tensor:
         res = self.conv_3x3_1(mp_silu(res))
         gmod = self.embed(embedding.float()) * self.gain + 1.0  # (B, C) fp32
-        bits = None
-        if train and dropout_threshold(self.dropout_rate) < 65536:
-            if generator is None:
-                raise ValueError("training with dropout needs a generator")
-            bits = dropout_bits(tuple(res.shape), generator, res.device)
         return self.conv_3x3_2(self._island(res, gmod, bits))
 
     def _finish(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
@@ -111,10 +130,11 @@ class EncoderBlock(_Block):
         use_pallas_attention: bool = False,
         fused: str = "auto",
         dropout_rate: float = 0.0,
+        mod_fp32: bool = True,
     ):
         super().__init__(
             out_channels, out_channels, embedding_dim, attention, num_heads, add_factor,
-            dtype, use_pallas_attention, fused, dropout_rate,
+            dtype, use_pallas_attention, fused, dropout_rate, mod_fp32,
         )
         self.down = down
         self.conv_1x1 = (
@@ -123,6 +143,9 @@ class EncoderBlock(_Block):
             else None
         )
 
+    def _residual_size(self, h: int, w: int) -> tuple[int, int]:
+        return (h // 2, w // 2) if self.down else (h, w)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -130,12 +153,18 @@ class EncoderBlock(_Block):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        return self.run(x, embedding, self.draw_bits(x, train, generator))
+
+    def run(
+        self, x: torch.Tensor, embedding: torch.Tensor, bits: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """The block on the dropout bits of ``draw_bits`` (None: no dropout)."""
         if self.down:
             x = downsample_2x(x)
         if self.conv_1x1 is not None:
             x = self.conv_1x1(x)
         x = pixel_norm(x, dim=1)
-        return self._finish(x, self._residual(x, embedding, train, generator))
+        return self._finish(x, self._residual(x, embedding, bits))
 
 
 class DecoderBlock(_Block):
@@ -157,11 +186,12 @@ class DecoderBlock(_Block):
         use_pallas_attention: bool = False,
         fused: str = "auto",
         dropout_rate: float = 0.0,
+        mod_fp32: bool = True,
     ):
         cat_channels = in_channels + skip_channels
         super().__init__(
             cat_channels, out_channels, embedding_dim, attention, num_heads, add_factor,
-            dtype, use_pallas_attention, fused, dropout_rate,
+            dtype, use_pallas_attention, fused, dropout_rate, mod_fp32,
         )
         self.up = up
         self.cat_factor = ScaleLong(skip_channels, dtype=dtype) if skip_channels else None
@@ -171,6 +201,9 @@ class DecoderBlock(_Block):
             else None
         )
 
+    def _residual_size(self, h: int, w: int) -> tuple[int, int]:
+        return (2 * h, 2 * w) if self.up else (h, w)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -179,6 +212,16 @@ class DecoderBlock(_Block):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        return self.run(x, embedding, skip, self.draw_bits(x, train, generator))
+
+    def run(
+        self,
+        x: torch.Tensor,
+        embedding: torch.Tensor,
+        skip: Optional[torch.Tensor] = None,
+        bits: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The block on the dropout bits of ``draw_bits`` (None: no dropout)."""
         if (skip is None) != (self.cat_factor is None):
             raise ValueError("skip must be given exactly when the block was built with skip_channels")
         if skip is not None:
@@ -188,4 +231,4 @@ class DecoderBlock(_Block):
         res = x
         if self.conv_1x1 is not None:
             x = self.conv_1x1(x)
-        return self._finish(x, self._residual(res, embedding, train, generator))
+        return self._finish(x, self._residual(res, embedding, bits))

@@ -201,8 +201,10 @@ class CosineAttention(nn.Module):
     the card: both convs, the attention and the residual), with the effective
     weights as (in, out) matrices in the compute dtype. ``fused="auto"`` sends
     n <= MAX_FUSED_TOKENS through ``cosine_attention_qkv`` (the fused CUDA
-    kernels on the card). Otherwise, and for a "block" layer whose kernels
-    do not fit, q, k and v are pixel-normed over the head dim and
+    kernels on the card), and ``fused="on"`` sends every n there (the CUDA
+    kernels take keys in chunks, so any n; a head dim above their
+    MAX_HEAD_DIM raises, naming it). Otherwise, and for a "block" layer
+    whose kernels do not fit, q, k and v are pixel-normed over the head dim and
     ``use_pallas`` sends them through ``flash_attention`` (the flash CUDA
     kernels at n >= 1024, ``xla_attention`` below), else through
     ``xla_attention``, the JAX package's XLA branch. ``fused="off"`` is kept
@@ -221,8 +223,8 @@ class CosineAttention(nn.Module):
         super().__init__()
         if channels % num_heads:
             raise ValueError(f"channels {channels} not divisible by num_heads {num_heads}")
-        if fused not in ("auto", "off", "block"):
-            raise ValueError(f"fused must be 'auto', 'off' or 'block', got {fused!r}")
+        if fused not in ("auto", "on", "off", "block"):
+            raise ValueError(f"fused must be 'auto', 'on', 'off' or 'block', got {fused!r}")
         self.num_heads = num_heads
         self.dtype = dtype
         self.use_pallas = use_pallas
@@ -242,7 +244,7 @@ class CosineAttention(nn.Module):
             return y.transpose(1, 2).reshape(b, c, h, w)
         w_qkv = self.qkv_conv.effective_weight().to(self.dtype)[:, :, 0, 0]
         qkv = torch.matmul(tokens, w_qkv.t())  # (b, n, 3C), contiguous
-        if self.fused == "auto" and n <= MAX_FUSED_TOKENS:
+        if self.fused == "on" or (self.fused == "auto" and n <= MAX_FUSED_TOKENS):
             y = cosine_attention_qkv(qkv, self.num_heads)
         else:
             heads = self.num_heads

@@ -2,14 +2,31 @@
 
 Counterpart of ``tinyedm_tpu/models/unet.py::Denoiser``: NCHW activations,
 compute in ``dtype`` with fp32 preconditioning and an fp32 output combine.
+
+``remat`` recomputes each block in the backward, as the JAX package's
+``nn.remat`` does: ``remat_policy="full"`` recomputes the whole block
+(``torch.utils.checkpoint``); ``"convs"`` keeps the outputs of the convs,
+matmuls and attention kernels and recomputes only the elementwise chains
+between them (selective checkpointing, with the attention kernels' forwards
+registered as ``torch.library`` custom ops so that the policy can name them:
+``SAVED_BY_CONVS``). Either way the dropout bits are drawn before the
+recomputed region, so the gradients are those of the model without remat.
+
+``scan_blocks`` is a layout flag of the JAX package (runs of identical
+blocks stacked under one ``nn.scan``): an eager model gains nothing from a
+scan, so the port takes the flag, builds the same per-block modules and
+computes the same numbers. Its state dicts are always per-block;
+``utils/interop.py`` unstacks a scanned JAX tree.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from tinyedm_tpu_torch.models.blocks import DecoderBlock, EncoderBlock
 from tinyedm_tpu_torch.models.layers import WNConv
@@ -23,7 +40,24 @@ from tinyedm_tpu_torch.models.topology import (
     parse_block_type,
     validate_topology,
 )
+from tinyedm_tpu_torch.ops.attention import flash_attention_fwd_op
+from tinyedm_tpu_torch.ops.fused_attention import attention_block_fwd_op, cosine_attention_fwd_op
 from tinyedm_tpu_torch.ops.precond import edm_precond
+
+_aten = torch.ops.aten
+# the ops whose outputs remat_policy="convs" keeps (the JAX package's
+# _convs_saveable_policy: conv_general_dilated, dot_general, custom_vjp_call)
+SAVED_BY_CONVS = (
+    _aten.convolution.default,
+    _aten.mm.default,
+    _aten.addmm.default,
+    _aten.bmm.default,
+    _aten.baddbmm.default,
+    cosine_attention_fwd_op,
+    flash_attention_fwd_op,
+    attention_block_fwd_op,
+)
+REMAT_POLICIES = ("full", "convs")
 
 
 class Denoiser(nn.Module):
@@ -51,8 +85,16 @@ class Denoiser(nn.Module):
         dtype: torch.dtype = torch.float32,
         use_pallas_attention: bool = False,
         fused: str = "auto",
+        mod_fp32: bool = True,
+        remat: bool = False,
+        remat_policy: str = "full",
+        scan_blocks: bool = False,
     ):
         super().__init__()
+        # YAML 1.1 reads `fused: on` and `fused: off` as booleans
+        fused = {True: "on", False: "off"}.get(fused, fused)
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
         validate_topology(
             encoder_block_types,
             decoder_block_types,
@@ -63,6 +105,9 @@ class Denoiser(nn.Module):
         self.sigma_data = sigma_data
         self.dtype = dtype
         self.skip_connections = tuple(bool(s) for s in skip_connections)
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self.scan_blocks = scan_blocks
         common = dict(
             embedding_dim=embedding_dim,
             num_heads=num_heads,
@@ -70,6 +115,7 @@ class Denoiser(nn.Module):
             use_pallas_attention=use_pallas_attention,
             fused=fused,
             dropout_rate=dropout_rate,
+            mod_fp32=mod_fp32,
         )
         self.conv_in = WNConv(in_channels + 1, encoder_out_channels[0], 3, dtype=dtype)
         ch = encoder_out_channels[0]
@@ -99,6 +145,21 @@ class Denoiser(nn.Module):
         with torch.no_grad():
             self.gain_out.zero_()
 
+    def _block(self, block: nn.Module, train: bool, generator: Optional[torch.Generator],
+               *inputs: Optional[torch.Tensor]) -> torch.Tensor:
+        """``block.run`` on ``inputs`` and the block's dropout bits, under
+        the remat policy when a gradient is wanted."""
+        bits = block.draw_bits(inputs[0], train, generator)
+        if not (self.remat and torch.is_grad_enabled()):
+            return block.run(*inputs, bits)
+        context = {}
+        if self.remat_policy == "convs":
+            context["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, list(SAVED_BY_CONVS)
+            )
+        return checkpoint(block.run, *inputs, bits, use_reentrant=False,
+                          preserve_rng_state=False, **context)
+
     def forward(
         self,
         noisy_image: torch.Tensor,
@@ -115,9 +176,10 @@ class Denoiser(nn.Module):
         x = self.conv_in(torch.cat([x, torch.ones_like(x[:, :1])], dim=1))
         skips = [x]
         for block in self.encoder_blocks:
-            x = block(x, embedding, train, generator)
+            x = self._block(block, train, generator, x, embedding)
             skips.append(x)
         for block, has_skip in zip(self.decoder_blocks, self.skip_connections):
-            x = block(x, embedding, skips.pop() if has_skip else None, train, generator)
+            skip = skips.pop() if has_skip else None
+            x = self._block(block, train, generator, x, embedding, skip)
         out = self.conv_out(x).float() * self.gain_out
         return out * c.c_out + noisy32 * c.c_skip

@@ -210,16 +210,30 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tenso
     return dq, dk, dv
 
 
+@torch.library.custom_op("tinyedm::flash_attention_fwd", mutates_args=())
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one dispatcher op, so that a selective-checkpoint
+    policy can keep its outputs (``models/unet.py::SAVED_BY_CONVS``): (o,
+    row statistics), the statistics empty on a CPU tensor (the plain
+    version's backward recomputes them)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v), q.new_empty(0, dtype=torch.float32)
+    return flash_attention_fwd_cuda(q, k, v)
+
+
+flash_attention_fwd_op = torch.ops.tinyedm.flash_attention_fwd.default
+
+
 class _FlashAttention(torch.autograd.Function):
     """``jax.custom_vjp`` of the JAX package's ``_flash_attention_kernel_path``:
     saves q, k, v and, on the card, the forward's row statistics."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        if q.device.type == "cpu":
-            o, stats = flash_attention_plain(q, k, v), None
-        else:
-            o, stats = flash_attention_fwd_cuda(q, k, v)
+        if q.device.type not in ("cpu", "cuda"):
+            _kernel_layout(q, k, v)  # raises: no kernel there
+        o, stats = flash_attention_fwd_op(q, k, v)
         ctx.save_for_backward(q, k, v, stats)
         return o
 

@@ -65,6 +65,8 @@ EPS = 1e-4  # pixel-norm epsilon
 launch_counts: Counter = Counter()
 
 _DTYPES = (torch.bfloat16, torch.float32)
+# the devices the forward ops are called on: the plain version's and the kernels'
+_OP_DEVICES = ("cpu", "cuda")
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
@@ -183,7 +185,7 @@ def _check_launchable(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int,
     if not qkv.is_contiguous():
         raise ValueError("the CUDA kernel needs a contiguous qkv tensor")
     if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
+        raise ValueError(f"head dim {hd} > MAX_HEAD_DIM ({MAX_HEAD_DIM}) of the CUDA kernels")
     return b, n, c, hd
 
 
@@ -246,16 +248,28 @@ def _bwd(qkv: torch.Tensor, g: torch.Tensor, o: torch.Tensor, num_heads: int,
     return dqkv
 
 
+@torch.library.custom_op("tinyedm::cosine_attention_fwd", mutates_args=())
+def _cosine_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The forward as one dispatcher op (the plain version on a CPU tensor,
+    the kernel on any other), so that a selective-checkpoint policy can
+    keep its output (``models/unet.py::SAVED_BY_CONVS``)."""
+    if qkv.device.type == "cpu":
+        return cosine_attention_qkv_plain(qkv, num_heads)
+    return cosine_attention_qkv_cuda(qkv, num_heads)
+
+
+cosine_attention_fwd_op = torch.ops.tinyedm.cosine_attention_fwd.default
+
+
 class _CosineAttentionQKV(torch.autograd.Function):
     """``jax.custom_vjp`` of the JAX package's ``cosine_attention_qkv``: saves
     ``(qkv, o)``, o being the forward's own rounded output."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-        if qkv.device.type == "cpu":
-            o = cosine_attention_qkv_plain(qkv, num_heads)
-        else:
-            o = cosine_attention_qkv_cuda(qkv, num_heads)
+        if qkv.device.type not in _OP_DEVICES:
+            _check_launchable(qkv, num_heads)  # raises: no kernel there
+        o = cosine_attention_fwd_op(qkv, num_heads)
         ctx.save_for_backward(qkv, o)
         ctx.num_heads = num_heads
         return o
@@ -391,7 +405,7 @@ def _check_block(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
                              f"got {tuple(w.shape)} {w.dtype} on {w.device}")
     hd = c // num_heads
     if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
+        raise ValueError(f"head dim {hd} > MAX_HEAD_DIM ({MAX_HEAD_DIM}) of the CUDA kernels")
     return b, n, c, hd
 
 
@@ -472,6 +486,17 @@ def _block_bwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, g: torch
     return dx, dwqkv, dwout
 
 
+@torch.library.custom_op("tinyedm::attention_block_fwd", mutates_args=())
+def _attention_block_fwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """The block forward as one dispatcher op, as ``_cosine_attention_fwd``."""
+    fwd = attention_block_plain if x.device.type == "cpu" else attention_block_cuda
+    return fwd(x, wqkv, wout, num_heads)
+
+
+attention_block_fwd_op = torch.ops.tinyedm.attention_block_fwd.default
+
+
 class _AttentionBlock(torch.autograd.Function):
     """``jax.custom_vjp`` of the JAX package's ``attention_block``: saves
     ``(x, wqkv, wout)`` and recomputes the forward in the backward; the
@@ -479,10 +504,11 @@ class _AttentionBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wqkv, wout, num_heads: int):
-        fwd = attention_block_plain if x.device.type == "cpu" else attention_block_cuda
+        if x.device.type not in _OP_DEVICES:
+            _check_block(x, wqkv, wout, num_heads)  # raises: no kernel there
         ctx.save_for_backward(x, wqkv, wout)
         ctx.num_heads = num_heads
-        return fwd(x, wqkv, wout, num_heads)
+        return attention_block_fwd_op(x, wqkv, wout, num_heads)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

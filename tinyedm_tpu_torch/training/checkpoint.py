@@ -194,7 +194,7 @@ def load_edm_from_checkpoint(
     load_ema: bool = False,
     ema_index: int = 0,
     device: Optional[str | torch.device] = None,
-    fused: str = "auto",
+    fused: Optional[str] = None,
 ):
     """Rebuild the spec and model from the checkpoint's embedded config and
     load the requested weights: the train params, or with ``load_ema`` the
@@ -202,7 +202,8 @@ def load_edm_from_checkpoint(
     model in eval mode on ``device`` (the card unless ``"cpu"``) holding
     ``weights`` (its state_dict), and the whole restored ``state``, which
     stays on the CPU (only the model's weights go to the device); the
-    model's attention runs in the form ``fused`` (``"off"``: unfused)."""
+    model's attention runs in the form ``fused`` (``"off"``: unfused; None:
+    the config's own)."""
     from tinyedm_tpu_torch.config.registry import instantiate
 
     dev = resolve_device(device)

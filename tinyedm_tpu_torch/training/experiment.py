@@ -72,14 +72,16 @@ class EDMSpec:
         n = self.embedding.num_classes
         return n is not None and n != -1
 
-    def build_model(self, inference_fast: bool = False, *, fused: str = "auto") -> EDM:
-        """The spec's EDM, parameters allocated but not drawn.
-        ``inference_fast`` selects nothing in the port: the JAX package uses
-        it to put sampling on its Pallas attention kernel, and the port's
-        fused CUDA kernels are already the default route (``fused="auto"``)."""
+    def build_model(self, inference_fast: bool = False, *, fused: Optional[str] = None) -> EDM:
+        """The spec's EDM, parameters allocated but not drawn; ``fused``
+        overrides the denoiser's attention route (None: the spec's own,
+        ``"auto"`` unless the config sets it). ``inference_fast`` selects
+        nothing in the port: the JAX package uses it to put sampling on its
+        Pallas attention kernel, and the port's fused CUDA kernels are
+        already the default route (``fused="auto"``)."""
         del inference_fast
-        return EDM(self.embedding.build(), self.denoiser.build(fused=fused),
-                   use_uncertainty=self.use_uncertainty)
+        denoiser = self.denoiser.build(**({} if fused is None else {"fused": fused}))
+        return EDM(self.embedding.build(), denoiser, use_uncertainty=self.use_uncertainty)
 
     def build_optimizer_config(self) -> OptimizerConfig:
         return OptimizerConfig(
