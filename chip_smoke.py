@@ -248,6 +248,34 @@ with a non-zero exit code:
     heads) against fused="off" in bf16 (output 1e-2, gradients 2e-2) and
     fp32 (1e-5), with rows 1-4's launches at those n, and rows 1-4's kernels
     timed at n 1024 beside plain, SDPA and the bound.
+34. data parallelism and ZeRO-1 (tinyedm_tpu_torch/parallel): (a) python -m
+    tinyedm_tpu_torch.train --multihost on cifar10.yaml in this process, over
+    a one-rank NCCL group (RANK 0, WORLD_SIZE 1): 2 epochs of 10 steps of
+    256, validation, the preview and a checkpoint each epoch, the rows 1-4
+    launches as phase 24 counts them, exactly one all-reduce per step of
+    the params' bytes (142.5 MB) and four scalars, one all-reduce of each
+    validation's two fp64 sums, no all-gather; the second epoch's ms/step
+    beside phase 24's loop and phase 9's bare step; the group destroyed by
+    the CLI; (b) two spawned
+    ranks sharing the card over gloo (host-staged), each on 128 of every
+    global batch of 256, 3 steps of the CIFAR-10 recipe at full width in
+    bf16, dropout 0, each image's sigma and noise a function of the image
+    (the same rows draw the same on any rank): the param and EMA moves from
+    the shared start and the Adam moments against one process at 256 from
+    the same state within relative L2 5e-3 (DP_TOL), ZeRO-1 bit-equal to data
+    parallel in params, moments and EMA on each rank, each rank's moment and
+    EMA bytes, ms per step (gloo's, not NCCL's), the collectives and the rows
+    1-4 launches per rank step (11 + 11, as phase 9 counts them per step);
+    gloo's all-gather of CUDA tensors is checked first, and a refusal fails
+    the phase; (c) the same over NCCL on
+    two cards where the machine has two, else a line saying it did not run;
+35. the CLIs over ranks: python -m torch.distributed.run --nproc_per_node 1
+    -m tinyedm_tpu_torch.train --multihost on cifar10.yaml (NCCL) for a short
+    epoch (5 steps of 256, a validation batch, a checkpoint); generate() on
+    (b)'s two ranks, CIFAR-10 Heun-32, 64 samples at batch 64, against one
+    process: the same 64 PNGs, each value within 1 level (cuDNN may pick
+    another algorithm at the per-rank batch of 32), the values that differ
+    counted.
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
@@ -1154,13 +1182,14 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     return result
 
 
-def _write_cifar10(directory: Path, seed: int = 0) -> None:
-    """CIFAR-10's python pickle batches with seeded uint8 images and labels."""
+def _write_cifar10(directory: Path, seed: int = 0, n_train: int = LOOP_TRAIN_BATCH, n_test: int = LOOP_TEST) -> None:
+    """CIFAR-10's python pickle batches with seeded uint8 images and labels:
+    five train batches of ``n_train`` images and a test batch of ``n_test``."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     directory.mkdir(parents=True)
-    for name, n in [(f"data_batch_{i}", LOOP_TRAIN_BATCH) for i in range(1, 6)] + [("test_batch", LOOP_TEST)]:
+    for name, n in [(f"data_batch_{i}", n_train) for i in range(1, 6)] + [("test_batch", n_test)]:
         batch = {b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8), b"labels": rng.integers(0, 10, n).tolist()}
         with open(directory / name, "wb") as f:
             pickle.dump(batch, f)
@@ -1186,10 +1215,10 @@ def _run_train(args: list[str], tag: str = "24 run loop"):
     return trainer, out.getvalue(), seconds
 
 
-def phase_run_loop(smi: str, bare: dict) -> dict:
+def phase_run_loop(smi: str, bare: dict) -> tuple[dict, float]:
     """The run loop at CIFAR-10 full width (docstring, phase 24). ``bare``:
     phase 9's result, printed beside the loop's. Returns the fused kernels'
-    launches per loop step by (direction, n)."""
+    launches per loop step by (direction, n), and the loop's ms/step."""
     import numpy as np
     import torch
 
@@ -1321,7 +1350,7 @@ def phase_run_loop(smi: str, bare: dict) -> dict:
         print(f"[24 run loop] generate --ckpt_path --load_ema (step {state.step}): {len(pngs)} PNGs, samples equal bit "
               f"for bit to generate() from the EMA weights as a weights file ({from_ckpt['img_per_s']:.2f} img/s "
               f"Heun-32 at batch {n})", flush=True)
-    return per_step
+    return per_step, loop_ms
 
 
 def _write_latents(root: Path, n: int, seed: int):
@@ -2872,6 +2901,368 @@ def phase_knobs(smi: str) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phases 34-35: data parallelism and ZeRO-1 (tinyedm_tpu_torch/parallel), the
+# CLIs over ranks
+# ---------------------------------------------------------------------------
+DP_RANKS, DP_GLOBAL, DP_STEPS = 2, 256, 3  # (b), (c): 2 x 128 of each global batch of 256, 3 steps
+# (b): the param and EMA moves and the Adam moments after 3 steps at 2 x 128
+# against 1 x 256, relative L2. Read on an H100 at 1.35e-3 (param moves),
+# 1.31e-3 (EMA moves), 7.9e-4 (mu) and 7.0e-4 (nu): bf16 gradients of two
+# half batches, summed in another order. A sum left undivided by the world
+# size reads 1.0 in mu and 3.0 in nu; a rank's own gradient in place of the
+# mean reads its half batch's noise.
+DP_TOL = 5e-3
+DP_TIMEOUT = 600  # seconds for the spawned ranks, the build's load included
+DP_GEN = 64  # phase 35's generate: CIFAR-10 Heun-32, 64 samples at batch 64 (2 x 32)
+DP_CLI_TRAIN, DP_CLI_TEST = 256, 256  # phase 35's short epoch: 5 steps of 256, one val batch
+DP_LOOP_TRAIN = 512  # 34 (a): 5 x 512 synthetic images, 2 epochs of 10 steps of 256
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _content_diffuser():
+    """The injected draws of phase 34 (b): each image's sigma and noise a
+    function of the image alone (two of its pixels, its mirror image), so
+    a row draws the same on any rank and in one process
+    (tests/_torch_dist_worker.py's ContentDiffuser)."""
+    from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
+
+    class ContentDiffuser(Diffuser):
+        def __call__(self, clean_image, generator):
+            x = clean_image.float()
+            return self.apply(clean_image, 1.5 * (x[:, 0, 0, 0] + x[:, -1, -1, -1]), 1.5 * x.flip(1, 2, 3))
+
+    return ContentDiffuser()
+
+
+def _dp_steps(device, zero1: bool, grouped: bool) -> dict:
+    """DP_STEPS steps of the CIFAR-10 recipe at full width, dropout 0, draws
+    injected, from the seed-0 state, on this rank's share of each global
+    batch of DP_GLOBAL (the whole batch without a group); the whole state
+    after them on the host, ms/step of the steps after the first, the
+    collectives and the rows 1-4 launches of each step, the bytes of the
+    moments and EMA trees this rank keeps."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import build_training
+    from tinyedm_tpu_torch.data.datamodules import SyntheticDataModule, to_device
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.parallel.audit import collective_inventory
+    from tinyedm_tpu_torch.parallel.mesh import ParallelPlan, shard_batch
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    model, _, opt_cfg, ema_cfg, _, _ = build_training("cifar10", device, seed=0)
+    for m in model.modules():
+        if hasattr(m, "dropout_rate"):
+            m.dropout_rate = 0.0
+    state = init_train_state(model, opt_cfg, ema_cfg)
+    start = {k: v.detach().cpu() for k, v in state.params.items()}
+    plan = ParallelPlan(dict(model.named_parameters()), zero1=zero1) if grouped else None
+    if zero1:
+        plan.place(state)
+    step = make_train_step(model, _content_diffuser(), opt_cfg, ema_cfg, plan=plan)
+    data = SyntheticDataModule(DP_GLOBAL, image_size=32, num_samples=DP_GLOBAL * DP_STEPS, seed=0)
+    batches = [to_device(*shard_batch(b), device) for b in data.train_batches(0)]  # this rank's rows
+    inventories, launches, times = [], [], []
+    for batch in batches:
+        fa.launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_inventory() as inv:
+            state, metrics = step(state, batch, torch.Generator(device=device).manual_seed(0),
+                                  PATHS["cifar10"]["sched"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        inventories.append(inv)
+        launches.append(_kernel_calls())
+    if not torch.isfinite(metrics["train_loss"]):
+        fail(f"phase 34: non-finite loss {metrics['train_loss']}")
+
+    def host(tree, gather=zero1):
+        return {k: v.detach().cpu() for k, v in (plan.gather(tree) if gather else tree).items()}
+
+    kept = sum(v.numel() * 4 for v in (*state.mu.values(), *state.nu.values()))
+    kept_ema = sum(v.numel() * 4 for tree in state.ema for v in tree.values())
+    out = dict(start=start, params=host(state.params, False), mu=host(state.mu), nu=host(state.nu),
+               ema=[host(t) for t in state.ema],
+               ms=1e3 * statistics.mean(times[1:]), inventories=inventories, launches=launches,
+               moment_bytes=kept, ema_bytes=kept_ema, rows=len(batches[0][0]))
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank: int, size: int, store: str, out: str, backend: str, gen_dir: str | None) -> None:
+    """One spawned rank of phase 34 (b) or (c): the data-parallel steps, then
+    the ZeRO-1 steps, checked bit for bit against them here; with
+    ``gen_dir``, phase 35's generate() of its rows. Writes its numbers (and
+    rank 0 its whole state) to ``out``."""
+    import os
+    from datetime import timedelta
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    # (b): both ranks on the one card; (c): one card each
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(rank if backend == "nccl" else 0))
+    from tinyedm_tpu_torch.parallel import mesh
+    from tinyedm_tpu_torch.utils.cuda import resolve_device
+
+    mesh.init_distributed(backend=backend, init_method=f"file://{store}", timeout=timedelta(seconds=DP_TIMEOUT))
+    device = resolve_device(None)
+    # ZeRO-1's all-gather of CUDA tensors, checked before the steps need it
+    probe = torch.arange(4, dtype=torch.float32, device=device) + 4 * rank
+    whole = torch.empty(4 * size, device=device)
+    mesh.all_gather_into(whole, probe)
+    if not torch.equal(whole.cpu(), torch.arange(4 * size, dtype=torch.float32)):
+        fail(f"{backend} all_gather gave {whole.tolist()}")
+    dp = _dp_steps(device, zero1=False, grouped=True)
+    z1 = _dp_steps(device, zero1=True, grouped=True)
+    trees = [(dp[k], z1[k]) for k in ("params", "mu", "nu")] + list(zip(dp["ema"], z1["ema"]))
+    equal = all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a) for a, b in trees)
+    result = dict(backend=backend, equal=equal, device=str(device), rows=dp["rows"])
+    for name, r in (("dp", dp), ("zero1", z1)):
+        result[name] = {k: r[k] for k in ("ms", "inventories", "launches", "moment_bytes", "ema_bytes")}
+    if rank == 0:
+        result["state"] = {k: dp[k] for k in ("start", "params", "mu", "nu", "ema")}
+    if gen_dir is not None:
+        from tinyedm_tpu_torch.generate import generate
+
+        t0 = time.perf_counter()
+        generate(gen_dir, DP_GEN, 32, DP_GEN, config="cifar10", num_steps=32, seed=0)
+        result["gen_s"] = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    torch.save(result, out)
+
+
+def _spawn_ranks(backend: str, tmp: Path, gen_dir: Path | None = None) -> list[dict]:
+    """DP_RANKS spawned ranks of ``_dp_rank`` in one ``backend`` group; their
+    results, or a failure naming the rank that died."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    store = tmp / f"store-{backend}"
+    outs = [tmp / f"rank-{backend}-{r}.pt" for r in range(DP_RANKS)]
+    procs = [ctx.Process(target=_dp_rank, args=(r, DP_RANKS, str(store), str(outs[r]), backend,
+                                                 None if gen_dir is None else str(gen_dir)))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DP_RANKS or not all(o.exists() for o in outs):
+        fail(f"phase 34: {backend} ranks ended with exit codes {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _per_step_inventory(inventories: list) -> str:
+    from tinyedm_tpu_torch.parallel.audit import inventory_summary
+
+    s = inventory_summary(inventories[-1])
+    return ", ".join(f"{v['count']} {k} of {v['bytes'] / 1e6:.2f} MB" for k, v in s.items()) or "none"
+
+
+def _flat(tree: dict, order: dict | None = None):
+    """One fp64 vector of a host tree's tensors, in ``order``'s keys (its own
+    by default)."""
+    import torch
+
+    return torch.cat([tree[k].reshape(-1).double() for k in (order or tree)])
+
+
+def _check_ranks(tag: str, ranks: list[dict], ref: dict, smi: str) -> None:
+    """Phase 34 (b)/(c)'s gates and lines for one group's results."""
+    import torch
+
+    r0 = ranks[0]
+    backend = r0["backend"]
+    if not all(r["equal"] for r in ranks):
+        fail(f"{tag}: ZeRO-1 is not bit-equal to data parallel on every rank")
+    # what the steps changed, against one process: the param and EMA moves
+    # from the shared start, and the Adam moments (a sum left undivided by
+    # the world size doubles mu and quadruples nu; Adam's update hides it)
+    ours, theirs = r0["state"], ref
+    if not torch.equal(_flat(ours["start"]), _flat(theirs["start"], ours["start"])):
+        fail(f"{tag}: the ranks did not start from the one process's state")
+    pairs = [("d_params", ours["params"], theirs["params"], True), ("mu", ours["mu"], theirs["mu"], False),
+             ("nu", ours["nu"], theirs["nu"], False)] + [
+        (f"d_ema{i}", a, b, True) for i, (a, b) in enumerate(zip(ours["ema"], theirs["ema"]))]
+    errs = {}
+    for name, a, b, moved in pairs:
+        base = _flat(ours["start"], a) if moved else 0.0
+        errs[name] = rel_l2(_flat(a) - base, _flat(b, a) - base)
+    if not max(errs.values()) <= DP_TOL:
+        fail(f"{tag}: {DP_RANKS} x {r0['rows']} against 1 x {DP_GLOBAL}: {errs} > {DP_TOL}")
+    calls = PATHS["cifar10"]["calls"]
+    want = {(d, n): c for n, c in calls.items() for d in ("fwd", "bwd")}
+    for r in ranks:
+        for name in ("dp", "zero1"):
+            if any(step != want for step in r[name]["launches"]):
+                fail(f"{tag}: rows 1-4 launches per rank step {r[name]['launches']}, expected {want}")
+    note = "host-staged gloo, NOT NCCL's speed" if backend == "gloo" else "NCCL"
+    dp, z1 = r0["dp"], r0["zero1"]
+    z1_moments = ", ".join(f"{r['zero1']['moment_bytes'] / 1e6:.2f}" for r in ranks)
+    z1_ema = ", ".join(f"{r['zero1']['ema_bytes'] / 1e6:.2f}" for r in ranks)
+    print(f"[{tag}] {backend} on {', '.join(sorted({r['device'] for r in ranks}))}, {DP_RANKS} ranks x "
+          f"{r0['rows']} of each global batch of {DP_GLOBAL}, {DP_STEPS} steps, bf16, dropout 0, draws injected: "
+          f"the param and EMA moves and the moments against one process at {DP_GLOBAL} from the same state, "
+          f"relative L2 {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (<= {DP_TOL}); ZeRO-1 bit-equal to "
+          f"data parallel (params, mu, nu, EMA) on every rank", flush=True)
+    print(f"[{tag}] per step and rank: data parallel {dp['ms']:.3f} ms, ZeRO-1 {z1['ms']:.3f} ms ({note}); "
+          f"collectives dp {_per_step_inventory(dp['inventories'])}; zero1 "
+          f"{_per_step_inventory(z1['inventories'])}; rows 1-4 launches {_fmt(want)} per rank step, as phase 9's "
+          f"per step; moment bytes per rank dp {dp['moment_bytes'] / 1e6:.2f} MB, zero1 {z1_moments} MB; EMA bytes "
+          f"dp {dp['ema_bytes'] / 1e6:.2f} MB, zero1 {z1_ema} MB | {smi}", flush=True)
+
+
+def phase_data_parallel(smi: str, loop_ms: float | None, bare: dict) -> None:
+    """Phase 34 (docstring): (a) a one-rank NCCL group through the CIFAR-10
+    run loop, (b) two ranks sharing the card over gloo, (c) two cards over
+    NCCL where there are two; then phase 35, whose two-rank generate runs in
+    (b)'s ranks. ``loop_ms``: phase 24's loop (None where it did not run),
+    ``bare``: phase 9's step, printed beside (a)'s."""
+    import os
+
+    import torch
+
+    from tinyedm_tpu_torch.parallel.audit import collective_inventory, inventory_summary
+    from tinyedm_tpu_torch.parallel.mesh import distributed
+
+    p = PATHS["cifar10"]
+    calls = p["calls"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) train --multihost in this process, over a one-rank NCCL group:
+        # 2 epochs of 10 steps, the second epoch's rate read, as phase 24's
+        _write_cifar10(tmp / "cifar10", n_train=DP_LOOP_TRAIN)
+        run = tmp / "run"
+        args = ["--config-name=cifar10", f"--config-path={ROOT / 'experiments' / 'conf'}", "--multihost",
+                f"datamodule.data_dir={tmp / 'cifar10'}", f"trainer.out_dir={run}",
+                f"trainer.max_epochs={LOOP_EPOCHS}", "trainer.check_val_every_n_epoch=1",
+                "callbacks.checkpoint_callback.every_n_epochs=1", "callbacks.generate_callback.every_n_epochs=1"]
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        os.environ.update(env)
+        _clear_counts()
+        try:
+            with collective_inventory() as inv:
+                trainer, out, fit_s = _run_train(args, "34 data parallel")
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        counts = _kernel_calls()
+        if distributed():
+            fail("34 (a): train --multihost left its process group behind")
+        steps = trainer.global_step
+        val_batches = -(-LOOP_TEST // trainer.datamodule.batch_size)
+        forwards = steps + LOOP_EPOCHS * (val_batches + LOOP_PREVIEW_FORWARDS)
+        expected = {(d, n): c * (forwards if d == "fwd" else steps) for n, c in calls.items() for d in ("fwd", "bwd")}
+        grads = [c for c in inv if c.kind == "all_reduce" and c.bytes >= trainer.plan.param_bytes]
+        scalars = [c for c in inv if c.kind == "all_reduce" and c.bytes < trainer.plan.param_bytes]
+        summary = inventory_summary(inv)
+        _, _, sample_ms, sps = _loop_numbers(run, trainer.datamodule.batch_size)
+        ok = (steps == LOOP_EPOCHS * 5 * DP_LOOP_TRAIN // trainer.datamodule.batch_size and counts == expected
+              and len(grads) == steps and all(c.group_size == 1 for c in inv) and len(scalars) == LOOP_EPOCHS
+              and "all_gather" not in summary)
+        if not ok or "device: cuda:0" not in out:
+            fail(f"34 (a): {steps} steps, launches {counts} (expected {expected}), collectives {summary}")
+        print(f"[34 data parallel] (a) train --multihost over a one-rank NCCL group in this process, cifar10.yaml, "
+              f"{LOOP_EPOCHS} epochs x {steps // LOOP_EPOCHS} steps of {trainer.datamodule.batch_size}, validation "
+              f"and preview each epoch, {fit_s:.3f} s: epoch {LOOP_EPOCHS} {sample_ms:.3f} ms/step, {sps:.2f} "
+              f"samples/s (phase 24's loop in this run {'not run' if loop_ms is None else f'{loop_ms:.3f}'}, "
+              f"phase 9's bare step {bare['ms']:.3f} ms/step); per step one all_reduce of "
+              f"{grads[0].bytes / 1e6:.2f} MB (the params {trainer.plan.param_bytes / 1e6:.2f} MB, the alignment "
+              f"gaps and {(grads[0].bytes - 4 * trainer.plan.padded) // 4} scalars), no all_gather; each "
+              f"validation one all_reduce of {scalars[0].bytes} B; in all {summary}; launches {_fmt(counts)} | "
+              f"{smi}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (b) two ranks on this card over gloo, against one process at the global batch
+        ref = _dp_steps("cuda", zero1=False, grouped=False)
+        ref = {k: ref[k] for k in ("start", "params", "mu", "nu", "ema", "ms")}
+        torch.cuda.empty_cache()
+        print(f"[34 data parallel] (b) one process at {DP_GLOBAL}: {ref['ms']:.3f} ms/step", flush=True)
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks("gloo", tmp, gen_dir=tmp / "gen-2")
+        spawn_s = time.perf_counter() - t0
+        _check_ranks("34 data parallel (b)", ranks, ref, smi)
+        print(f"[34 data parallel] (b) the two ranks ran {spawn_s:.1f} s, start-up, steps and phase 35's generate "
+              "included", flush=True)
+        # (c) two cards over NCCL
+        if torch.cuda.device_count() >= 2:
+            _check_ranks("34 data parallel (c)", _spawn_ranks("nccl", tmp), ref, smi)
+        else:
+            print(f"[34 data parallel] (c) NCCL over two cards did not run: this machine has "
+                  f"{torch.cuda.device_count()} card", flush=True)
+
+        # 35: the CLIs over ranks
+        phase_dp_clis(smi, tmp, ranks)
+
+
+def phase_dp_clis(smi: str, tmp: Path, ranks: list[dict]) -> None:
+    """Phase 35 (docstring): train --multihost under torch.distributed.run,
+    and the two-rank generate of phase 34 (b)'s ranks against one process."""
+    import numpy as np
+
+    from tinyedm_tpu_torch.generate import generate
+    from tinyedm_tpu_torch.training.callbacks import read_png
+
+    data, run = tmp / "cifar10-short", tmp / "run-cli"
+    _write_cifar10(data, n_train=DP_CLI_TRAIN, n_test=DP_CLI_TEST)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), "-m", "tinyedm_tpu_torch.train", "--multihost",
+           "--config-name=cifar10", f"--config-path={ROOT / 'experiments' / 'conf'}", f"datamodule.data_dir={data}",
+           f"trainer.out_dir={run}", "trainer.max_epochs=1", "trainer.check_val_every_n_epoch=1",
+           "callbacks.checkpoint_callback.every_n_epochs=1", "callbacks.generate_callback=null"]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    steps = 5 * DP_CLI_TRAIN // 256
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()] if done.returncode == 0 \
+        else []
+    ckpts = sorted(x.name for x in (run / "checkpoints").iterdir()) if rows else []
+    finite = all(math.isfinite(v) for r in rows for k, v in r.items())
+    if done.returncode != 0 or "device: cuda:0" not in done.stdout or not finite or ckpts != [str(steps)] or \
+            [r["step"] for r in rows if "samples_per_sec" in r] != [steps]:
+        fail(f"35: torch.distributed.run ... train --multihost: rc {done.returncode}, rows {rows}, checkpoints "
+             f"{ckpts}\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    val = next(r["val_loss"] for r in rows if "val_loss" in r)
+    print(f"[35 clis] python -m torch.distributed.run --nproc_per_node 1 -m tinyedm_tpu_torch.train --multihost "
+          f"--config-name=cifar10 (NCCL, one rank): 1 epoch of {steps} steps of 256 and validation of "
+          f"{DP_CLI_TEST} in {cli_s:.1f} s (process start-up included), val_loss {val:.4f}, checkpoint {ckpts}",
+          flush=True)
+
+    one = generate(str(tmp / "gen-1"), DP_GEN, 32, DP_GEN, config="cifar10", num_steps=32, seed=0)
+    names = sorted(x.name for x in (tmp / "gen-1").glob("*.png"))
+    if names != sorted(x.name for x in (tmp / "gen-2").glob("*.png")) or len(names) != DP_GEN:
+        fail(f"35: generate on two ranks wrote {sorted(x.name for x in (tmp / 'gen-2').glob('*.png'))}")
+    diff = [np.abs(read_png(tmp / "gen-1" / n).astype(int) - read_png(tmp / "gen-2" / n).astype(int))
+            for n in names]
+    worst, differing = max(int(d.max()) for d in diff), sum(int((d > 0).sum()) for d in diff)
+    if worst > 1:
+        fail(f"35: generate on two ranks differs from one process by {worst} levels")
+    print(f"[35 clis] generate() on two ranks sharing the card (gloo; phase 34 (b)'s ranks, 32 rows each), "
+          f"cifar10 Heun-32, {DP_GEN} samples at batch {DP_GEN}: the {DP_GEN} PNGs of one process within "
+          f"{worst} level ({differing} of {DP_GEN * 32 * 32 * 3} values differ: cuDNN may pick another algorithm "
+          f"at batch 32); one process {one['img_per_s']:.2f} img/s, the two ranks "
+          f"{max(r['gen_s'] for r in ranks):.2f} s | {smi}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2947,7 +3338,8 @@ def main() -> int:
     train_counts["imagenet"] = train_results["imagenet"]["counts"]
     torch.cuda.empty_cache()
     # 24: the run loop at CIFAR-10 full width
-    loop_per_step = {"cifar10": phase_run_loop(smi, train_results["cifar10"])}
+    loop_per_step, loop_ms = {}, {}
+    loop_per_step["cifar10"], loop_ms["cifar10"] = phase_run_loop(smi, train_results["cifar10"])
     torch.cuda.empty_cache()
     # 25: ImageNet-64 through the CLI at Lightning's 3 x 176
     loop_per_step["imagenet"] = phase_imagenet64_cli(smi, train_results["imagenet"])
@@ -2973,6 +3365,9 @@ def main() -> int:
         phase_reference_checkpoints(smi, Path(tmp))
     # 33: remat, the bf16 island, fused="on"
     knob_entries = phase_knobs(smi)
+    torch.cuda.empty_cache()
+    # 34-35: data parallelism and ZeRO-1 over ranks, the CLIs over ranks
+    phase_data_parallel(smi, loop_ms["cifar10"], train_results["cifar10"])
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per

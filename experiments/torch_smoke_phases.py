@@ -1,16 +1,19 @@
 """Run the workflow phases of chip_smoke.py alone on the card.
 
-    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30] [32] [33]
+    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30] [32] [33] [34]
 
 Phases 1 (environment) and 2 (the kernels' build), the bare train steps
-that phases 25 and 26 are read against (12: ImageNet-512, 23: ImageNet-64;
-only when one of them is named), then the phases named (all by default):
+that phases 25, 26 and 34 are read against (12: ImageNet-512, 23:
+ImageNet-64, 9: CIFAR-10; only when one of them is named), then the phases
+named (all by default):
 25, ImageNet-64 through the CLI at 3 x 176; 26, ImageNet-512 through the
 CLI on a latpack store with its decoded previews (31), followed by 27,
 post-hoc EMA over its checkpoints and sampling from it; 28, FID on
 CIFAR-10; 29, the SD VAE at full width; 30, latent extraction through the
 CLI; 32, reference (Lightning) checkpoints at full width; 33, remat, the
-bf16 island and fused="on". Each phase prints its lines and gates as in chip_smoke.py, and its
+bf16 island and fused="on"; 34, data parallelism and ZeRO-1 over ranks,
+followed by 35, train --multihost under torch.distributed.run and generate
+on two ranks (phase 24's loop, beside which 34 prints, does not run here). Each phase prints its lines and gates as in chip_smoke.py, and its
 seconds. Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -45,6 +48,9 @@ def main(phases: list[str]) -> None:
     if "25" in phases:
         bare["25"] = cs.phase_train("23", "imagenet", eval_profiles=1)
         torch.cuda.empty_cache()
+    if "34" in phases:
+        bare["34"] = cs.phase_train("9", "cifar10")
+        torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as vae_tmp:
         vae_files = cs.write_vae_files(Path(vae_tmp))
         for name in phases:
@@ -70,12 +76,14 @@ def main(phases: list[str]) -> None:
                     cs.phase_reference_checkpoints(smi, Path(tmp))
             elif name == "33":
                 print(cs.phase_knobs(smi))
+            elif name == "34":
+                cs.phase_data_parallel(smi, None, bare["34"])
             else:
-                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29, 30, 32 or 33)")
+                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29, 30, 32, 33 or 34)")
             torch.cuda.empty_cache()
             print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["25", "26", "28", "29", "30", "32", "33"])
+    main(sys.argv[1:] or ["25", "26", "28", "29", "30", "32", "33", "34"])

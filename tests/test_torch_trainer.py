@@ -18,7 +18,7 @@ pipeline's and trained weights within the JAX e2e test's rtol 2e-3 / atol
 1e-4; a val set smaller than a batch; the per-profile val series; the final
 save that carries the last val_loss; SIGTERM's preemption save; the
 preview callbacks; the raises (``solve(use_ema=True)`` without EMA,
-multi-GPU, a batch the accumulation count does not split); the profiling
+tensor parallelism, a batch the accumulation count does not split); the profiling
 hooks; and ``train.main`` on ``smoke.yaml`` with ``--device cpu``,
 resumed, then sampled by ``generate --ckpt_path --load_ema``.
 """
@@ -328,11 +328,10 @@ def test_latents_callback_logs_latents_without_a_vae(tmp_path, capsys):
 
 
 def test_multi_gpu_options_raise(tmp_path):
-    for kw in ({"zero1": True}, {"model_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _port(tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match="multihost"):
-        port_train.main(["--config-name=smoke", "--multihost", "--device", "cpu"])
+    """Tensor parallelism still raises; zero1 and --multihost are ported
+    (tests/test_torch_dist_trainer.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _port(tmp_path, model_parallel=2)
 
 
 def test_cli_trains_resumes_and_samples_on_smoke(tmp_path, capsys):

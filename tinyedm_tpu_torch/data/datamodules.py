@@ -12,6 +12,10 @@ directories; it is read whole, on ``num_workers`` gather threads. MNIST and
 CIFAR-10 at another ``image_size`` are resized with PIL's antialiased
 BILINEAR filter, repeated bit for bit by ``data/resample.py`` (the machine
 with the card has no PIL).
+
+Over several ranks every rank draws the same global batches (the shared
+seed) and the trainer takes its rank's rows of each (``shard_batch``), as
+the JAX trainer does.
 """
 
 from __future__ import annotations

@@ -31,6 +31,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from tinyedm_tpu_torch.parallel.mesh import world
+
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 _SRC = _REPO_ROOT / "native" / "latpack.cc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -208,8 +210,11 @@ class PackedLatentsDataModule:
 
     ``process_index`` of ``process_count`` processes gathers its contiguous
     slice of each global batch (one shared-seed order, so the slices of all
-    processes, concatenated, are the one-process stream); the defaults are
-    one process."""
+    processes, concatenated, are the one-process stream); by default the
+    rank and world size of the process group (``parallel.mesh.world``), and
+    the trainer slices these batches no further (``yields_process_local``)."""
+
+    yields_process_local = True
 
     def __init__(
         self,
@@ -220,8 +225,8 @@ class PackedLatentsDataModule:
         num_classes: int = 1000,
         seed: int = 0,
         prefetch: bool = True,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         self.batch_size = batch_size
         self.data_file = data_file
@@ -264,10 +269,13 @@ class PackedLatentsDataModule:
         store = self._require()
         if not drop_last:
             raise NotImplementedError("PackedLatentsDataModule always drops the tail batch (see steps_per_epoch)")
-        if self.batch_size % self.process_count != 0:
-            raise ValueError(f"global batch {self.batch_size} not divisible by {self.process_count} processes")
-        per = self.batch_size // self.process_count
-        lo = self.process_index * per
+        rank, size = world()
+        rank = rank if self.process_index is None else self.process_index
+        size = size if self.process_count is None else self.process_count
+        if self.batch_size % size != 0:
+            raise ValueError(f"global batch {self.batch_size} not divisible by {size} processes")
+        per = self.batch_size // size
+        lo = rank * per
         n_train = self._n_train
         order = np.random.default_rng((self.seed, epoch)).permutation(n_train)
         stop = n_train - n_train % self.batch_size

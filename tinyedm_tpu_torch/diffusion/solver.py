@@ -127,11 +127,14 @@ def _heun(
     t_hat: Sequence[float],
     churn: Optional[Sequence[float]],
     generator: Optional[torch.Generator],
+    rows: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Heun steps from ``t_hat[i]`` to ``t[i+1]``: with ``churn``, first
     ``x += churn[i] * eps`` (EDM Algorithm 2), else ``t_hat = t[:-1]``
     (Algorithm 1). Every table value is rounded to ``dtype`` first; step
-    widths are differences of those rounded values, taken in ``dtype``."""
+    widths are differences of those rounded values, taken in ``dtype``.
+    ``rows`` = (first row, global batch): ``x0`` is those rows of a global
+    batch, and ``eps`` those rows of the global batch's draw."""
     b = x0.shape[0]
     n = len(t) - 1
     x = x0.to(dtype) * _scalar(t[0], dtype)
@@ -141,7 +144,10 @@ def _heun(
         t0 = torch.tensor(t_hat[i], dtype=dtype)
         h = (torch.tensor(t[i + 1], dtype=dtype) - t0).item()
         if churn is not None:
-            eps = churn_noise(x.shape, dtype, generator, x.device)
+            shape = x.shape if rows is None else torch.Size((rows[1], *x.shape[1:]))
+            eps = churn_noise(shape, dtype, generator, x.device)
+            if rows is not None:
+                eps = eps[rows[0] : rows[0] + b]
             x = x + _scalar(churn[i], dtype) * eps
         # predict evaluates D at t_hat[i]; the correction (all but the last
         # step) at t[i+1]
@@ -272,9 +278,13 @@ class StochasticSolver:
         x0: torch.Tensor,
         class_labels: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        rows: Optional[tuple[int, int]] = None,
     ) -> torch.Tensor:
         """As ``DeterministicSolver.solve``; ``generator`` (on the sample's
-        device) draws the churn noise and is required when S_churn > 0."""
+        device) draws the churn noise and is required when S_churn > 0.
+        ``rows`` = (first row, global batch): ``x0`` is a rank's rows of a
+        global batch, and each draw is the global batch's, of which it takes
+        those rows, so that the samples do not depend on the world size."""
         if self.S_churn > 0 and generator is None:
             # a silent default generator would give every call and every
             # batch the same churn noise
@@ -284,4 +294,4 @@ class StochasticSolver:
             )
         t_hat, churn = self.tables()
         return _heun(denoise_fn, x0, class_labels, self.torch_dtype, self.t_steps, t_hat,
-                     churn if self.S_churn > 0 else None, generator)
+                     churn if self.S_churn > 0 else None, generator, rows)

@@ -42,6 +42,13 @@ classifier-free guidance (one stacked forward of twice the batch), with
 
 A 4-channel (latent) sample is written as an RGBA PNG, as the JAX CLI does,
 a 1-channel one as a grey PNG.
+
+Under a process group (``parallel.mesh.init_distributed``), as the JAX CLI
+under ``jax.process_count() > 1``, the batch size is rounded up to a
+multiple of the world size, every rank solves its contiguous share of each
+padded global batch and writes only its own PNGs (``local_rows``). The noise,
+and churn's, are the global batch's, so the files do not depend on the
+world size. The ranks make no collective but a barrier at the end.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from tinyedm_tpu_torch.diffusion.solver import (
     MultistepSolver,
     StochasticSolver,
 )
+from tinyedm_tpu_torch.parallel.mesh import barrier, local_rows, world
 from tinyedm_tpu_torch.training.callbacks import PreditionWriter
 from tinyedm_tpu_torch.training.checkpoint import load_edm_from_checkpoint
 from tinyedm_tpu_torch.utils.cuda import folded_generator, resolve_device
@@ -76,7 +84,7 @@ CIFAR10_STD = (0.24703223, 0.24348513, 0.26158784)
 CHURN_SEED = 0xC4A2  # the churn generators' seed is seed ^ CHURN_SEED, as in the JAX CLI
 
 # flags of the JAX CLI whose features a later slice ports (ROADMAP.md
-# section 1, item 8): multi-GPU sampling
+# section 1, item 8): tensor-parallel sampling
 _NOT_PORTED = ("model_parallel",)
 
 
@@ -203,7 +211,8 @@ def generate(
     flags (module docstring). ``fused="off"`` runs the attention unfused
     (the comparison path), in the guide model too. Returns the image count,
     seconds, img/s, the device's peak memory (None on the CPU) and, with
-    ``keep_samples``, the fp32 NHWC samples."""
+    ``keep_samples``, the fp32 NHWC samples (this rank's, under a process
+    group; None where it has none)."""
     sampler = make_solver(solver, num_steps, solver_dtype, s_churn, s_noise, s_min, s_max)
     if ckpt_path is not None and (weights is not None or config is not None):
         raise ValueError("--ckpt_path excludes --weights and --config (the checkpoint carries its config)")
@@ -244,6 +253,11 @@ def generate(
         denoise_fn = lambda x, s, labels: model(x, s, torch.full_like(labels, NULL_LABEL))  # noqa: E731
     elif scale is not None:
         denoise_fn = cfg_denoise_fn(model, scale, interval)
+    rank, size = world()
+    if batch_size % size:
+        batch_size = -(-batch_size // size) * size
+        print(f"[generate] batch_size rounded up to {batch_size} (a multiple of the {size} ranks)")
+    per = batch_size // size
     datamodule = RandomNoiseDataModule(
         batch_size=batch_size,
         image_size=image_size,
@@ -265,20 +279,26 @@ def generate(
             pad = batch_size - n
             noise = np.concatenate([noise, noise[:1].repeat(pad, 0)])
             labels = np.concatenate([labels, labels[:1].repeat(pad, 0)])
-        x0 = torch.from_numpy(noise).to(dev).permute(0, 3, 1, 2).contiguous()
-        lab = torch.from_numpy(labels).to(dev) if model.conditional else None
+        mine = slice(rank * per, (rank + 1) * per)  # this rank's rows of the global batch
+        x0 = torch.from_numpy(noise[mine]).to(dev).permute(0, 3, 1, 2).contiguous()
+        lab = torch.from_numpy(labels[mine]).to(dev) if model.conditional else None
         with torch.inference_mode():
             if isinstance(sampler, StochasticSolver):
                 churn = folded_generator(seed ^ CHURN_SEED, batch_index, dev)
-                x = sampler.solve(denoise_fn, x0, lab, generator=churn)
+                rows = (rank * per, batch_size) if size > 1 else None
+                x = sampler.solve(denoise_fn, x0, lab, generator=churn, rows=rows)
             else:
                 x = sampler.solve(denoise_fn, x0, lab)
             images = device_denormalize_uint8(x, mean, std).permute(0, 2, 3, 1)
-        writer.write_batch(images[:n].cpu().numpy(), indices)
-        if keep_samples:
-            samples.append(x[:n].float().permute(0, 2, 3, 1).cpu().numpy())
+        local, idx = local_rows(batch_size, n, indices, rank, size)
+        if len(idx):
+            local = torch.as_tensor(local, device=dev)
+            writer.write_batch(images[local].cpu().numpy(), idx)
+            if keep_samples:
+                samples.append(x[local].float().permute(0, 2, 3, 1).cpu().numpy())
         done += n
     elapsed = time.perf_counter() - t0
+    barrier()  # every rank's files are written
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     rate = done / elapsed
     print(f"wrote {done} images to {output_dir} in {elapsed:.2f}s "
@@ -291,7 +311,7 @@ def generate(
         "seconds": elapsed,
         "img_per_s": rate,
         "peak_bytes": peak,
-        "samples": np.concatenate(samples) if keep_samples else None,
+        "samples": np.concatenate(samples) if keep_samples and samples else None,
     }
 
 

@@ -1,0 +1,64 @@
+"""The collective inventory: what the port's data parallelism sends.
+
+Counterpart of ``tinyedm_tpu/parallel/audit.py``. The JAX package reads its
+collectives out of the compiled HLO; the port has no compiled program to
+read, so it records them as they are made: every collective of
+``parallel.mesh`` goes through one wrapper, which reports its kind, payload
+bytes and group size to each inventory open in this context. Nothing in
+torch is patched. The contract the tests hold it to is the JAX package's
+(``tests/test_collective_audit.py``): a data-parallel train step makes one
+all-reduce of about the parameter bytes, ZeRO-1 adds one parameter-sized
+all-gather, validation reduces scalars only and the data-parallel sampler
+makes no collective but a closing barrier.
+
+    with collective_inventory() as inv:
+        state, metrics = train_step(state, batch, generator, count)
+    inventory_summary(inv)  # {"all_reduce": {"count": 1, "bytes": ...}}
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from contextvars import ContextVar
+from typing import Iterable, Iterator
+
+# the inventories open in this context, innermost last
+_open: ContextVar[tuple[list, ...]] = ContextVar("collective_inventories", default=())
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    kind: str  # "all_reduce", "all_gather" or "barrier"
+    bytes: int  # payload: the reduced tensor, the gathered output; 0 for a barrier
+    group_size: int  # ranks in the group
+    dtype: str = ""  # the payload's element type ("" for a barrier)
+
+
+def record(kind: str, nbytes: int, group_size: int, dtype: str = "") -> None:
+    """Report one collective to every open inventory (``parallel.mesh``'s
+    wrappers call this just before the collective)."""
+    for inv in _open.get():
+        inv.append(Collective(kind, int(nbytes), int(group_size), dtype))
+
+
+@contextlib.contextmanager
+def collective_inventory() -> Iterator[list[Collective]]:
+    """A list that fills with the collectives made while the context is open,
+    in program order."""
+    inv: list[Collective] = []
+    token = _open.set(_open.get() + (inv,))
+    try:
+        yield inv
+    finally:
+        _open.reset(token)
+
+
+def inventory_summary(inv: Iterable[Collective]) -> dict[str, dict[str, int]]:
+    """{kind: {"count": n, "bytes": payload}} over an inventory."""
+    out: dict[str, dict[str, int]] = {}
+    for c in inv:
+        d = out.setdefault(c.kind, {"count": 0, "bytes": 0})
+        d["count"] += 1
+        d["bytes"] += c.bytes
+    return out

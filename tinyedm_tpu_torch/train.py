@@ -7,7 +7,12 @@ overrides (interpolations resolve after them, so overriding a source reaches
 its references), ``--resume`` continues from the latest checkpoint in the
 run's ``out_dir`` and ``--max-epochs`` replaces ``trainer.max_epochs``.
 ``--device`` picks the device: the card by default, ``cpu`` when asked for.
-``--multihost`` (several processes) is not ported.
+``--multihost`` joins the process group that ``torchrun`` (``python -m
+torch.distributed.run``) describes in the environment, where the JAX CLI
+calls ``jax.distributed.initialize()``: NCCL on the cards (each rank on
+``cuda:LOCAL_RANK``), gloo with ``--device cpu``; every rank trains on its
+share of each global batch, and ``trainer.zero1: true`` shards the Adam
+moments and EMA trees over the ranks.
 
 ``trainer.accumulate_grad_batches`` splits the step batch (the datamodule's
 ``batch_size``) into that many equal microbatches, as the JAX driver does. A
@@ -20,6 +25,8 @@ batch): ``imagenet.yaml`` needs ``datamodule.batch_size=528``. Examples:
         datamodule.data_dir=/data/cifar10   # holds cifar-10-batches-py/
     python -m tinyedm_tpu_torch.train --config-name=cifar10 --resume --max-epochs 300 \\
         datamodule.data_dir=/data/cifar10
+    python -m torch.distributed.run --nproc_per_node 8 -m tinyedm_tpu_torch.train \\
+        --config-name=cifar10 --multihost datamodule.data_dir=/data/cifar10
 """
 
 from __future__ import annotations
@@ -56,11 +63,10 @@ def main(argv: Optional[list[str]] = None):
     parser.add_argument("--resume", action="store_true", help="resume from the latest checkpoint")
     parser.add_argument("--max-epochs", type=int, default=None)
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
-    parser.add_argument("--multihost", action="store_true", help="not ported (one process, one GPU)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group of torchrun's environment (one process per GPU)")
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost: multi-process training is not ported (ROADMAP.md section 1, item 8)")
 
     cfg = load_config(Path(args.config_path) / f"{args.config_name}.yaml", resolve=not args.overrides)
     if args.overrides:
@@ -68,6 +74,19 @@ def main(argv: Optional[list[str]] = None):
     if args.max_epochs is not None:
         cfg["trainer"]["max_epochs"] = args.max_epochs
 
+    if args.multihost:
+        from tinyedm_tpu_torch.parallel.mesh import init_distributed
+
+        on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        init_distributed(backend="gloo" if on_cpu else None)
+    try:
+        return _train(args, cfg)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, cfg: dict):
     from tinyedm_tpu_torch.training.trainer import Trainer
     from tinyedm_tpu_torch.utils.cuda import resolve_device
     from tinyedm_tpu_torch.utils.logging import MetricLogger

@@ -12,6 +12,12 @@ into RGB, as PIL's ``convert("RGB")`` does, and raises on anything else.
 ``FIDCallback`` scores samples during training (FID, and KID when asked;
 ``utils/fid.py``).
 
+Over several ranks the previews and the scoring run on rank 0 alone, as the
+JAX callbacks guard on ``jax.process_index()`` (under ZeRO-1 the trainer
+gathers its EMA trees on every rank before it calls the callbacks).
+``FIDCallback`` checks its files on every rank at train start, so that a
+bad path stops every rank, not rank 0 alone.
+
 ``LatentsGenerateCallback`` decodes its latent previews with the SD VAE
 (``data/vae.py``) on the trainer's device; where no VAE weights can be found
 it logs the JAX callback's warning and a grid of the latents' first three
@@ -28,6 +34,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from tinyedm_tpu_torch.parallel.mesh import world
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -167,6 +175,8 @@ class GenerateCallback(Callback):
         self.class_labels: Optional[torch.Tensor] = None
 
     def on_train_start(self, trainer) -> None:
+        if world()[0] != 0:
+            return
         gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed ^ 0x5EED)
         self.x0 = torch.randn((self.num_samples, *self.img_shape), generator=gen, device=trainer.device)
         self.class_labels = None
@@ -175,7 +185,7 @@ class GenerateCallback(Callback):
             self.class_labels = torch.arange(self.num_samples, device=trainer.device) % n_cls
 
     def on_train_epoch_end(self, trainer) -> None:
-        if self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
+        if world()[0] != 0 or self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
             return
         xT = trainer.solve(self.solver, self.x0, self.class_labels, use_ema=trainer.use_ema,
                            guidance_scale=self.guidance_scale)
@@ -239,6 +249,8 @@ class LatentsGenerateCallback(Callback):
         self.last_decode_seconds: Optional[float] = None
 
     def on_train_start(self, trainer) -> None:
+        if world()[0] != 0:
+            return
         n = self.num_samples_per_class * self.num_classes
         gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed ^ 0x1A7E)
         self.x0 = torch.randn((n, *self.img_shape), generator=gen, device=trainer.device)
@@ -263,7 +275,7 @@ class LatentsGenerateCallback(Callback):
         return np.concatenate(out)
 
     def on_validation_end(self, trainer) -> None:
-        if self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
+        if world()[0] != 0 or self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
             return
         xT = trainer.solve(self.solver, self.x0, self.class_labels, use_ema=trainer.use_ema,
                            guidance_scale=self.guidance_scale)
@@ -327,6 +339,8 @@ class FIDCallback(Callback):
         self._feature_fn = None
 
     def on_train_start(self, trainer) -> None:
+        # deliberately on every rank: a raise on rank 0 alone would leave the
+        # others waiting in the first step's all-reduce
         from tinyedm_tpu_torch.utils.fid import load_features, load_stats, resolve_feature_fn
 
         self._feature_fn, _ = resolve_feature_fn(self.features, trainer.device)
@@ -361,7 +375,7 @@ class FIDCallback(Callback):
     def on_train_epoch_end(self, trainer) -> None:
         # the (epoch + 1) cadence of validation and checkpoints, so that fid
         # lands in the same epoch's save
-        if self._ref is None or (trainer.epoch + 1) % self.every_n_epochs != 0:
+        if world()[0] != 0 or self._ref is None or (trainer.epoch + 1) % self.every_n_epochs != 0:
             return
         from tinyedm_tpu_torch.utils.fid import (
             compute_stats,

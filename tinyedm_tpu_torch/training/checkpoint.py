@@ -16,6 +16,9 @@ Counterpart of ``tinyedm_tpu/training/checkpoint.py`` (which uses orbax):
   a monitor keeps the newest ``max_to_keep`` (all when None). A save at a
   step at or below the latest is skipped, as orbax skips it. Saves are
   synchronous: ``wait`` and ``close`` exist for the JAX manager's callers.
+- Over several ranks every rank keeps a manager on the same directory, but
+  only the ``primary`` one (rank 0) writes and deletes; the others keep the
+  same books, so ``latest_step`` agrees on every rank. Every rank restores.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ _TMP_PREFIX = ".tmp-"
 
 
 def _cpu_tree(tree: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in tree.items()}
+    # a copy also on the CPU: a view of a larger buffer (the ZeRO-1 params)
+    # is saved as a tensor of its own
+    return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
 
 
 def _to_saveable(state: TrainState) -> dict:
@@ -66,8 +71,10 @@ class CheckpointManager:
         mode: str = "min",
         save_last: bool = True,
         keep_last: int = 2,
+        primary: bool = True,
     ):
         self.directory = Path(directory).absolute()  # made by the first save
+        self.primary = primary
         self.monitor = monitor
         self.mode = mode
         self._max_to_keep = max_to_keep
@@ -79,7 +86,7 @@ class CheckpointManager:
         # the newest metric-less steps of THIS manager's saves (as the JAX
         # manager tracks them: steps from before a restart are not pruned)
         self._metricless: list[int] = []
-        for tmp in self.directory.glob(_TMP_PREFIX + "*"):
+        for tmp in self.directory.glob(_TMP_PREFIX + "*") if primary else ():
             shutil.rmtree(tmp)  # a save cut off before its rename
         # step -> the metrics it ranks by (None: metric-less), in step order
         self._steps: dict[int, Optional[dict]] = {}
@@ -129,7 +136,8 @@ class CheckpointManager:
         if m is not None and self.monitor and self.monitor not in m:
             m = None  # demoted to the metric-less class
         if self.latest_step is None or step > self.latest_step:
-            self._write(step, state, config, m if self.monitor else None)
+            if self.primary:
+                self._write(step, state, config, m if self.monitor else None)
             self._steps[step] = m if self.monitor else None
             for old in set(self._steps) - self._retained():
                 self.delete(old)
@@ -142,7 +150,8 @@ class CheckpointManager:
         """Remove a step's checkpoint (nothing if it is gone)."""
         if step in self._steps:
             del self._steps[step]
-            shutil.rmtree(self.directory / str(step))
+            if self.primary:
+                shutil.rmtree(self.directory / str(step))
 
     def wait(self) -> None: ...
 

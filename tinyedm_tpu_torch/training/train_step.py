@@ -6,6 +6,13 @@ MSE -> Adam -> forced weight norm -> power-EMA update(s). The state is
 updated in place (``training/state.py``); randomness (label dropout, then
 diffuser draws, then dropout bits block by block, per microbatch) comes
 from one explicit generator. ``make_eval_step`` is the validation step.
+
+Over several ranks (``parallel.mesh.ParallelPlan``) each rank takes the
+gradients of its share of the batch, and one all-reduce averages them with
+the step's scalars before the clip, so the clip reads the global batch's
+norm; then Adam runs on the whole params (data parallel) or on the rank's
+range of them, followed by one all-gather (ZeRO-1). Each rank draws from its
+own generator (the trainer's ``utils.cuda.step_generator``).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from tinyedm_tpu_torch.diffusion.guidance import drop_labels
 from tinyedm_tpu_torch.diffusion.loss import edm_training_loss, weighted_sum_squared_error
 from tinyedm_tpu_torch.models.edm import EDM
 from tinyedm_tpu_torch.ops.precond import edm_loss_weight
+from tinyedm_tpu_torch.parallel.mesh import ParallelPlan
 from tinyedm_tpu_torch.training.ema import EMAConfig, maybe_ema_update
 from tinyedm_tpu_torch.training.lr_schedule import edm_lr_multiplier
 from tinyedm_tpu_torch.training.state import TrainState, force_weight_norm
@@ -73,22 +81,19 @@ def init_train_state(
 
 
 @torch.no_grad()
-def adam_update(state: TrainState, grads: list[torch.Tensor], betas: tuple[float, float],
-                eps: float, lr: float) -> None:
+def _adam(params: list[torch.Tensor], grads: list[torch.Tensor], mu: list[torch.Tensor],
+          nu: list[torch.Tensor], count: int, betas: tuple[float, float], eps: float, lr: float) -> None:
     """optax ``scale_by_adam`` then ``-lr * update`` added to the params, in
-    place: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, bias-corrected by
-    fp32 ``1 - b**count``, update = mu^ / (sqrt(nu^) + eps)."""
+    place, elementwise over matching lists (whole tensors or ranges of them:
+    the same numbers either way): mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 +
+    b2 nu, bias-corrected by fp32 ``1 - b**count``, update = mu^ / (sqrt(nu^)
+    + eps)."""
     b1, b2 = betas
-    keys = list(state.params)
-    params = [state.params[k] for k in keys]
-    mu = [state.mu[k] for k in keys]
-    nu = [state.nu[k] for k in keys]
     torch._foreach_mul_(mu, b1)
     torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
     torch._foreach_mul_(nu, b2)
     torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
-    state.count += 1
-    one, c = np.float32(1.0), np.float32(state.count)
+    one, c = np.float32(1.0), np.float32(count)
     bc1 = float(one - np.float32(b1) ** c)
     bc2 = float(one - np.float32(b2) ** c)
     denom = torch._foreach_div(nu, bc2)
@@ -97,6 +102,29 @@ def adam_update(state: TrainState, grads: list[torch.Tensor], betas: tuple[float
     update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
     torch._foreach_mul_(update, -lr)
     torch._foreach_add_(params, update)
+
+
+@torch.no_grad()
+def adam_update(state: TrainState, grads: list[torch.Tensor], betas: tuple[float, float],
+                eps: float, lr: float) -> None:
+    """Adam on the whole state (``_adam``), gradients in ``state.params``
+    order; counts the step."""
+    state.count += 1
+    keys = list(state.params)
+    _adam([state.params[k] for k in keys], grads, [state.mu[k] for k in keys], [state.nu[k] for k in keys],
+          state.count, betas, eps, lr)
+
+
+@torch.no_grad()
+def adam_update_range(state: TrainState, grads: list[torch.Tensor], plan: ParallelPlan,
+                      betas: tuple[float, float], eps: float, lr: float) -> None:
+    """Adam on this rank's range of the params (ZeRO-1): ``state.mu`` and
+    ``state.nu`` hold the range's pieces (``ParallelPlan.shard``); the rest
+    of the params is another rank's to update. Counts the step."""
+    state.count += 1
+    names = [plan.names[i] for i, *_ in plan.pieces]
+    _adam(plan.pieces_of(state.params), plan.pieces_of(grads), [state.mu[k] for k in names],
+          [state.nu[k] for k in names], state.count, betas, eps, lr)
 
 
 @torch.no_grad()
@@ -158,18 +186,37 @@ def make_train_step(
     diffuser: Diffuser,
     opt_cfg: OptimizerConfig,
     ema_cfg: Optional[EMAConfig] = None,
+    plan: Optional[ParallelPlan] = None,
 ) -> Callable:
-    """train_step(state, batch, generator, sched_count) -> (state, metrics),
-    ``batch`` = (images NCHW fp32 normalized, labels or None), ``sched_count``
-    the count the lr schedule reads (the epoch, in the CIFAR-10 recipe: the
-    caller ticks it). Updates ``state`` in place and returns it."""
+    """train_step(state, batch, generator, sched_count, interrupt=False) ->
+    (state, metrics), ``batch`` = (images NCHW fp32 normalized, labels or
+    None), ``sched_count`` the count the lr schedule reads (the epoch, in
+    the CIFAR-10 recipe: the caller ticks it). Updates ``state`` in place and
+    returns it.
+
+    With a ``plan`` the batch is this rank's share: the gradients and
+    scalars are averaged over the ranks (``ParallelPlan.sync``), the
+    metrics are the global batch's, and ``metrics["interrupt"]`` is the
+    number of ranks that passed ``interrupt=True`` (the trainer's agreed
+    stop). With ``plan.zero1`` the state's moments and EMA trees are this
+    rank's pieces (``ParallelPlan.shard``) and the params a view of the
+    plan's flat buffer (``ParallelPlan.adopt_params``)."""
     grad_fn = make_grad_fn(model, diffuser, opt_cfg)
     gammas = ema_cfg.gammas if ema_cfg is not None else ()
     every_n = ema_cfg.every_n_steps if ema_cfg is not None else 1
 
-    def train_step(state: TrainState, batch, generator: Optional[torch.Generator], sched_count):
+    def train_step(state: TrainState, batch, generator: Optional[torch.Generator], sched_count,
+                   interrupt: bool = False):
         images, labels = batch
         loss, metrics, grads = grad_fn(state, images, labels, generator)
+        stop = None
+        if plan is not None:
+            means = [loss] + ([metrics["uncertainty"]] if "uncertainty" in metrics else [])
+            flag = torch.full((), float(interrupt), device=loss.device)
+            grads, means, sums = plan.sync(grads, means, [metrics["sse"], metrics["count"], flag])
+            loss, metrics = means[0], {"sse": sums[0], "count": sums[1]} | (
+                {"uncertainty": means[1]} if len(means) > 1 else {})
+            stop = sums[2]
         per_layer = _per_layer_norms(state.params, grads) if opt_cfg.log_norms_per_layer else {}
 
         # pre-clip global norm, for the clip and for log_norms
@@ -182,11 +229,19 @@ def make_train_step(
 
         lr = opt_cfg.lr * edm_lr_multiplier(sched_count, opt_cfg.rampup_steps,
                                             opt_cfg.steady_steps)
-        adam_update(state, grads, opt_cfg.betas, opt_cfg.eps, float(lr))
+        if plan is not None and plan.zero1:
+            adam_update_range(state, grads, plan, opt_cfg.betas, opt_cfg.eps, float(lr))
+            plan.gather_params(state.params)
+        else:
+            adam_update(state, grads, opt_cfg.betas, opt_cfg.eps, float(lr))
         force_weight_norm(state.params)
-        # power-function EMA(s): decay and check on the pre-increment step
+        # power-function EMA(s): decay and check on the pre-increment step;
+        # under ZeRO-1 on this rank's pieces of the params
+        ema_source = state.params
+        if plan is not None and plan.zero1:
+            ema_source = {plan.names[i]: v for (i, *_), v in zip(plan.pieces, plan.pieces_of(state.params))}
         for tree, gamma in zip(state.ema, gammas):
-            maybe_ema_update(tree, state.params, state.step, gamma, every_n)
+            maybe_ema_update(tree, ema_source, state.step, gamma, every_n)
         state.step += 1
 
         out = {"train_loss": loss, "learning_rate": lr, "sse": metrics["sse"],
@@ -199,6 +254,8 @@ def make_train_step(
             if clip_scale is not None:
                 out["clip_scale"] = clip_scale
         out.update(per_layer)
+        if stop is not None:
+            out["interrupt"] = stop
         return state, out
 
     return train_step
@@ -226,7 +283,7 @@ def make_eval_step(
     ema_index: int = 0,
     n_profiles: int = 0,
 ) -> Callable:
-    """eval_step(state, batch, seed) -> {"sse", "count", ["sse_ema{i}"]}: the
+    """eval_step(state, batch, seed, row_offset=0) -> {"sse", "count", ["sse_ema{i}"]}: the
     validation step. Diffuse with the training law, denoise without dropout,
     return the summed weighted error and the sample count for exact
     averaging across batches.
@@ -234,8 +291,10 @@ def make_eval_step(
     ``batch`` is (images, labels) or (images, labels, mask): a per-sample
     0/1 mask lets a caller pad a batch, its pad rows weighted 0 and left out
     of the count. Sample ``i`` draws its sigma and noise from
-    ``folded_generator(seed, i)``, so a sample's draws do not depend on the
-    batch shape (pad rows shift no real row's draws). The weights are the
+    ``folded_generator(seed, row_offset + i)``, so a sample's draws do not
+    depend on the batch shape (pad rows shift no real row's draws) nor, with
+    ``row_offset`` the index of a rank's first row in the global batch, on
+    the world size. The weights are the
     state's params, or with ``use_ema`` its EMA tree ``ema_index`` (through
     ``torch.func.functional_call``, no swap). ``n_profiles > 0`` also
     returns ``sse_ema{i}`` for the first ``n_profiles`` EMA trees on the
@@ -244,10 +303,10 @@ def make_eval_step(
     conditional = model.conditional
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch, seed: int) -> dict[str, torch.Tensor]:
+    def eval_step(state: TrainState, batch, seed: int, row_offset: int = 0) -> dict[str, torch.Tensor]:
         images, labels, *rest = batch
         mask = rest[0] if rest else None
-        draws = [diffuser(images[i:i + 1], folded_generator(seed, i, images.device))
+        draws = [diffuser(images[i:i + 1], folded_generator(seed, row_offset + i, images.device))
                  for i in range(images.shape[0])]
         noisy = torch.cat([d[0] for d in draws])
         sigma = torch.cat([d[1] for d in draws])

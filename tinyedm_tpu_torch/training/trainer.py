@@ -21,12 +21,28 @@ unless ``device="cpu"``):
 - ``device_preprocess`` ships uint8 images and flip flags to the device and
   normalizes and flips there (uint8 datamodules only).
 
-Multi-GPU (``zero1``, ``model_parallel``) is not ported (ROADMAP.md section
-1, item 8) and raises.
+Under a process group (``parallel.mesh.init_distributed``) each rank trains
+on its share of every global batch (``shard_batch``; a data module that
+``yields_process_local``, as latpack does, yields only those rows) with its
+own random stream (``step_generator``), and the step's one all-reduce
+makes the update the global batch's (``parallel.mesh.ParallelPlan``);
+``zero1`` keeps only the rank's range of the Adam moments and EMA trees. ``samples_per_sec`` counts
+global samples. Validation pads each batch to a multiple of the world size
+with zero-weight rows, each rank evaluates its share with the draws of its
+global rows, and one all-reduce of the scalar sums ends it, so ``val_loss``
+does not depend on the world size. The ranks agree when to stop: a rank's
+SIGTERM rides the next step's all-reduce, and every rank leaves the loop
+after the step that reads it. Only rank 0 logs and writes checkpoints; a
+ZeRO-1 save gathers the moments and EMA trees first, so its files are the
+data-parallel ones, and a run saved at one world size resumes at another.
+Tensor parallelism (``model_parallel > 1``) is not ported (ROADMAP.md
+section 1, item 8) and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import signal
 import time
 from pathlib import Path
@@ -38,12 +54,13 @@ import torch
 from tinyedm_tpu_torch.data.datamodules import to_device
 from tinyedm_tpu_torch.diffusion.guidance import cfg_denoise_fn
 from tinyedm_tpu_torch.models.edm import init_weights
+from tinyedm_tpu_torch.parallel.mesh import ParallelPlan, all_reduce, barrier, distributed, shard_batch, world
 from tinyedm_tpu_torch.training.callbacks import Callback
 from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
 from tinyedm_tpu_torch.training.experiment import EDMSpec
 from tinyedm_tpu_torch.training.state import TrainState
 from tinyedm_tpu_torch.training.train_step import init_train_state, make_eval_step, make_train_step
-from tinyedm_tpu_torch.utils.cuda import fold_seed, folded_generator, resolve_device
+from tinyedm_tpu_torch.utils.cuda import fold_seed, resolve_device, step_generator
 from tinyedm_tpu_torch.utils.logging import MetricLogger
 
 VAL_SEED_OFFSET = 777  # validation draws from seed + 777, as in the JAX trainer
@@ -72,18 +89,24 @@ class Trainer:
         device_preprocess: bool = False,
         device: Optional[str | torch.device] = None,
     ):
-        if zero1 or model_parallel > 1:
+        if model_parallel > 1:
             raise NotImplementedError(
-                "zero1 and model_parallel > 1 need several GPUs, which the port does not drive yet "
-                "(ROADMAP.md section 1, item 8)"
+                "model_parallel > 1: tensor parallelism is not ported yet (ROADMAP.md section 1, item 8)"
             )
         self.device = resolve_device(device)
+        self.rank, self.world_size = world()
+        self.zero1 = bool(zero1)
         self.spec = spec
         # seeded weights, drawn on the CPU so that every device starts from
         # the same ones; a resume replaces them
         model = spec.build_model()
         init_weights(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device)
+        # the step's collectives: under a process group, or for ZeRO-1's
+        # range update (in one process a range of everything)
+        self.plan = None
+        if distributed() or self.zero1:
+            self.plan = ParallelPlan(dict(self.model.named_parameters()), zero1=self.zero1)
         self.diffuser = spec.diffuser
         self.opt_cfg = spec.build_optimizer_config()
         self.ema_cfg = spec.build_ema_config()
@@ -111,12 +134,13 @@ class Trainer:
             monitor=ckpt_monitor,
             mode=ckpt_mode,
             save_last=ckpt_save_last,
+            primary=self.rank == 0,
         )
         # per-epoch checkpoint-selection metrics that callbacks deposit;
         # merged into the next save, cleared at each epoch's start
         self.extra_ckpt_metrics: dict = {}
         self.ckpt_every_n_epochs = ckpt_every_n_epochs
-        self._train_step = make_train_step(self.model, self.diffuser, self.opt_cfg, self.ema_cfg)
+        self._train_step = make_train_step(self.model, self.diffuser, self.opt_cfg, self.ema_cfg, plan=self.plan)
         self._ema_sigma_rels = tuple(self.ema_cfg.sigma_rels) if self.use_ema else ()
         self._eval_step = make_eval_step(
             self.model,
@@ -129,7 +153,9 @@ class Trainer:
         self.epoch = 0
         self.global_step = 0
         self._skip_batches = 0  # batches of the resumed epoch consumed before its checkpoint
-        self._interrupted = False
+        self._whole_ema = None  # ZeRO-1: the EMA trees gathered for validation and callbacks
+        self._interrupted = False  # this process's SIGTERM/SIGINT
+        self._stopped = False  # over several ranks: the agreed stop
         self._last_val: Optional[tuple[int, float]] = None
 
     def _install_signal_handlers(self) -> dict:
@@ -148,14 +174,21 @@ class Trainer:
 
     # ------------------------------------------------------------------ setup
     def _init_state(self) -> TrainState:
-        return init_train_state(self.model, self.opt_cfg, self.ema_cfg)
+        return self._place(init_train_state(self.model, self.opt_cfg, self.ema_cfg))
+
+    def _place(self, state: TrainState) -> TrainState:
+        """ZeRO-1: only this rank's range of the moments and EMA trees kept."""
+        if self.zero1:
+            self.plan.place(state)
+        return state
 
     def restore(self, step: Optional[int] = None) -> None:
         """The checkpoint of ``step`` (the latest by default) into the model
-        and a state over its parameters."""
-        saved, _ = self.ckpt.restore(step, device=self.device)
+        and a state over its parameters; every rank reads the file."""
+        # ZeRO-1 reads the whole file into host memory and keeps its range
+        saved, _ = self.ckpt.restore(step, device="cpu" if self.zero1 else self.device)
         self.model.load_state_dict({**saved.params, **saved.constants})
-        self.state = TrainState(
+        self.state = self._place(TrainState(
             step=saved.step,
             params=dict(self.model.named_parameters()),
             constants=dict(self.model.named_buffers()),
@@ -163,8 +196,38 @@ class Trainer:
             nu=saved.nu,
             count=saved.count,
             ema=saved.ema,
-        )
+        ))
         self.global_step = saved.step
+
+    def sampling_tree(self, use_ema: bool = False, ema_index: int = 0) -> dict[str, torch.Tensor]:
+        """The weights ``solve`` samples with: the params, or EMA tree
+        ``ema_index``; under ZeRO-1 the tree gathered while the callbacks
+        run, else gathered now (then every rank must call it)."""
+        if not use_ema:
+            return self.state.params
+        if not self.state.ema:
+            raise ValueError(
+                "solve(use_ema=True) but the train state tracks no EMA profiles "
+                "(EMAConfig absent or sigma_rels empty)"
+            )
+        if self._whole_ema is not None:
+            return self._whole_ema[ema_index]
+        tree = self.state.ema[ema_index]
+        return self.plan.gather(tree) if self.zero1 else tree
+
+    @contextlib.contextmanager
+    def _ema_whole(self):
+        """Under ZeRO-1, every EMA tree gathered whole for the duration (on
+        every rank): validation and the callbacks, which sample on rank 0
+        alone, read them."""
+        if not self.zero1 or not self.state.ema or self._whole_ema is not None:
+            yield
+            return
+        self._whole_ema = tuple(self.plan.gather(tree) for tree in self.state.ema)
+        try:
+            yield
+        finally:
+            self._whole_ema = None
 
     def _to_device(self, batch_np) -> tuple[torch.Tensor, torch.Tensor]:
         """A host batch as (NCHW fp32 images, labels) on the device; the raw
@@ -204,14 +267,28 @@ class Trainer:
             for sig, old in replaced.items():
                 signal.signal(sig, old)
 
+    def _stop_agreed(self, flag: Optional[torch.Tensor] = None) -> bool:
+        """Whether to leave the loop: in one process, this process's signal;
+        over several ranks, a step's all-reduced interrupt count (the same on
+        every rank), remembered once positive."""
+        if not distributed():
+            return self._interrupted
+        if flag is not None and float(flag) > 0:
+            self._stopped = True
+        return self._stopped
+
     def _fit_loop(self) -> None:
         for cb in self.callbacks:
             cb.on_train_start(self)
-        while self.epoch < self.max_epochs and not self._interrupted:
+        process_local = bool(getattr(self.datamodule, "yields_process_local", False))
+        while self.epoch < self.max_epochs and not self._stop_agreed():
             self.extra_ckpt_metrics = {}
             t_epoch = time.time()
             n_samples = 0
             last_metrics = None
+            # over several ranks: the previous step's interrupt count, read
+            # after the next step is queued so the card never waits for it
+            pending = None
             skip, self._skip_batches = self._skip_batches, 0
             batches_fn = self.datamodule.train_batches_raw if self.device_preprocess else self.datamodule.train_batches
             try:
@@ -222,17 +299,24 @@ class Trainer:
             for i, batch_np in enumerate(batches):
                 if i < skip:
                     continue
-                batch = self._to_device(batch_np)
+                # samples_per_sec counts global samples
+                n_samples += len(batch_np[0]) * (self.world_size if process_local else 1)
+                batch = self._to_device(shard_batch(batch_np, process_local))
                 sched_count = self.epoch if self.opt_cfg.scheduler_interval == "epoch" else self.global_step
-                generator = folded_generator(self.seed, self.state.step, self.device)
-                self.state, metrics = self._train_step(self.state, batch, generator, sched_count)
+                generator = step_generator(self.seed, self.state.step, self.device, self.rank, self.world_size)
+                # the interrupt flag rides the step's all-reduce
+                flags = (self._interrupted,) if self.plan is not None else ()
+                self.state, metrics = self._train_step(self.state, batch, generator, sched_count, *flags)
+                flag = metrics.pop("interrupt", None)
                 self.global_step += 1
-                n_samples += len(batch_np[0])
                 last_metrics = metrics
                 if self.global_step % self.log_every_n_steps == 0:
                     self._flush_metrics(metrics)
-                if self._interrupted:
+                if self._stop_agreed(pending):
                     break
+                pending = flag
+            else:
+                self._stop_agreed(pending)
             if last_metrics is not None:
                 # reading the loss waits for the epoch's steps: the rate is
                 # the card's, not the enqueue's
@@ -242,20 +326,21 @@ class Trainer:
                     {"epoch": self.epoch, "samples_per_sec": n_samples / dt, "train_loss": train_loss},
                     step=self.global_step,
                 )
-            if self._interrupted:
+            if self._stop_agreed():
                 break  # straight to the preemption save: no validation or callbacks
             val_loss = None
             if (self.epoch + 1) % self.check_val_every_n_epoch == 0:
                 val_loss = self.validate()
                 if val_loss is not None:
                     self._last_val = (self.global_step, val_loss)
-            for cb in self.callbacks:
-                cb.on_train_epoch_end(self)
+            with self._ema_whole() if self.callbacks else contextlib.nullcontext():
+                for cb in self.callbacks:
+                    cb.on_train_epoch_end(self)
             if (self.epoch + 1) % self.ckpt_every_n_epochs == 0:
                 self.save_checkpoint(val_loss)
             self.epoch += 1
 
-        if self._interrupted:
+        if self._stop_agreed():
             self.logger.log_text("trainer", "preemption signal received - checkpointing and exiting")
         if self.ckpt.latest_step != self.global_step:
             # a validation at this very step ranks the final save
@@ -272,30 +357,51 @@ class Trainer:
     # ------------------------------------------------------------- validation
     def validate(self) -> Optional[float]:
         """val_loss = sum(sse) / sum(count) over the whole val set (None for
-        an empty one), logged with the per-profile series."""
+        an empty one), logged with the per-profile series. Over several
+        ranks each batch is padded to a multiple of the world size with
+        zero-weight rows and each rank evaluates its share; one all-reduce
+        of the sums ends it."""
         if self.state is None:
             raise RuntimeError("validate() needs a state: call fit() or restore() first")
-        sse = count = None
-        profile_sse: dict[int, torch.Tensor] = {}
+        with self._ema_whole():
+            return self._validate()
+
+    def _validate(self) -> Optional[float]:
+        state = self.state
+        if self._whole_ema is not None:
+            state = dataclasses.replace(state, ema=self._whole_ema)
+        rank, size = self.rank, self.world_size
+        sums = None  # fp64 (sse, count, sse_ema0, ...)
+        n_profiles = len(self._ema_sigma_rels) if len(self._ema_sigma_rels) > 1 else 0
         for i, (images, labels) in enumerate(self.datamodule.val_batches()):
-            batch = to_device(images, labels, self.device)
             seed = fold_seed(self.seed + VAL_SEED_OFFSET, i) % 2**32
-            out = self._eval_step(self.state, batch, seed)
-            sse = out["sse"].double() if sse is None else sse + out["sse"].double()
-            count = out["count"].double() if count is None else count + out["count"].double()
-            for j in range(len(self._ema_sigma_rels)):
-                key = f"sse_ema{j}"
-                if key in out:
-                    prev = profile_sse.get(j)
-                    profile_sse[j] = out[key].double() if prev is None else prev + out[key].double()
-        if count is None or float(count) == 0:
+            if size == 1:
+                out = self._eval_step(state, to_device(images, labels, self.device), seed)
+            else:
+                n = len(images)
+                pad = (-n) % size
+                mask = np.ones((n + pad,), np.float32)
+                mask[n:] = 0.0
+                images = np.concatenate([images, np.zeros((pad, *images.shape[1:]), images.dtype)])
+                if labels is not None:
+                    labels = np.concatenate([labels, np.zeros((pad, *np.shape(labels)[1:]), np.asarray(labels).dtype)])
+                images, labels, mask = shard_batch((images, labels, mask))
+                x, y = to_device(images, labels, self.device)
+                out = self._eval_step(state, (x, y, torch.from_numpy(mask).to(self.device)), seed,
+                                      row_offset=rank * len(mask))
+            row = torch.stack([out["sse"], out["count"], *(out[f"sse_ema{j}"] for j in range(n_profiles))]).double()
+            sums = row if sums is None else sums + row
+        if sums is not None:
+            all_reduce(sums)
+        if sums is None or float(sums[1]) == 0:
             self.logger.log_text("trainer", "validation skipped: empty val set")
             return None
-        n = float(count)
-        val_loss = float(sse) / n
+        sums = sums.tolist()
+        n = sums[1]
+        val_loss = sums[0] / n
         metrics = {"val_loss": val_loss}
-        for j, s in profile_sse.items():
-            metrics[f"val_loss/ema_{self._ema_sigma_rels[j]}"] = float(s) / n
+        for j in range(n_profiles):
+            metrics[f"val_loss/ema_{self._ema_sigma_rels[j]}"] = sums[2 + j] / n
         self.logger.log_metrics(metrics, step=self.global_step)
         for cb in self.callbacks:
             cb.on_validation_end(self)
@@ -313,19 +419,14 @@ class Trainer:
         guidance_interval: Optional[tuple] = None,
     ) -> torch.Tensor:
         """Run ``solver`` from ``x0`` (NCHW) with the train weights or EMA
-        tree ``ema_index``; ``guidance_scale`` applies classifier-free
-        guidance (on ``guidance_interval`` where given)."""
+        tree ``ema_index`` (``sampling_tree``); ``guidance_scale`` applies
+        classifier-free guidance (on ``guidance_interval`` where given)."""
         if self.state is None:
             raise RuntimeError("solve() needs a state: call fit() or restore() first")
         guided = guidance_scale is not None and guidance_scale != 1.0
         if guided and class_labels is None:
             raise ValueError("guidance_scale needs class labels")
-        if use_ema and not self.state.ema:
-            raise ValueError(
-                "solve(use_ema=True) but the train state tracks no EMA profiles "
-                "(EMAConfig absent or sigma_rels empty)"
-            )
-        tree = self.state.ema[ema_index] if use_ema else self.state.params
+        tree = self.sampling_tree(use_ema, ema_index)
         weights = {**tree, **self.state.constants}
         model = self.model
 
@@ -338,8 +439,20 @@ class Trainer:
 
     # ------------------------------------------------------------ checkpoints
     def save_checkpoint(self, val_loss: Optional[float]) -> None:
+        """Rank 0 writes, then every rank waits for it; a ZeRO-1 state is
+        gathered first, tree by tree into host memory, so its file is the
+        data-parallel one."""
         metrics = dict(self.extra_ckpt_metrics)
         if val_loss is not None:
             metrics["val_loss"] = val_loss
-        self.ckpt.save(self.global_step, self.state, config=self.config, metrics=metrics or None)
+        state = self.state
+        if self.zero1:
+            def whole(tree):
+                full = self.plan.gather(tree)
+                return {k: v.cpu() for k, v in full.items()} if self.rank == 0 else {}
+
+            state = dataclasses.replace(state, mu=whole(state.mu), nu=whole(state.nu),
+                                        ema=tuple(whole(tree) for tree in state.ema))
+        self.ckpt.save(self.global_step, state, config=self.config, metrics=metrics or None)
+        barrier()
         self.logger.log_checkpoint(self.ckpt.directory / str(self.global_step), self.global_step)

@@ -8,13 +8,18 @@ raises.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` or ``"cuda"`` -> the current CUDA device (raises without one);
-    ``"cpu"`` only when asked for explicitly."""
+    """``None`` or ``"cuda"`` -> the current CUDA device (raises without one),
+    under a process group ``cuda:LOCAL_RANK``, the rank's card; ``"cpu"``
+    only when asked for explicitly."""
     dev = torch.device("cuda" if device is None else device)
+    if dev == torch.device("cuda") and torch.distributed.is_available() and torch.distributed.is_initialized():
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -49,3 +54,14 @@ def folded_generator(seed: int, index: int, device: torch.device | str) -> torch
     """A generator on ``device`` seeded with ``fold_seed(seed, index)``: the
     port's ``jax.random.fold_in(PRNGKey(seed), index)``, one stream per pair."""
     return torch.Generator(device=device).manual_seed(fold_seed(seed, index))
+
+
+def step_generator(seed: int, step: int, device: torch.device | str, rank: int = 0,
+                   world_size: int = 1) -> torch.Generator:
+    """The generator of train step ``step``: ``folded_generator(seed, step)``
+    in one process; over several ranks, a stream of each rank's own, folded
+    from the step's seed and the rank, so that no two ranks draw the same
+    sigmas, noise or dropout bits."""
+    if world_size == 1:
+        return folded_generator(seed, step, device)
+    return folded_generator(fold_seed(seed, step) % 2**32, rank, device)

@@ -6,9 +6,10 @@ same keys as the JAX package writes; images go to
 ``images/<key>_<step:07d>.png``, encoded by ``training.callbacks.encode_png``
 (the machine with the card has no Pillow). wandb is used only when it is
 importable and enabled; otherwise the logger says so once and keeps to
-local files. The port runs one process, so the logger always writes. Each
-row is appended with the file opened for it (rows come at the logging
-cadence), so the logger holds no file open.
+local files. Over several ranks only rank 0's logger writes or prints
+(``enabled``); the others are silent. Each row is appended with the file
+opened for it (rows come at the logging cadence), so the logger holds no
+file open.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 
+from tinyedm_tpu_torch.parallel.mesh import world
 from tinyedm_tpu_torch.training.callbacks import encode_png
 
 
@@ -33,6 +35,10 @@ class MetricLogger:
         # armed only once wandb.init succeeds
         log_model = bool(wandb_kwargs.pop("log_model", False))
         self._log_model = False
+        # rank 0 only, as Lightning's rank_zero_only
+        self.enabled = world()[0] == 0
+        if not self.enabled:
+            return
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self._metrics_path = self.out_dir / "metrics.jsonl"
         if use_wandb:
@@ -47,6 +53,8 @@ class MetricLogger:
                 self._wandb = None
 
     def log_metrics(self, metrics: Mapping[str, Any], step: int) -> None:
+        if not self.enabled:
+            return
         row = {"step": int(step), "time": round(time.time() - self._t0, 3)}
         row.update({k: float(v) for k, v in metrics.items()})
         with open(self._metrics_path, "a") as f:
@@ -55,6 +63,8 @@ class MetricLogger:
             self._wandb.log(dict(metrics), step=int(step))
 
     def log_image(self, key: str, image, step: int) -> None:
+        if not self.enabled:
+            return
         arr = np.asarray(image)
         img_dir = self.out_dir / "images"
         img_dir.mkdir(exist_ok=True)
@@ -75,6 +85,8 @@ class MetricLogger:
             print(f"[logger] checkpoint artifact upload failed ({e})")
 
     def log_text(self, key: str, text: str) -> None:
+        if not self.enabled:
+            return
         print(f"[{key}] {text}", flush=True)
 
     def close(self) -> None:
