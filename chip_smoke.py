@@ -276,14 +276,39 @@ with a non-zero exit code:
     process: the same 64 PNGs, each value within 1 level (cuDNN may pick
     another algorithm at the per-rank batch of 32), the values that differ
     counted.
+36. tensor parallelism (tinyedm_tpu_torch/parallel/tensor.py): ranks
+    sharing the card over gloo (host-staged: it checks the numbers and the
+    collectives, not NCCL's speed). (a) CIFAR-10 at full width (35.62 M
+    parameters) on a 1 x 2 grid, the four heads split two and two, 3 steps
+    of the recipe with its dropout at a global batch of 32 (cut from 256:
+    gloo stages every activation gather through the host) from seeded
+    weights with gain_out 1, against one process at 32 from the same state
+    and draws, in fp32 and in the recipe's bf16: in fp32 the param and EMA
+    moves, mu and nu within relative L2 5e-3 (DP_TOL) and the losses within
+    1e-3; in bf16 the first loss within 1e-3 and the rest within one
+    process's own bf16 distance from fp32 (the comment at TP_GLOBAL says why
+    bf16 cannot be held to 5e-3); the ranks' gathered states equal; each rank's param, moment and EMA bytes
+    against one process's, the collectives by kind and group (no collective
+    as large as the params), ms per rank step and the rows 1-4 launches,
+    11 + 11 a step at 2 heads; (b) a 2 x 2 grid with ZeRO-1 (the moments
+    sharded over both axes), one step of 2 x 16, draws injected, dropout 0,
+    against one process at 32, the same gates; (c) ImageNet-512
+    at full width through generate's CLI main with --model_parallel 2,
+    Heun with num_steps 4 at batch 8, against one process: float samples
+    within rtol = atol = 2e-2, the 8 PNGs written once (model rank 0), rows
+    1-2 launched 7 + 8 a forward on each rank at 2 heads; (d) (a) over NCCL
+    on two cards where the machine has two, else a line saying it did not
+    run. Phases 3-4 hold rows 1-4 at these per-rank shapes (2 heads of 64 at
+    batch 32, 2 of 144 and 192 at batch 8 forward and 32 backward).
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
 forwards by batch size (a wrapper of EDM.forward) beside the launches. The
 forward kernel rows also hold the kernel at CFG's stacked batches (MNIST
 256, ImageNet-512 64), the backward rows at MNIST's 128 and ImageNet-64's
-176. The rows of the CIFAR-10, ImageNet-512 and ImageNet-64 shapes carry
-their launches per loop step (phases 24, 26 and 25).
+176, and both at phase 36's per-rank shapes (2 heads). The rows of the
+CIFAR-10, ImageNet-512 and ImageNet-64 shapes carry their launches per
+loop step (phases 24, 26 and 25).
 
 Then one JSON line of per-kernel numbers, the nvidia-smi name/power line,
 and last {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -325,17 +350,27 @@ FWD_SHAPES = [
     ("imagenet512", 32, 256, 144, f"{FUSED_FWD}:102"), ("imagenet512", 32, 64, 192, f"{FUSED_FWD}:253"),
     ("mnist_cfg", 256, 196, 64, f"{FUSED_FWD}:102"), ("mnist_cfg", 256, 49, 128, f"{FUSED_FWD}:253"),
     ("imagenet512_cfg", 64, 256, 144, f"{FUSED_FWD}:102"), ("imagenet512_cfg", 64, 64, 192, f"{FUSED_FWD}:253"),
+    # tensor parallelism (phase 36): a rank's 2 heads of the 4, at (a)'s
+    # training batch and (c)'s sampling batch
+    ("cifar10_tp", 32, 256, 64, f"{FUSED_FWD}:102"), ("cifar10_tp", 32, 64, 64, f"{FUSED_FWD}:253"),
+    ("imagenet512_tp", 8, 256, 144, f"{FUSED_FWD}:102"), ("imagenet512_tp", 8, 64, 192, f"{FUSED_FWD}:253"),
 ]
 BWD_SHAPES = [
     ("cifar10", 256, 256, 64, f"{FUSED_FWD}:144"), ("cifar10", 256, 64, 64, f"{FUSED_FWD}:305"),
     ("imagenet512", 32, 256, 144, f"{FUSED_FWD}:144"), ("imagenet512", 32, 64, 192, f"{FUSED_FWD}:305"),
     ("mnist", 128, 196, 64, f"{FUSED_FWD}:144"), ("mnist", 128, 49, 128, f"{FUSED_FWD}:305"),
     ("imagenet", 176, 256, 144, f"{FUSED_FWD}:144"), ("imagenet", 176, 64, 192, f"{FUSED_FWD}:305"),
+    ("cifar10_tp", 32, 256, 64, f"{FUSED_FWD}:144"), ("cifar10_tp", 32, 64, 64, f"{FUSED_FWD}:305"),
+    ("imagenet512_tp", 32, 256, 144, f"{FUSED_FWD}:144"), ("imagenet512_tp", 32, 64, 192, f"{FUSED_FWD}:305"),
 ]
+# heads per kernel call where they are not HEADS: a rank's share at model size 2
+SHAPE_HEADS = {"cifar10_tp": 2, "imagenet512_tp": 2}
 # the run each FWD_SHAPES key's launches come from (phases 8, 11, 18, 21)
 FWD_PATHS = {"cifar10": "cifar10 Heun-32 batch", "imagenet512": "imagenet512 Heun-32 batch",
              "mnist_cfg": "mnist CFG Heun-32 batch (stacked forwards)",
-             "imagenet512_cfg": "imagenet512 CFG Heun-32 batch on (0.28, 2.9] (all its forwards at this n)"}
+             "imagenet512_cfg": "imagenet512 CFG Heun-32 batch on (0.28, 2.9] (all its forwards at this n)",
+             "cifar10_tp": "phase 36 (a): rank 0 of a 1 x 2 grid, 3 cifar10 train steps at 32",
+             "imagenet512_tp": "phase 36 (c): rank 0 of a 1 x 2 grid, imagenet512 generate Heun-4 at 8"}
 # flash shapes, 4 heads at batch 32: the ImageNet-512 channel plan at 32x32
 # (C = 384) and 64x64 (C = 192), and 4 heads of 64 at n = 1024 and 4096
 FLASH_SHAPES = [(1024, 96), (4096, 48), (1024, 64), (4096, 64)]
@@ -570,36 +605,37 @@ def phase_kernel_vs_plain() -> list[dict]:
 
     entries = []
     for config, b, n, hd, replaces in FWD_SHAPES:
-        c = HEADS * hd
+        heads = SHAPE_HEADS.get(config, HEADS)
+        c = heads * hd
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
-            qkv = _qkv(b, n, HEADS, hd, dtype, seed=n + hd)
-            out = fa.cosine_attention_qkv_cuda(qkv, HEADS)
+            qkv = _qkv(b, n, heads, hd, dtype, seed=n + hd)
+            out = fa.cosine_attention_qkv_cuda(qkv, heads)
             torch.cuda.synchronize()
-            ref = fa.cosine_attention_qkv_plain(qkv, HEADS)
+            ref = fa.cosine_attention_qkv_plain(qkv, heads)
             err = _check(out, ref, name, f"{config} n={n} hd={hd} {name}")
-            ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, HEADS))
-            plain_ms = time_ms(lambda: fa.cosine_attention_qkv_plain(qkv, HEADS), iters=5)
-            x = pixel_norm(qkv.reshape(b, n, 3, HEADS, hd), dim=-1)
+            ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, heads))
+            plain_ms = time_ms(lambda: fa.cosine_attention_qkv_plain(qkv, heads), iters=5)
+            x = pixel_norm(qkv.reshape(b, n, 3, heads, hd), dim=-1)
             q, k, v = (t.transpose(1, 2).contiguous() for t in x.unbind(2))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
-            flops = 4 * b * HEADS * n * n * hd
+            flops = 4 * b * heads * n * n * hd
             bound_ms, bound_by = _bound(nbytes, flops, name)
             earlier, was = None, ""
             if dtype == torch.bfloat16:  # the CUDA-core kernel that the tensor cores replaced
-                cc_err = _check(fa._fwd(qkv, HEADS, cuda_cores=True), ref, name,
+                cc_err = _check(fa._fwd(qkv, heads, cuda_cores=True), ref, name,
                                 f"CUDA-core {config} n={n} hd={hd} {name}")
-                earlier = time_ms(lambda: fa._fwd(qkv, HEADS, cuda_cores=True), iters=5, reps=3)
+                earlier = time_ms(lambda: fa._fwd(qkv, heads, cuda_cores=True), iters=5, reps=3)
                 was = f" (CUDA-core kernel {earlier:.4f} ms, max_abs {cc_err:.3g})"
             print(f"[3 fwd kernel vs plain] cosine_attention_fwd {config} b={b} n={n} C={c} "
-                  f"heads={HEADS} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms{was}, plain "
+                  f"heads={heads} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms{was}, plain "
                   f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
             if dtype == torch.bfloat16:  # the main path's type
                 entries.append(_entry(
-                    f"cosine_attention_fwd[{config} n={n} hd={hd}]", "cosine_attention_fwd.cu",
-                    replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
+                    f"cosine_attention_fwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
+                    "cosine_attention_fwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
                     earlier_ms=earlier, config=config, n=n))
     # every head-dim bucket, ragged token counts (tails of both tiles), n=1
     for b, n, heads, hd in ODD_SHAPES:
@@ -651,51 +687,52 @@ def phase_bwd_kernel_vs_plain() -> list[dict]:
 
     entries = []
     for config, b, n, hd, replaces in BWD_SHAPES:
-        c = HEADS * hd
+        heads = SHAPE_HEADS.get(config, HEADS)
+        c = heads * hd
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
-            qkv = _qkv(b, n, HEADS, hd, dtype, seed=n + hd)
-            g = _cotangent(b, n, HEADS, hd, dtype, seed=n + hd)
-            o = fa.cosine_attention_qkv_cuda(qkv, HEADS)
+            qkv = _qkv(b, n, heads, hd, dtype, seed=n + hd)
+            g = _cotangent(b, n, heads, hd, dtype, seed=n + hd)
+            o = fa.cosine_attention_qkv_cuda(qkv, heads)
             torch.cuda.synchronize()
-            fwd_err = _check(o, fa.cosine_attention_qkv_plain(qkv, HEADS), name,
+            fwd_err = _check(o, fa.cosine_attention_qkv_plain(qkv, heads), name,
                              f"fwd {config} b={b} n={n} {name}")
-            out = fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, HEADS)
+            out = fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, heads)
             torch.cuda.synchronize()
-            ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, HEADS)
+            ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads)
             err, rel = _check_bwd(out, ref, name, f"bwd {config} n={n} {name}")
             del ref
-            ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, HEADS), iters=10)
-            plain_ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_plain(qkv, g, o, HEADS), iters=3)
-            x = pixel_norm(qkv.reshape(b, n, 3, HEADS, hd), dim=-1)
+            ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, heads), iters=10)
+            plain_ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads), iters=3)
+            x = pixel_norm(qkv.reshape(b, n, 3, heads, hd), dim=-1)
             q, k, v = (t.transpose(1, 2).contiguous() for t in x.unbind(2))
-            gh = g.reshape(b, n, HEADS, hd).transpose(1, 2).contiguous()
+            gh = g.reshape(b, n, heads, hd).transpose(1, 2).contiguous()
             library_ms, both_ms, sdpa_fwd_ms = _sdpa_bwd_ms(q, k, v, gh)
             nbytes = 8 * b * n * c * qkv.element_size()
-            flops = 10 * b * HEADS * n * n * hd
+            flops = 10 * b * heads * n * n * hd
             bound_ms, bound_by = _bound(nbytes, flops, name)
             earlier, was = None, ""
             if dtype == torch.bfloat16:  # the CUDA-core kernels that the tensor cores replaced
-                ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, HEADS)
-                _, cc_rel = _check_bwd(fa._bwd(qkv, g, o, HEADS, cuda_cores=True), ref, name,
+                ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads)
+                _, cc_rel = _check_bwd(fa._bwd(qkv, g, o, heads, cuda_cores=True), ref, name,
                                        f"CUDA-core bwd {config} n={n} {name}")
                 del ref
-                earlier = time_ms(lambda: fa._bwd(qkv, g, o, HEADS, cuda_cores=True), iters=3, reps=3)
+                earlier = time_ms(lambda: fa._bwd(qkv, g, o, heads, cuda_cores=True), iters=3, reps=3)
                 was = f" (CUDA-core kernels {earlier:.4f} ms, rel_l2 {cc_rel:.3g})"
             print(f"[4 bwd kernel vs plain] cosine_attention_bwd {config} b={b} n={n} C={c} "
-                  f"heads={HEADS} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms{was}, "
+                  f"heads={heads} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms{was}, "
                   f"plain {plain_ms:.4f} ms, sdpa bwd {library_ms:.4f} ms ({both_ms:.4f} - "
                   f"{sdpa_fwd_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP); forward kernel vs plain max_abs {fwd_err:.3g}", flush=True)
             if dtype == torch.bfloat16:  # the main path's type
-                fwd_kernel_ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, HEADS))
+                fwd_kernel_ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, heads))
                 fwd_bound, fwd_by = _bound(4 * b * n * c * qkv.element_size(),
-                                           4 * b * HEADS * n * n * hd, name)
+                                           4 * b * heads * n * n * hd, name)
                 print(f"[4 bwd kernel vs plain] (the forward kernel at this batch: {fwd_kernel_ms:.4f} ms, "
                       f"bound {fwd_bound:.4f} ms by {fwd_by})", flush=True)
                 entries.append(_entry(
-                    f"cosine_attention_bwd[{config} n={n} hd={hd}]", "cosine_attention_bwd.cu",
-                    replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
+                    f"cosine_attention_bwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
+                    "cosine_attention_bwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
                     earlier_ms=earlier, config=config, n=n))
     for b, n, heads, hd in ODD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3263,6 +3300,335 @@ def phase_dp_clis(smi: str, tmp: Path, ranks: list[dict]) -> None:
           f"{max(r['gen_s'] for r in ranks):.2f} s | {smi}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 36: tensor parallelism (tinyedm_tpu_torch/parallel/tensor.py), ranks
+# sharing the one card over gloo
+# ---------------------------------------------------------------------------
+TP_SIZE = 2  # the model group
+# (a): CIFAR-10 on a 1 x 2 grid, 3 steps with the recipe's dropout at a
+# global batch of 32 (cut from 256: gloo stages every activation gather
+# through the host), against one process at 32; (b): a 2 x 2 grid with
+# ZeRO-1, one step of 2 x 16 against one process at 32, draws injected.
+# Both start from seeded weights with gain_out = 1 (at its init value 0
+# step 0 trains gain_out alone) and run twice: in the recipe's bf16 and in
+# fp32. fp32 is held to DP_TOL on the param and EMA moves, mu and nu and to
+# TP_LOSS_TOL on every step's loss (read on an H100 in (a): moves 1.9e-5,
+# mu 5.5e-7, nu 7.4e-7, losses 3.0e-7; (b)'s mu after one step, (1 - b1) g,
+# 6.7e-7). bf16 cannot be: a sharded conv's input gradient is two bf16
+# partial sums added, not one rounding of the whole sum ((b)'s one-step mu
+# 1.5e-3 off one process, inside bf16's own 8.4e-3 off fp32), Adam's first
+# steps, g / |g|, flip the sign of near-zero elements whose gradient moved
+# (the moves read 2 sqrt(flipped share)), and the later losses follow the
+# weights: in (a) moves 4.3e-2, mu 2.1e-3, nu 3.8e-3, the third loss 1.9e-3
+# off one process. So bf16 holds its first loss (the forward alone) to
+# TP_LOSS_TOL and the rest to bf16's own distance: one process's bf16
+# against its fp32 from the same state (in (a) moves 0.12, mu and nu 5.2e-3,
+# loss 1.5e-2). Readings of the whole script, NVIDIA H100 80GB HBM3, 700 W.
+TP_GLOBAL, TP_STEPS = 32, 3
+TP_LOSS_TOL = 1e-3  # relative
+TP_DTYPES = ("bfloat16", "float32")
+# (c): generate --model_parallel 2 on ImageNet-512 at full width, Heun with
+# num_steps 4 (7 forwards), batch 8, against one process: float samples
+# within rtol = atol = 2e-2 (tests/test_tensor_parallel.py's tolerance)
+TP_GEN, TP_GEN_STEPS, TP_GEN_TOL = 8, 4, 2e-2
+TP_TIMEOUT = 900  # seconds for a spawn, start-up included
+
+
+def _tp_steps(device, grid, zero1: bool, steps: int, dropout: bool, dtype_name: str) -> dict:
+    """``steps`` steps of the CIFAR-10 recipe at full width, computing in
+    ``dtype_name``, from the seed-0 state with gain_out = 1 at the global
+    batch TP_GLOBAL, this rank's rows of it; the recipe's draws and dropout
+    (``dropout``), else dropout 0 and draws injected. ``grid`` None: one
+    process. The start and the whole state after the steps on the host, the
+    losses, ms per step after the first, each step's collectives and rows
+    1-4 launches, the bytes this rank keeps."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import build_training
+    from tinyedm_tpu_torch.data.datamodules import SyntheticDataModule, to_device
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.parallel.audit import collective_inventory
+    from tinyedm_tpu_torch.parallel.mesh import ParallelPlan, shard_batch
+    from tinyedm_tpu_torch.parallel.tensor import gather_tree, shard_model
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_step
+    from tinyedm_tpu_torch.utils.cuda import step_generator
+
+    model, diffuser, opt_cfg, ema_cfg, _, _ = build_training("cifar10", device, dtype=getattr(torch, dtype_name),
+                                                             seed=0)
+    with torch.no_grad():
+        model.denoiser.gain_out.fill_(1.0)
+    if not dropout:
+        diffuser = _content_diffuser()
+        for m in model.modules():
+            if hasattr(m, "dropout_rate"):
+                m.dropout_rate = 0.0
+    shards = shard_model(model, grid) if grid is not None else {}
+    state = init_train_state(model, opt_cfg, ema_cfg)
+    plan = ParallelPlan(dict(model.named_parameters()), zero1=zero1, sharded=shards) if grid is not None else None
+    if zero1:
+        plan.place(state)
+
+    def host(tree, ranged=True):
+        tree = plan.gather(tree) if zero1 and ranged else tree
+        tree = gather_tree(tree, shards, grid) if shards else tree
+        return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+    start = host(state.params, False)
+    step = make_train_step(model, diffuser, opt_cfg, ema_cfg, plan=plan)
+    data = SyntheticDataModule(TP_GLOBAL, image_size=32, num_samples=TP_GLOBAL * steps, seed=0)
+    d, n_data = (grid.data_rank, grid.data_size) if grid is not None else (0, 1)
+    batches = [to_device(*(shard_batch(b) if grid is not None else b), device) for b in data.train_batches(0)]
+    inventories, launches, times, losses = [], [], [], []
+    for batch in batches:
+        fa.launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_inventory() as inv:
+            state, metrics = step(state, batch, step_generator(0, state.step, device, d, n_data),
+                                  PATHS["cifar10"]["sched"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        inventories.append(inv)
+        launches.append(_kernel_calls())
+        losses.append(float(metrics["train_loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 36: non-finite losses {losses}")
+
+    def nbytes(trees):
+        return sum(v.numel() * 4 for tree in trees for v in tree.values())
+
+    out = dict(start=start, params=host(state.params, False), mu=host(state.mu), nu=host(state.nu),
+               ema=[host(t) for t in state.ema], losses=losses,
+               ms=1e3 * statistics.mean(times[1:]) if len(times) > 1 else 1e3 * times[0],
+               inventories=inventories, launches=launches, rows=len(batches[0][0]),
+               param_bytes=nbytes([state.params]), moment_bytes=nbytes([state.mu, state.nu]),
+               ema_bytes=nbytes(state.ema))
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_generate(out_dir: str, model_parallel: int) -> dict:
+    """ImageNet-512 through ``tinyedm_tpu_torch.generate.main`` (the CLI's
+    code path), with ``--model_parallel``: the float samples it kept, the
+    rows this rank's PNG writer wrote, the rows 1-4 launches and the
+    collectives."""
+    from tinyedm_tpu_torch import generate as gen
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.parallel.audit import collective_inventory
+
+    kept, written = [], []
+    real_generate, real_write = gen.generate, gen.PreditionWriter.write_batch
+    gen.generate = lambda *a, **k: kept.append(real_generate(*a, keep_samples=True, **k))
+    gen.PreditionWriter.write_batch = lambda self, images, idx: written.extend(idx) or real_write(self, images, idx)
+    argv = ["--config", "imagenet512", "--num_classes", "1000", "--image_size", "64", "--mean",
+            *map(str, LATENT_MEAN), "--std", *map(str, LATENT_STD), "--output_dir", out_dir, "--num_samples",
+            str(TP_GEN), "--batch_size", str(TP_GEN), "--num_steps", str(TP_GEN_STEPS), "--model_parallel",
+            str(model_parallel)]
+    fa.launch_counts.clear()
+    try:
+        with collective_inventory() as inv:
+            gen.main(argv)
+    finally:
+        gen.generate, gen.PreditionWriter.write_batch = real_generate, real_write
+    return dict(samples=kept[0]["samples"], seconds=kept[0]["seconds"], written=sorted(written),
+                launches=_kernel_calls(), inventory=inv)
+
+
+def _tp_rank(rank: int, size: int, store: str, out: str, backend: str, task: str, tmp: str) -> None:
+    """One spawned rank of phase 36: (a) the 1 x 2 grid's steps, (b) the
+    2 x 2 grid's ZeRO-1 step, (c) generate --model_parallel 2. Writes its
+    numbers to ``out``."""
+    import os
+    from datetime import timedelta
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(rank if backend == "nccl" else 0))
+    from tinyedm_tpu_torch.parallel import mesh
+    from tinyedm_tpu_torch.utils.cuda import resolve_device
+
+    mesh.init_distributed(backend=backend, init_method=f"file://{store}", timeout=timedelta(seconds=TP_TIMEOUT))
+    device = resolve_device(None)
+    if task == "c":
+        result = _tp_generate(str(Path(tmp) / "gen-tp"), TP_SIZE)
+    else:
+        grid = mesh.make_grid(TP_SIZE)
+        result = {dt: _tp_steps(device, grid, zero1=task == "b", steps=TP_STEPS if task == "a" else 1,
+                                dropout=task == "a", dtype_name=dt) for dt in TP_DTYPES}
+    result.update(device=str(device), backend=backend)
+    torch.distributed.destroy_process_group()
+    torch.save(result, out)
+
+
+def _spawn_tp(task: str, size: int, backend: str, tmp: Path) -> list[dict]:
+    """``size`` spawned ranks of ``_tp_rank``; their results, or a failure
+    naming the exit codes."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    store = tmp / f"store-tp-{task}-{backend}"
+    outs = [tmp / f"tp-{task}-{backend}-{r}.pt" for r in range(size)]
+    procs = [ctx.Process(target=_tp_rank, args=(r, size, str(store), str(outs[r]), backend, task, str(tmp)))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * size or not all(o.exists() for o in outs):
+        fail(f"phase 36 ({task}): {backend} ranks ended with exit codes {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _tp_errs(ours: dict, ref: dict) -> dict:
+    """Relative L2 of the param and EMA moves (each from its own start), of
+    mu and nu, against ``ref``."""
+    pairs = [("d_params", ours["params"], ref["params"], True), ("mu", ours["mu"], ref["mu"], False),
+             ("nu", ours["nu"], ref["nu"], False)] + [
+        (f"d_ema{i}", a, b, True) for i, (a, b) in enumerate(zip(ours["ema"], ref["ema"]))]
+    errs = {}
+    for name, a, b, moved in pairs:
+        base_a, base_b = (_flat(ours["start"], a), _flat(ref["start"], a)) if moved else (0.0, 0.0)
+        errs[name] = rel_l2(_flat(a) - base_a, _flat(b, a) - base_b)
+    errs["loss0"] = abs(ours["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    errs["loss"] = max(abs(x - y) / abs(y) for x, y in zip(ours["losses"], ref["losses"]))
+    return errs
+
+
+def _tp_gates(tag: str, ranks: list[dict], ref: dict, smi: str) -> None:
+    """(a)/(b)/(d)'s gates and lines: against one process from the same
+    state, fp32 within DP_TOL and its losses within TP_LOSS_TOL, bf16's
+    first loss within TP_LOSS_TOL and the rest within bf16's own distance
+    from fp32 (the comment at TP_GLOBAL); every rank's whole state the
+    same; the bytes, collectives and launches per rank."""
+    import torch
+
+    from tinyedm_tpu_torch.parallel.audit import inventory_summary
+
+    for dt in TP_DTYPES:
+        # the forced weight norm of init, per output row, sums a shard's rows
+        # in another order than the whole tensor's: within fp32 rounding
+        off = rel_l2(_flat(ranks[0][dt]["start"]), _flat(ref[dt]["start"], ranks[0][dt]["start"]))
+        if not off <= 1e-6:
+            fail(f"{tag} {dt}: the ranks' start is {off} off the one process's")
+        for r in ranks[1:]:
+            if not all(torch.equal(_flat(ranks[0][dt][k]), _flat(r[dt][k], ranks[0][dt][k]))
+                       for k in ("params", "mu", "nu")):
+                fail(f"{tag} {dt}: the ranks' gathered states differ")
+    fp32 = _tp_errs(ranks[0]["float32"], ref["float32"])
+    bf16 = _tp_errs(ranks[0]["bfloat16"], ref["bfloat16"])
+    noise = _tp_errs(ref["bfloat16"], ref["float32"])
+    bad = [k for k, v in fp32.items() if not v <= (TP_LOSS_TOL if k.startswith("loss") else DP_TOL)]
+    bad += [f"bf16 {k}" for k, v in bf16.items() if not v <= (TP_LOSS_TOL if k == "loss0" else noise[k])]
+    if bad:
+        fail(f"{tag}: against one process: fp32 {fp32} (<= {DP_TOL}), bf16 {bf16} (<= one process's bf16 "
+             f"against fp32, {noise}); failed {bad}")
+    want = {(d, n): c for n, c in PATHS["cifar10"]["calls"].items() for d in ("fwd", "bwd")}
+    for r in ranks:
+        if any(step != want for dt in TP_DTYPES for step in r[dt]["launches"]):
+            fail(f"{tag}: rows 1-4 launches per rank step {[r[dt]['launches'] for dt in TP_DTYPES]}, expected "
+                 f"{want} (at {HEADS // TP_SIZE} heads)")
+    r0, one = ranks[0]["bfloat16"], ref["bfloat16"]
+    inv = r0["inventories"][-1]
+    summary = inventory_summary(inv)
+    groups = sorted({(c.kind, c.group, c.group_size) for c in inv})
+    biggest = max(c.bytes for c in inv)
+    # every activation gather of the forward all-reduces its gradient in the
+    # backward (over the model group), beside the replicated params' sum
+    gathers = sum(c.kind == "all_gather" and c.group == "model" for c in inv)
+    psums = sum(c.kind == "all_reduce" and c.group == "model" for c in inv)
+    if biggest >= one["param_bytes"] or not 0 < gathers < psums:
+        fail(f"{tag}: collectives {groups}, {gathers} model-group gathers and {psums} model-group all-reduces, "
+             f"the largest {biggest} B against the params' {one['param_bytes']} B")
+    note = "host-staged gloo on one card, NOT NCCL's speed" if ranks[0]["backend"] == "gloo" else "NCCL"
+    per_rank = "; ".join(f"rank {i}: params {r['bfloat16']['param_bytes'] / 1e6:.2f} MB, moments "
+                         f"{r['bfloat16']['moment_bytes'] / 1e6:.2f} MB, EMA {r['bfloat16']['ema_bytes'] / 1e6:.2f} MB"
+                         for i, r in enumerate(ranks))
+
+    def fmt(errs):
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    print(f"[{tag}] {ranks[0]['backend']} on {', '.join(sorted({r['device'] for r in ranks}))}, {len(ranks)} ranks, "
+          f"{r0['rows']} rows a rank of each global batch of {TP_GLOBAL}, {len(r0['losses'])} steps from seeded "
+          f"weights with gain_out 1, against one process at {TP_GLOBAL} from the same state, relative L2: fp32 "
+          f"{fmt(fp32)} (<= {DP_TOL}; losses <= {TP_LOSS_TOL}); bf16 (the recipe) {fmt(bf16)} (loss0 <= "
+          f"{TP_LOSS_TOL}, each other <= one process's bf16 against its fp32: {fmt(noise)}); every rank's gathered "
+          f"state the same", flush=True)
+    print(f"[{tag}] bytes per rank against one process's params {one['param_bytes'] / 1e6:.2f} MB, moments "
+          f"{one['moment_bytes'] / 1e6:.2f} MB, EMA {one['ema_bytes'] / 1e6:.2f} MB: {per_rank} | {smi}", flush=True)
+    first = " (its one step, warm-up included)" if len(r0["losses"]) == 1 else ""
+    print(f"[{tag}] bf16 per rank step{first} {r0['ms']:.3f} ms, fp32 {ranks[0]['float32']['ms']:.3f} ms (one process "
+          f"{one['ms']:.3f} and {ref['float32']['ms']:.3f} ms; {note}); bf16 collectives a step {summary}, by "
+          f"(kind, group, size) {groups}, the largest {biggest / 1e6:.3f} MB (the params "
+          f"{one['param_bytes'] / 1e6:.2f} MB); rows 1-4 launches {_fmt(want)} per rank step at "
+          f"{HEADS // TP_SIZE} heads | {smi}", flush=True)
+
+
+def phase_tensor_parallel(smi: str) -> dict:
+    """Phase 36 (docstring). Returns the rows 1-4 launches of (a)'s rank 0
+    (3 steps) and (c)'s rank 0 (one generate), by direction and n."""
+    import numpy as np
+    import torch
+
+    from tinyedm_tpu_torch.parallel.audit import inventory_summary
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) a 1 x 2 grid, 3 steps with dropout, against one process
+        ref = {dt: _tp_steps("cuda", None, False, TP_STEPS, True, dt) for dt in TP_DTYPES}
+        t0 = time.perf_counter()
+        a = _spawn_tp("a", TP_SIZE, "gloo", tmp)
+        _tp_gates("36 tensor parallel (a) 1 x 2", a, ref, smi)
+        print(f"[36 tensor parallel] (a) spawned ranks ran {time.perf_counter() - t0:.1f} s, start-up included",
+              flush=True)
+        # (b) a 2 x 2 grid with ZeRO-1, one step, draws injected
+        ref_b = {dt: _tp_steps("cuda", None, False, 1, False, dt) for dt in TP_DTYPES}
+        _tp_gates("36 tensor parallel (b) 2 x 2 zero1", _spawn_tp("b", 2 * TP_SIZE, "gloo", tmp), ref_b, smi)
+        del ref_b
+        torch.cuda.empty_cache()
+        # (c) ImageNet-512 generate --model_parallel 2 against one process
+        one = _tp_generate(str(tmp / "gen-one"), 1)
+        torch.cuda.empty_cache()
+        c = _spawn_tp("c", TP_SIZE, "gloo", tmp)
+        ours, theirs = c[0]["samples"], one["samples"]
+        if not (np.isfinite(ours).all() and ours.shape == theirs.shape == (TP_GEN, 64, 64, 4)):
+            fail(f"36 (c): samples {ours.shape} finite {np.isfinite(ours).all()}")
+        close = np.abs(ours - theirs) <= TP_GEN_TOL + TP_GEN_TOL * np.abs(theirs)
+        pngs = sorted(x.name for x in (tmp / "gen-tp").glob("*.png"))
+        if not close.all() or c[0]["written"] != list(range(TP_GEN)) or c[1]["written"] or len(pngs) != TP_GEN:
+            fail(f"36 (c): {int((~close).sum())} values off rtol = atol = {TP_GEN_TOL}; rows written "
+                 f"{[r['written'] for r in c]}, PNGs {pngs}")
+        forwards = 2 * TP_GEN_STEPS - 1
+        want = {(d, n): k * forwards for n, k in PATHS["imagenet512"]["calls"].items() for d in ("fwd",)}
+        if any(r["launches"] != want for r in c):
+            fail(f"36 (c): rows 1-2 launches {[r['launches'] for r in c]}, expected {want}")
+        summary = inventory_summary(c[0]["inventory"])
+        print(f"[36 tensor parallel] (c) generate --model_parallel 2 (the CLI's main), imagenet512 at full width, "
+              f"Heun num_steps {TP_GEN_STEPS} ({forwards} forwards), {TP_GEN} latents at batch {TP_GEN}, 2 heads a "
+              f"rank: samples against one process max abs {float(np.abs(ours - theirs).max()):.3g}, relative L2 "
+              f"{rel_l2(torch.from_numpy(ours), torch.from_numpy(theirs)):.3g} (rtol = atol = {TP_GEN_TOL}); "
+              f"{TP_GEN} PNGs written once, by model rank 0; rows 1-2 launches {_fmt(want)} a rank; collectives "
+              f"{summary}; {max(r['seconds'] for r in c):.2f} s a rank (host-staged gloo, NOT NCCL's speed), one "
+              f"process {one['seconds']:.2f} s | {smi}", flush=True)
+        # (d) NCCL over two cards
+        if torch.cuda.device_count() >= 2:
+            _tp_gates("36 tensor parallel (d) nccl 1 x 2", _spawn_tp("a", TP_SIZE, "nccl", tmp), ref, smi)
+        else:
+            print(f"[36 tensor parallel] (d) NCCL over two cards did not run: this machine has "
+                  f"{torch.cuda.device_count()} card", flush=True)
+    return {"cifar10_tp": {k: v * TP_STEPS for k, v in a[0]["bfloat16"]["launches"][0].items()},
+            "imagenet512_tp": c[0]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3368,6 +3734,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 34-35: data parallelism and ZeRO-1 over ranks, the CLIs over ranks
     phase_data_parallel(smi, loop_ms["cifar10"], train_results["cifar10"])
+    torch.cuda.empty_cache()
+    # 36: tensor parallelism, ranks sharing the card over gloo
+    tp_counts = phase_tensor_parallel(smi)
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -3377,6 +3746,12 @@ def main() -> int:
     for e in fwd_entries + bwd_entries:
         direction = "bwd" if "bwd" in e["name"] else "fwd"
         key, n = e.pop("config"), e.pop("n")
+        if key in tp_counts:  # a rank's heads: phase 36's rank 0
+            e["launches"] = tp_counts[key].get((direction, n), 0)
+            e["path"] = FWD_PATHS[key]
+            if key == "cifar10_tp":
+                e["launches_per_train_step"] = e["launches"] // TP_STEPS
+            continue
         if direction == "fwd":
             e["launches"] = fwd_counts[key][direction, n]
             e["path"] = FWD_PATHS[key]

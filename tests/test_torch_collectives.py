@@ -13,8 +13,9 @@ model). On 2 gloo ranks (``tests/_torch_dist_worker.py``):
 - the data-parallel sampler (``generate``) makes no collective but the
   closing barrier.
 
-Without a process group nothing is recorded. The recorder itself: nested
-inventories and the summary.
+Without a process group nothing is recorded; a one-rank process group
+makes and records its sync, a one-rank group inside a larger world makes
+none. The recorder itself: nested inventories and the summary.
 """
 
 from __future__ import annotations
@@ -109,6 +110,18 @@ def test_no_group_no_collective():
         plan.gather_params(params)
         plan.gather(plan.shard(params))
     assert inv == []
+
+
+def test_one_rank_world_still_makes_its_collectives(tmp_path):
+    """A process group of one rank (``train --multihost`` under a one-rank
+    torchrun) makes and records its gradient sync, a group of one rank
+    inside a larger world does not (the data group of a 1 x 2 grid)."""
+    (one,) = worker.run("plan_sync", 1, tmp_path / "one")
+    # the two params at 64-element offsets and three scalars, fp32
+    assert [c[:3] for c in one] == [("all_reduce", 64 * 4 + 64 * 4 + 3 * 4, 1)]
+    for inv in worker.run("plan_sync", 2, tmp_path / "two", model_parallel=2):
+        assert [(c.kind, c.group, c.group_size) for c in (Collective(*c) for c in inv)] == [
+            ("all_reduce", "model", 2)]
 
 
 def test_recorder_nesting_and_summary():

@@ -167,13 +167,14 @@ def test_num_classes_must_match_the_model(latent_config, tmp_path, num_classes):
     assert not any(tmp_path.iterdir())
 
 
-# what each flag below raises without what it needs: multi-GPU sampling is
-# not ported; the checkpoint flags are, and refuse to run without their
-# checkpoint or their guidance scale
+# what each flag below raises without what it needs: tensor-parallel
+# sampling needs a world that the model group divides (one process: none
+# of 2), the checkpoint flags refuse to run without their checkpoint or
+# their guidance scale
 _FLAG_ERRORS = {
     "--guide_ckpt_path": (ValueError, "needs --guidance_scale"),
     "--ckpt_step": (ValueError, "need --ckpt_path"),
-    "--model_parallel": (NotImplementedError, "not ported"),
+    "--model_parallel": (ValueError, "1 ranks not divisible by model_parallel=2"),
     "--ckpt_path": (FileNotFoundError, "no checkpoint found"),
     "--load_ema": (ValueError, "need --ckpt_path"),
 }
@@ -184,10 +185,11 @@ _FLAG_ERRORS = {
              ["--ckpt_path", "runs/x"], ["--load_ema"]],
 )
 def test_unported_flags_raise(flag, tmp_path):
-    """The multi-GPU flag of the JAX CLI is not ported; its checkpoint flags
-    are (``tests/test_torch_trainer.py``, the JAX comparison below) and raise
-    without their checkpoint or scale, before anything is written (the
-    sampler and guidance flags: ``tests/test_torch_guidance.py``)."""
+    """The JAX CLI's tensor-parallel flag raises the grid's ``ValueError`` in
+    one process (it runs over ranks: ``tests/test_torch_tensor_parallel.py``);
+    its checkpoint flags (``tests/test_torch_trainer.py``, the JAX comparison
+    below) raise without their checkpoint or scale, before anything is
+    written (the sampler and guidance flags: ``tests/test_torch_guidance.py``)."""
     error, match = _FLAG_ERRORS[flag[0]]
     args = ["--output_dir", str(tmp_path / "out"), "--num_samples", "1", "--batch_size", "1",
             "--image_size", "16", "--device", "cpu", *flag]

@@ -328,10 +328,13 @@ def test_latents_callback_logs_latents_without_a_vae(tmp_path, capsys):
 
 
 def test_multi_gpu_options_raise(tmp_path):
-    """Tensor parallelism still raises; zero1 and --multihost are ported
-    (tests/test_torch_dist_trainer.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Tensor parallelism needs a world that the model group divides: one
+    process raises the grid's ``ValueError`` (over ranks it trains:
+    tests/test_torch_tensor_parallel.py; zero1 and --multihost:
+    tests/test_torch_dist_trainer.py)."""
+    with pytest.raises(ValueError, match="1 ranks not divisible by model_parallel=2"):
         _port(tmp_path, model_parallel=2)
+    assert not (tmp_path / "run").exists()
 
 
 def test_cli_trains_resumes_and_samples_on_smoke(tmp_path, capsys):

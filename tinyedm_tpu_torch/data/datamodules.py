@@ -14,8 +14,8 @@ BILINEAR filter, repeated bit for bit by ``data/resample.py`` (the machine
 with the card has no PIL).
 
 Over several ranks every rank draws the same global batches (the shared
-seed) and the trainer takes its rank's rows of each (``shard_batch``), as
-the JAX trainer does.
+seed) and the trainer takes its data rank's rows of each (``shard_batch``;
+the ranks of a model group share theirs), as the JAX trainer does.
 """
 
 from __future__ import annotations

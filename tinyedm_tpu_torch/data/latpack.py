@@ -31,7 +31,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from tinyedm_tpu_torch.parallel.mesh import world
+from tinyedm_tpu_torch.parallel.mesh import data_world
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 _SRC = _REPO_ROOT / "native" / "latpack.cc"
@@ -211,8 +211,9 @@ class PackedLatentsDataModule:
     ``process_index`` of ``process_count`` processes gathers its contiguous
     slice of each global batch (one shared-seed order, so the slices of all
     processes, concatenated, are the one-process stream); by default the
-    rank and world size of the process group (``parallel.mesh.world``), and
-    the trainer slices these batches no further (``yields_process_local``)."""
+    data rank and data size of the grid (``parallel.mesh.data_world``: the
+    ranks of a model group share their rows), and the trainer slices these
+    batches no further (``yields_process_local``)."""
 
     yields_process_local = True
 
@@ -269,7 +270,7 @@ class PackedLatentsDataModule:
         store = self._require()
         if not drop_last:
             raise NotImplementedError("PackedLatentsDataModule always drops the tail batch (see steps_per_epoch)")
-        rank, size = world()
+        rank, size = data_world()
         rank = rank if self.process_index is None else self.process_index
         size = size if self.process_count is None else self.process_count
         if self.batch_size % size != 0:

@@ -43,17 +43,32 @@ classifier-free guidance (one stacked forward of twice the batch), with
 A 4-channel (latent) sample is written as an RGBA PNG, as the JAX CLI does,
 a 1-channel one as a grey PNG.
 
-Under a process group (``parallel.mesh.init_distributed``), as the JAX CLI
-under ``jax.process_count() > 1``, the batch size is rounded up to a
-multiple of the world size, every rank solves its contiguous share of each
-padded global batch and writes only its own PNGs (``local_rows``). The noise,
+Under a process group (``parallel.mesh.init_distributed``; the CLI joins
+torchrun's where ``WORLD_SIZE`` > 1), as the JAX CLI
+under ``jax.process_count() > 1``, the ranks form a ``data x model`` grid
+with ``--model_parallel`` ranks to a model group (default 1; a world it does
+not divide raises ``ValueError``). The batch size is rounded up to a
+multiple of the data size, every data rank solves its contiguous share of
+each padded global batch, and of each model group only model rank 0 writes
+its PNGs (``local_rows``), as the JAX CLI writes each row once. The noise,
 and churn's, are the global batch's, so the files do not depend on the
-world size. The ranks make no collective but a barrier at the end.
+grid. With ``--model_parallel N`` the weight-normed kernels are sharded over
+the model group (``parallel/tensor.py``), for a model whose weights do not
+fit one card: the model is loaded whole on the host, cut to the rank's
+shards and moved to the card, and every forward gathers activations over the
+model group. Data parallelism alone makes no collective but a barrier at the
+end. Example, two cards sampling ImageNet-512 latents as one model:
+
+    python -m torch.distributed.run --nproc_per_node 2 -m tinyedm_tpu_torch.generate \
+        --config imagenet512 --num_classes 1000 --image_size 64 --mean 5.81 3.25 0.12 -2.15 \
+        --std 4.17 4.62 3.71 3.28 --output_dir latents --num_samples 32 --batch_size 32 \
+        --model_parallel 2
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence
 
@@ -72,7 +87,8 @@ from tinyedm_tpu_torch.diffusion.solver import (
     MultistepSolver,
     StochasticSolver,
 )
-from tinyedm_tpu_torch.parallel.mesh import barrier, local_rows, world
+from tinyedm_tpu_torch.parallel.mesh import barrier, distributed, init_distributed, local_rows, make_grid
+from tinyedm_tpu_torch.parallel.tensor import shard_model
 from tinyedm_tpu_torch.training.callbacks import PreditionWriter
 from tinyedm_tpu_torch.training.checkpoint import load_edm_from_checkpoint
 from tinyedm_tpu_torch.utils.cuda import folded_generator, resolve_device
@@ -82,10 +98,6 @@ CIFAR10_MEAN = (0.49139968, 0.48215841, 0.44653091)
 CIFAR10_STD = (0.24703223, 0.24348513, 0.26158784)
 
 CHURN_SEED = 0xC4A2  # the churn generators' seed is seed ^ CHURN_SEED, as in the JAX CLI
-
-# flags of the JAX CLI whose features a later slice ports (ROADMAP.md
-# section 1, item 8): tensor-parallel sampling
-_NOT_PORTED = ("model_parallel",)
 
 
 def device_denormalize_uint8(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
@@ -195,6 +207,7 @@ def generate(
     guidance_sigma_max: float = float("inf"),
     fused: str = "auto",
     keep_samples: bool = False,
+    model_parallel: int = 1,
 ) -> dict:
     """Sample ``num_samples`` images and write them as PNGs.
 
@@ -209,7 +222,8 @@ def generate(
     ``num_channels`` must equal the model's channel count; None takes it.
     ``solver``, ``s_*``, ``guidance_*`` and ``guide_weights`` are the CLI's
     flags (module docstring). ``fused="off"`` runs the attention unfused
-    (the comparison path), in the guide model too. Returns the image count,
+    (the comparison path), in the guide model too. ``model_parallel``: the
+    ranks of a model group (module docstring). Returns the image count,
     seconds, img/s, the device's peak memory (None on the CPU) and, with
     ``keep_samples``, the fp32 NHWC samples (this rank's, under a process
     group; None where it has none)."""
@@ -220,20 +234,26 @@ def generate(
         raise ValueError("--load_ema and --ckpt_step need --ckpt_path")
     if guide_ckpt_path is not None and guide_weights is not None:
         raise ValueError("--guide_ckpt_path and --guide_weights exclude each other")
+    grid = make_grid(model_parallel)
     dev = resolve_device(device)
+    # tensor parallelism loads the whole model on the host and moves the
+    # rank's shards to the card
+    load_dev = torch.device("cpu") if grid.model_size > 1 else dev
     if ckpt_path is not None:
-        config, model = _load_checkpoint_model(ckpt_path, ckpt_step, load_ema, ema_index, dev, fused)
+        config, model = _load_checkpoint_model(ckpt_path, ckpt_step, load_ema, ema_index, load_dev, fused)
         if load_ema:
             print("EMA weights loaded.")
     else:
-        config, model = _load_model(config or "cifar10", weights, dev, fused, seed)
+        config, model = _load_model(config or "cifar10", weights, load_dev, fused, seed)
+    shard_model(model, grid)
+    model = model.to(dev)
     model_classes = model.embedding.num_classes if model.conditional else 0
     if num_classes is not None and num_classes != model_classes:
         raise ValueError(
             f"num_classes={num_classes} but the {config} model has "
             f"{model_classes or 'no'} classes (0 means unconditional)"
         )
-    model_channels = model.denoiser.conv_in.weight.shape[1] - 1
+    model_channels = model.denoiser.conv_in.weight.shape[1] - 1  # input channels: never sharded
     if num_channels is not None and num_channels != model_channels:
         raise ValueError(f"num_channels={num_channels} but the {config} model has {model_channels} channels")
     guide_source = guide_weights if guide_ckpt_path is None else guide_ckpt_path
@@ -243,9 +263,11 @@ def generate(
     if guide_source is not None:
         if guide_ckpt_path is not None:
             guide_config, guide = _load_checkpoint_model(guide_ckpt_path, guide_ckpt_step, load_ema,
-                                                         guide_ema_index, dev, fused)
+                                                         guide_ema_index, load_dev, fused)
         else:
-            guide_config, guide = _load_model(config, guide_weights, dev, fused, seed)
+            guide_config, guide = _load_model(config, guide_weights, load_dev, fused, seed)
+        shard_model(guide, grid)
+        guide = guide.to(dev)
         print(f"[generate] autoguidance with the {guide_config} model from {guide_source}")
         denoise_fn = autoguidance_denoise_fn(model, guide, scale, interval)
     elif scale == 0.0 and interval is None:
@@ -253,10 +275,10 @@ def generate(
         denoise_fn = lambda x, s, labels: model(x, s, torch.full_like(labels, NULL_LABEL))  # noqa: E731
     elif scale is not None:
         denoise_fn = cfg_denoise_fn(model, scale, interval)
-    rank, size = world()
+    rank, size = grid.data_rank, grid.data_size
     if batch_size % size:
         batch_size = -(-batch_size // size) * size
-        print(f"[generate] batch_size rounded up to {batch_size} (a multiple of the {size} ranks)")
+        print(f"[generate] batch_size rounded up to {batch_size} (a multiple of the {size} data ranks)")
     per = batch_size // size
     datamodule = RandomNoiseDataModule(
         batch_size=batch_size,
@@ -293,7 +315,8 @@ def generate(
         local, idx = local_rows(batch_size, n, indices, rank, size)
         if len(idx):
             local = torch.as_tensor(local, device=dev)
-            writer.write_batch(images[local].cpu().numpy(), idx)
+            if grid.model_rank == 0:  # a model group's ranks hold the same rows
+                writer.write_batch(images[local].cpu().numpy(), idx)
             if keep_samples:
                 samples.append(x[local].float().permute(0, 2, 3, 1).cpu().numpy())
         done += n
@@ -360,15 +383,22 @@ def main(argv=None) -> None:
     parser.add_argument("--guidance_sigma_min", type=float, default=0.0,
                         help="guide only while guidance_sigma_min < sigma <= guidance_sigma_max")
     parser.add_argument("--guidance_sigma_max", type=float, default=float("inf"))
-    for flag in _NOT_PORTED:
-        parser.add_argument(f"--{flag}", nargs="?", const=True, default=None, help="not ported yet")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="ranks of a model group: the weight-normed kernels sharded over them")
     args = parser.parse_args(argv)
-    given = [f"--{flag}" for flag in _NOT_PORTED if getattr(args, flag) is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: not ported yet (multi-GPU sampling is a later slice; "
-            "see ROADMAP.md section 1, item 8)"
-        )
+    # started by torchrun (WORLD_SIZE > 1): join its process group
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not distributed()
+    if joined:
+        on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        init_distributed(backend="gloo" if on_cpu else None)
+    try:
+        _main(args)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args: argparse.Namespace) -> None:
     generate(
         args.output_dir,
         args.num_samples,
@@ -400,6 +430,7 @@ def main(argv=None) -> None:
         guide_ema_index=args.guide_ema_index,
         guidance_sigma_min=args.guidance_sigma_min,
         guidance_sigma_max=args.guidance_sigma_max,
+        model_parallel=args.model_parallel,
     )
 
 

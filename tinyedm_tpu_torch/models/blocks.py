@@ -14,6 +14,14 @@ A block's dropout bits are drawn by ``draw_bits`` before its computation
 (``run``), as the JAX package draws them outside ``jax.checkpoint``: a
 recompute of ``run`` (``Denoiser(remat=True)``) applies the same mask, since
 it draws nothing.
+
+Under tensor parallelism (``parallel/tensor.py``) the residual branch stays
+sharded between its two convs: ``conv_3x3_1`` and the ``embed`` linear give
+the rank's channels, the island runs on them with the rank's slice of the
+(whole-drawn) dropout bits, so the mask is one process's, and the result is
+gathered for ``conv_3x3_2``. Its channels take the residual ``mp_add`` on the
+block input's slice (the decoder's ``conv_1x1`` output is that slice
+already) before the block output is gathered.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from tinyedm_tpu_torch.models.layers import (
 )
 from tinyedm_tpu_torch.ops.dropout import apply_dropout_bits, dropout_bits, dropout_threshold
 from tinyedm_tpu_torch.ops.mp import mp_add, mp_silu, pixel_norm
+from tinyedm_tpu_torch.parallel.tensor import gather, local
 
 
 class _Block(nn.Module):
@@ -98,18 +107,26 @@ class _Block(nn.Module):
         if generator is None:
             raise ValueError("training with dropout needs a generator")
         b, _, h, w = x.shape
-        shape = (b, self.conv_3x3_2.weight.shape[0], *self._residual_size(h, w))
+        tp = self.conv_3x3_2.tp  # drawn whole under tensor parallelism
+        channels = self.conv_3x3_2.weight.shape[0] * (tp.model_size if tp is not None else 1)
+        shape = (b, channels, *self._residual_size(h, w))
         return dropout_bits(shape, generator, x.device)
 
     def _residual(
         self, res: torch.Tensor, embedding: torch.Tensor, bits: Optional[torch.Tensor]
     ) -> torch.Tensor:
+        """The residual branch: the rank's channels of ``conv_3x3_2`` under
+        tensor parallelism."""
+        tp = self.conv_3x3_1.tp
         res = self.conv_3x3_1(mp_silu(res))
         gmod = self.embed(embedding.float()) * self.gain + 1.0  # (B, C) fp32
-        return self.conv_3x3_2(self._island(res, gmod, bits))
+        bits = None if bits is None else local(bits, tp)
+        return self.conv_3x3_2(gather(self._island(res, gmod, bits), tp))
 
     def _finish(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
-        out = mp_add(x, res, self.add_factor)
+        """``mp_add`` of ``x`` and ``res`` (both the rank's channels under
+        tensor parallelism), gathered, then the attention."""
+        out = gather(mp_add(x, res, self.add_factor), self.conv_3x3_2.tp)
         return self.attention(out) if self.attention is not None else out
 
 
@@ -162,9 +179,9 @@ class EncoderBlock(_Block):
         if self.down:
             x = downsample_2x(x)
         if self.conv_1x1 is not None:
-            x = self.conv_1x1(x)
+            x = gather(self.conv_1x1(x), self.conv_1x1.tp)
         x = pixel_norm(x, dim=1)
-        return self._finish(x, self._residual(x, embedding, bits))
+        return self._finish(local(x, self.conv_3x3_2.tp), self._residual(x, embedding, bits))
 
 
 class DecoderBlock(_Block):
@@ -229,6 +246,6 @@ class DecoderBlock(_Block):
         if self.up:
             x = upsample_2x(x)
         res = x
-        if self.conv_1x1 is not None:
-            x = self.conv_1x1(x)
+        # the rank's channels under tensor parallelism (conv_1x1's own)
+        x = self.conv_1x1(x) if self.conv_1x1 is not None else local(x, self.conv_3x3_2.tp)
         return self._finish(x, self._residual(res, embedding, bits))

@@ -6,6 +6,12 @@ effective weight ``normalize(w) / sqrt(fan_in)`` in fp32 before casting it to
 the compute dtype, as the JAX package does. Parameters are made empty and
 filled by ``reset_parameters(generator)`` (see ``models/edm.py::init_weights``)
 or by a loaded state dict.
+
+Under tensor parallelism (``parallel/tensor.py::shard_model``) a sharded
+``WNConv`` or ``WNLinear`` holds its rank's output channels and its grid in
+``tp`` (None otherwise): it computes those channels from its whole input,
+and the module that calls it gathers them over the model group where it
+needs them whole (``gather``) or works on its slice (``local``).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from tinyedm_tpu_torch.ops.fused_attention import (
     cosine_attention_qkv,
 )
 from tinyedm_tpu_torch.ops.mp import mp_add, mp_silu, pixel_norm, weight_normalize
+from tinyedm_tpu_torch.parallel.tensor import gather, local
 
 
 class WNLinear(nn.Module):
@@ -34,6 +41,7 @@ class WNLinear(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.tp = None  # the grid of a sharded layer
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -63,6 +71,7 @@ class WNConv(nn.Module):
         self.dtype = dtype
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
+        self.tp = None  # the grid of a sharded layer
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -104,7 +113,8 @@ class UncertaintyNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         x = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
-        return self.gain * self.linear_out(mp_silu(self.linear(x)))
+        h = gather(mp_silu(self.linear(x)), self.linear.tp)
+        return self.gain * gather(self.linear_out(h), self.linear_out.tp)
 
 
 class ScaleLong(nn.Module):
@@ -119,13 +129,15 @@ class ScaleLong(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
         pooled = x.mean(dim=(2, 3), keepdim=True)
-        return torch.sigmoid(self.conv_1(mp_silu(self.conv_0(pooled))))
+        h = gather(mp_silu(self.conv_0(pooled)), self.conv_0.tp)
+        return gather(torch.sigmoid(self.conv_1(h)), self.conv_1.tp)
 
 
 class ClassEmbedding(nn.Module):
     """One-hot class embedding scaled by sqrt(num_classes); fp32. A label
     outside ``[0, num_classes)``, such as the null label -1 of guidance and
-    label dropout, gives a zero row, as ``jax.nn.one_hot`` does."""
+    label dropout, gives a zero row, as ``jax.nn.one_hot`` does. Sharded, it
+    returns its rank's channels."""
 
     def __init__(self, num_classes: int, embedding_dim: int):
         super().__init__()
@@ -159,7 +171,9 @@ class FourierEmbedding(nn.Module):
 
 class Embedding(nn.Module):
     """sigma (+ optional class) embedding, an fp32 island. Returns
-    ``(fourier_embedding, embedding)``."""
+    ``(fourier_embedding, embedding)``. Sharded, the two linears (both of
+    ``embedding_dim`` outputs) give their ranks' channels, which the
+    ``mp_add`` and ``mp_silu`` take as they come before one gather."""
 
     def __init__(
         self,
@@ -188,7 +202,7 @@ class Embedding(nn.Module):
             if self.class_embed is None:
                 raise ValueError("class_labels given but num_classes is None")
             emb = mp_add(emb, self.class_embed(class_labels), self.add_factor)
-        return fourier, mp_silu(emb)
+        return fourier, gather(mp_silu(emb), self.sigma_embed.tp)
 
 
 class CosineAttention(nn.Module):
@@ -210,7 +224,19 @@ class CosineAttention(nn.Module):
     ``xla_attention``, the JAX package's XLA branch. ``fused="off"`` is kept
     for parity checks. Every route has the same parameters. The 1x1 convs run
     as GEMMs on the (b, n, C) token view, so the qkv tensor comes out
-    (b, n, 3C) contiguous."""
+    (b, n, 3C) contiguous.
+
+    Under tensor parallelism (``qkv_conv.tp``) the layer runs on its rank's
+    heads where the heads divide the model group: ``qkv_conv`` holds their
+    rows (``parallel/tensor.py::head_rows``), the attention runs on
+    ``heads / N`` heads, its ``(b, n, C/N)`` output is gathered before
+    ``out_conv``, and ``out_conv``'s channels take the residual on the
+    input's slice before a gather. Where the heads do not divide, qkv is
+    gathered and every rank runs every head, as GSPMD does around a
+    ``pallas_call``. ``fused="block"`` takes the split route there (the
+    GEMMs around ``cosine_attention_qkv`` on the rank's heads, where the
+    block kernels would have run): its kernels add the residual from whole
+    weights."""
 
     def __init__(
         self,
@@ -237,20 +263,30 @@ class CosineAttention(nn.Module):
         n = h * w
         x = x.to(self.dtype)
         tokens = x.flatten(2).transpose(1, 2)  # (b, n, C) view
-        if self.fused == "block" and block_kernel_fits(n, c, self.num_heads):
+        tp = self.qkv_conv.tp
+        if self.fused == "block" and tp is None and block_kernel_fits(n, c, self.num_heads):
             w_qkv = self.qkv_conv.effective_weight().to(self.dtype)[:, :, 0, 0].t()
             w_out = self.out_conv.effective_weight().to(self.dtype)[:, :, 0, 0].t()
             y = attention_block(tokens, w_qkv, w_out, self.num_heads)
             return y.transpose(1, 2).reshape(b, c, h, w)
         w_qkv = self.qkv_conv.effective_weight().to(self.dtype)[:, :, 0, 0]
-        qkv = torch.matmul(tokens, w_qkv.t())  # (b, n, 3C), contiguous
-        if self.fused == "on" or (self.fused == "auto" and n <= MAX_FUSED_TOKENS):
-            y = cosine_attention_qkv(qkv, self.num_heads)
+        qkv = torch.matmul(tokens, w_qkv.t())  # (b, n, 3C), contiguous; a rank's rows under TP
+        heads = self.num_heads
+        by_head = tp is not None and heads % tp.model_size == 0
+        if by_head:
+            heads //= tp.model_size  # the rank's heads, in the kernels' layout
         else:
-            heads = self.num_heads
-            q, k, v = pixel_norm(qkv.reshape(b, n, 3, heads, c // heads), dim=-1).unbind(2)
+            qkv = gather(qkv, tp, -1)
+        split_block = self.fused == "block" and tp is not None and block_kernel_fits(n, c, self.num_heads)
+        if self.fused == "on" or (self.fused == "auto" and n <= MAX_FUSED_TOKENS) or split_block:
+            y = cosine_attention_qkv(qkv, heads)
+        else:
+            hd = qkv.shape[-1] // (3 * heads)
+            q, k, v = pixel_norm(qkv.reshape(b, n, 3, heads, hd), dim=-1).unbind(2)
             attend = flash_attention if self.use_pallas else xla_attention
-            y = attend(q, k, v).reshape(b, n, c)
+            y = attend(q, k, v).reshape(b, n, heads * hd)
+        if by_head:
+            y = gather(y, tp, -1)
         w_out = self.out_conv.effective_weight().to(self.dtype)[:, :, 0, 0]
-        y = torch.matmul(y, w_out.t()).transpose(1, 2).reshape(b, c, h, w)
-        return mp_add(x, y, 0.5)
+        y = torch.matmul(y, w_out.t()).transpose(1, 2).reshape(b, -1, h, w)
+        return gather(mp_add(local(x, self.out_conv.tp), y, 0.5), self.out_conv.tp)

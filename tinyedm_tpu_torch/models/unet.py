@@ -12,6 +12,11 @@ registered as ``torch.library`` custom ops so that the policy can name them:
 ``SAVED_BY_CONVS``). Either way the dropout bits are drawn before the
 recomputed region, so the gradients are those of the model without remat.
 
+Under tensor parallelism (``parallel/tensor.py::shard_model``) the sharded
+convs give their ranks' channels, gathered where the next layer needs them
+whole: ``conv_in``'s output, each block's output, and ``conv_out``'s where
+its image channels divide the model group.
+
 ``scan_blocks`` is a layout flag of the JAX package (runs of identical
 blocks stacked under one ``nn.scan``): an eager model gains nothing from a
 scan, so the port takes the flag, builds the same per-block modules and
@@ -43,6 +48,7 @@ from tinyedm_tpu_torch.models.topology import (
 from tinyedm_tpu_torch.ops.attention import flash_attention_fwd_op
 from tinyedm_tpu_torch.ops.fused_attention import attention_block_fwd_op, cosine_attention_fwd_op
 from tinyedm_tpu_torch.ops.precond import edm_precond
+from tinyedm_tpu_torch.parallel.tensor import gather
 
 _aten = torch.ops.aten
 # the ops whose outputs remat_policy="convs" keeps (the JAX package's
@@ -173,7 +179,7 @@ class Denoiser(nn.Module):
         noisy32 = noisy_image.float()
         c = edm_precond(sigma, self.sigma_data)
         x = c.c_in * noisy32
-        x = self.conv_in(torch.cat([x, torch.ones_like(x[:, :1])], dim=1))
+        x = gather(self.conv_in(torch.cat([x, torch.ones_like(x[:, :1])], dim=1)), self.conv_in.tp)
         skips = [x]
         for block in self.encoder_blocks:
             x = self._block(block, train, generator, x, embedding)
@@ -181,5 +187,5 @@ class Denoiser(nn.Module):
         for block, has_skip in zip(self.decoder_blocks, self.skip_connections):
             skip = skips.pop() if has_skip else None
             x = self._block(block, train, generator, x, embedding, skip)
-        out = self.conv_out(x).float() * self.gain_out
+        out = gather(self.conv_out(x), self.conv_out.tp).float() * self.gain_out
         return out * c.c_out + noisy32 * c.c_skip

@@ -1,15 +1,18 @@
-"""The collective inventory: what the port's data parallelism sends.
+"""The collective inventory: what the port's data and tensor parallelism send.
 
 Counterpart of ``tinyedm_tpu/parallel/audit.py``. The JAX package reads its
 collectives out of the compiled HLO; the port has no compiled program to
 read, so it records them as they are made: every collective of
 ``parallel.mesh`` goes through one wrapper, which reports its kind, payload
-bytes and group size to each inventory open in this context. Nothing in
-torch is patched. The contract the tests hold it to is the JAX package's
-(``tests/test_collective_audit.py``): a data-parallel train step makes one
-all-reduce of about the parameter bytes, ZeRO-1 adds one parameter-sized
-all-gather, validation reduces scalars only and the data-parallel sampler
-makes no collective but a closing barrier.
+bytes, group ("world", "data" or "model") and group size to each inventory
+open in this context. Nothing in torch is patched. The contract the tests
+hold it to is the JAX package's (``tests/test_collective_audit.py``): a
+data-parallel train step makes one all-reduce of about the parameter bytes,
+ZeRO-1 adds one parameter-sized all-gather, validation reduces scalars only
+and the data-parallel sampler makes no collective but a closing barrier;
+under tensor parallelism a train step makes model-group all-reduces (the
+activation gathers' backward) and a data-group gradient sync, sampling makes
+model-group collectives, and no collective carries the parameter tree.
 
     with collective_inventory() as inv:
         state, metrics = train_step(state, batch, generator, count)
@@ -33,13 +36,14 @@ class Collective:
     bytes: int  # payload: the reduced tensor, the gathered output; 0 for a barrier
     group_size: int  # ranks in the group
     dtype: str = ""  # the payload's element type ("" for a barrier)
+    group: str = ""  # "world", "data" or "model"
 
 
-def record(kind: str, nbytes: int, group_size: int, dtype: str = "") -> None:
+def record(kind: str, nbytes: int, group_size: int, dtype: str = "", group: str = "") -> None:
     """Report one collective to every open inventory (``parallel.mesh``'s
     wrappers call this just before the collective)."""
     for inv in _open.get():
-        inv.append(Collective(kind, int(nbytes), int(group_size), dtype))
+        inv.append(Collective(kind, int(nbytes), int(group_size), dtype, group))
 
 
 @contextlib.contextmanager
@@ -50,6 +54,24 @@ def collective_inventory() -> Iterator[list[Collective]]:
     token = _open.set(_open.get() + (inv,))
     try:
         yield inv
+    finally:
+        _open.reset(token)
+
+
+def open_inventories() -> tuple[list, ...]:
+    """The inventories open in this context: what a backward, which autograd
+    may run on another thread (its CUDA device thread), records into
+    through ``recording_into``."""
+    return _open.get()
+
+
+@contextlib.contextmanager
+def recording_into(inventories: tuple[list, ...]) -> Iterator[None]:
+    """Record into ``inventories`` (``open_inventories()`` of another
+    context) while the context is open."""
+    token = _open.set(inventories)
+    try:
+        yield
     finally:
         _open.reset(token)
 

@@ -10,9 +10,11 @@ run's ``out_dir`` and ``--max-epochs`` replaces ``trainer.max_epochs``.
 ``--multihost`` joins the process group that ``torchrun`` (``python -m
 torch.distributed.run``) describes in the environment, where the JAX CLI
 calls ``jax.distributed.initialize()``: NCCL on the cards (each rank on
-``cuda:LOCAL_RANK``), gloo with ``--device cpu``; every rank trains on its
-share of each global batch, and ``trainer.zero1: true`` shards the Adam
-moments and EMA trees over the ranks.
+``cuda:LOCAL_RANK``), gloo with ``--device cpu``; every data rank trains on
+its share of each global batch, ``trainer.zero1: true`` shards the Adam
+moments and EMA trees over the data ranks, and ``trainer.model_parallel: N``
+shards every weight-normed kernel's output channels over model groups of N
+ranks (tensor parallelism; a world N does not divide raises ``ValueError``).
 
 ``trainer.accumulate_grad_batches`` splits the step batch (the datamodule's
 ``batch_size``) into that many equal microbatches, as the JAX driver does. A
@@ -27,6 +29,9 @@ batch): ``imagenet.yaml`` needs ``datamodule.batch_size=528``. Examples:
         datamodule.data_dir=/data/cifar10
     python -m torch.distributed.run --nproc_per_node 8 -m tinyedm_tpu_torch.train \\
         --config-name=cifar10 --multihost datamodule.data_dir=/data/cifar10
+    python -m torch.distributed.run --nproc_per_node 2 -m tinyedm_tpu_torch.train \\
+        --config-name=imagenet512 --multihost trainer.model_parallel=2 \\
+        datamodule.data_file=store.latpack
 """
 
 from __future__ import annotations

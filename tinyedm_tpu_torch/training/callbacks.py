@@ -14,7 +14,9 @@ into RGB, as PIL's ``convert("RGB")`` does, and raises on anything else.
 
 Over several ranks the previews and the scoring run on rank 0 alone, as the
 JAX callbacks guard on ``jax.process_index()`` (under ZeRO-1 the trainer
-gathers its EMA trees on every rank before it calls the callbacks).
+gathers its EMA trees on every rank before it calls the callbacks). Under
+tensor parallelism every forward is collective, so rank 0's whole model
+group (data rank 0) solves; rank 0 alone decodes, scores and writes.
 ``FIDCallback`` checks its files on every rank at train start, so that a
 bad path stops every rank, not rank 0 alone.
 
@@ -35,7 +37,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from tinyedm_tpu_torch.parallel.mesh import world
+from tinyedm_tpu_torch.parallel.mesh import data_world, world
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -175,7 +177,7 @@ class GenerateCallback(Callback):
         self.class_labels: Optional[torch.Tensor] = None
 
     def on_train_start(self, trainer) -> None:
-        if world()[0] != 0:
+        if data_world()[0] != 0:
             return
         gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed ^ 0x5EED)
         self.x0 = torch.randn((self.num_samples, *self.img_shape), generator=gen, device=trainer.device)
@@ -185,10 +187,12 @@ class GenerateCallback(Callback):
             self.class_labels = torch.arange(self.num_samples, device=trainer.device) % n_cls
 
     def on_train_epoch_end(self, trainer) -> None:
-        if world()[0] != 0 or self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
+        if data_world()[0] != 0 or self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
             return
         xT = trainer.solve(self.solver, self.x0, self.class_labels, use_ema=trainer.use_ema,
                            guidance_scale=self.guidance_scale)
+        if world()[0] != 0:
+            return
         images = trainer.datamodule.denormalize(_nhwc(xT))
         trainer.logger.log_image("Generated", make_grid(images), step=trainer.epoch)
 
@@ -249,7 +253,7 @@ class LatentsGenerateCallback(Callback):
         self.last_decode_seconds: Optional[float] = None
 
     def on_train_start(self, trainer) -> None:
-        if world()[0] != 0:
+        if data_world()[0] != 0:
             return
         n = self.num_samples_per_class * self.num_classes
         gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed ^ 0x1A7E)
@@ -257,6 +261,8 @@ class LatentsGenerateCallback(Callback):
         labels = torch.randint(0, trainer.model.embedding.num_classes, (self.num_classes,), generator=gen,
                                device=trainer.device)
         self.class_labels = labels.repeat(self.num_samples_per_class)
+        if world()[0] != 0:
+            return
         try:
             self._vae = _load_vae(self.vae_name, trainer.device)
         except (OSError, ValueError, RuntimeError) as e:  # no weights, or weights that do not fit
@@ -275,10 +281,12 @@ class LatentsGenerateCallback(Callback):
         return np.concatenate(out)
 
     def on_validation_end(self, trainer) -> None:
-        if world()[0] != 0 or self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
+        if data_world()[0] != 0 or self.x0 is None or trainer.epoch % self.every_n_epochs != 0:
             return
         xT = trainer.solve(self.solver, self.x0, self.class_labels, use_ema=trainer.use_ema,
                            guidance_scale=self.guidance_scale)
+        if world()[0] != 0:
+            return
         lat = _nhwc(xT) * self.std.reshape(1, 1, 1, -1) * 2.0 + self.mean.reshape(1, 1, 1, -1)
         if self._vae is not None:
             # clamp to value_range, then map it onto [0, 1] for the uint8 grid
@@ -375,7 +383,11 @@ class FIDCallback(Callback):
     def on_train_epoch_end(self, trainer) -> None:
         # the (epoch + 1) cadence of validation and checkpoints, so that fid
         # lands in the same epoch's save
-        if world()[0] != 0 or self._ref is None or (trainer.epoch + 1) % self.every_n_epochs != 0:
+        if data_world()[0] != 0 or self._ref is None or (trainer.epoch + 1) % self.every_n_epochs != 0:
+            return
+        if world()[0] != 0:  # rank 0's model group: the solves alone
+            for _ in self._sample_batches(trainer):
+                pass
             return
         from tinyedm_tpu_torch.utils.fid import (
             compute_stats,

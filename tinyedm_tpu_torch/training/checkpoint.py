@@ -19,6 +19,12 @@ Counterpart of ``tinyedm_tpu/training/checkpoint.py`` (which uses orbax):
 - Over several ranks every rank keeps a manager on the same directory, but
   only the ``primary`` one (rank 0) writes and deletes; the others keep the
   same books, so ``latest_step`` agrees on every rank. Every rank restores.
+  A file always holds whole tensors: under ZeRO-1 and tensor parallelism the
+  trainer gathers the ranges and shards before a save, one tensor at a time
+  over the model group (``parallel/tensor.py::gather_tree``), and cuts the
+  whole tensors to the rank's after a restore, so a run saved on one grid
+  resumes on another and the ``.ckpt`` export and ``posthoc_ema`` read it as
+  they read one process's.
 """
 
 from __future__ import annotations

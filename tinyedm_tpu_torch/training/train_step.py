@@ -8,11 +8,16 @@ diffuser draws, then dropout bits block by block, per microbatch) comes
 from one explicit generator. ``make_eval_step`` is the validation step.
 
 Over several ranks (``parallel.mesh.ParallelPlan``) each rank takes the
-gradients of its share of the batch, and one all-reduce averages them with
-the step's scalars before the clip, so the clip reads the global batch's
-norm; then Adam runs on the whole params (data parallel) or on the rank's
-range of them, followed by one all-gather (ZeRO-1). Each rank draws from its
-own generator (the trainer's ``utils.cuda.step_generator``).
+gradients of its share of the batch, and one all-reduce over the data group
+averages them with the step's scalars before the clip, so the clip reads the
+global batch's norm; then Adam runs on the whole params (data parallel) or
+on the rank's range of them, followed by one all-gather (ZeRO-1). Each data
+rank draws from its own generator (the trainer's
+``utils.cuda.step_generator``). Under tensor parallelism the params are the
+rank's shards and the replicated params (``parallel/tensor.py``): the
+backward is seeded with ``1 / model_size``, the replicated params' partial
+gradients are summed over the model group in the sync, and the norms sum the
+shards' squares over the model group and count a replicated param once.
 """
 
 from __future__ import annotations
@@ -128,15 +133,20 @@ def adam_update_range(state: TrainState, grads: list[torch.Tensor], plan: Parall
 
 
 @torch.no_grad()
-def _global_norm(tensors) -> torch.Tensor:
+def _global_norm(tensors: list[torch.Tensor], plan: Optional[ParallelPlan] = None) -> torch.Tensor:
+    if plan is not None and plan.model_size > 1:
+        return torch.sqrt(plan.sq_norms(tensors, [range(len(tensors))])[0])
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
-def make_grad_fn(model: EDM, diffuser: Diffuser, opt_cfg: OptimizerConfig) -> Callable:
+def make_grad_fn(model: EDM, diffuser: Diffuser, opt_cfg: OptimizerConfig, model_size: int = 1) -> Callable:
     """grad_fn(state, images, labels, generator) -> (loss, metrics, grads):
     the step's loss and fp32 gradients in ``state.params`` order, averaged
     over ``opt_cfg.accum_steps`` equal microbatches (a batch they do not
-    divide raises, as the JAX step's reshape does)."""
+    divide raises, as the JAX step's reshape does). Over a model group of
+    ``model_size`` ranks the backward is seeded with ``1 / model_size``: a
+    shard's gradient is then its own, a replicated param's a partial sum
+    (``parallel/tensor.py``)."""
     sigma_data = model.sigma_data
     conditional = model.conditional
     label_dropout = float(opt_cfg.label_dropout) if conditional else 0.0
@@ -162,7 +172,8 @@ def make_grad_fn(model: EDM, diffuser: Diffuser, opt_cfg: OptimizerConfig) -> Ca
             mb = slice(i * m, (i + 1) * m)
             mloss, mmetrics = loss_fn(images[mb], labels[mb] if labels is not None else None,
                                       generator)
-            mgrads = torch.autograd.grad(mloss, params, allow_unused=True)
+            seed = None if model_size == 1 else torch.full_like(mloss, 1.0 / model_size)
+            mgrads = torch.autograd.grad(mloss, params, grad_outputs=seed, allow_unused=True)
             mgrads = [torch.zeros_like(p) if g is None else g for g, p in zip(mgrads, params)]
             mloss, mmetrics = mloss.detach(), {k: v.detach() for k, v in mmetrics.items()}
             if grads is None:
@@ -201,7 +212,8 @@ def make_train_step(
     stop). With ``plan.zero1`` the state's moments and EMA trees are this
     rank's pieces (``ParallelPlan.shard``) and the params a view of the
     plan's flat buffer (``ParallelPlan.adopt_params``)."""
-    grad_fn = make_grad_fn(model, diffuser, opt_cfg)
+    model_size = plan.model_size if plan is not None else 1
+    grad_fn = make_grad_fn(model, diffuser, opt_cfg, model_size)
     gammas = ema_cfg.gammas if ema_cfg is not None else ()
     every_n = ema_cfg.every_n_steps if ema_cfg is not None else 1
 
@@ -213,16 +225,16 @@ def make_train_step(
         if plan is not None:
             means = [loss] + ([metrics["uncertainty"]] if "uncertainty" in metrics else [])
             flag = torch.full((), float(interrupt), device=loss.device)
-            grads, means, sums = plan.sync(grads, means, [metrics["sse"], metrics["count"], flag])
+            grads, means, sums = plan.sync(grads, means, [metrics["sse"], metrics["count"]], [flag])
             loss, metrics = means[0], {"sse": sums[0], "count": sums[1]} | (
                 {"uncertainty": means[1]} if len(means) > 1 else {})
             stop = sums[2]
-        per_layer = _per_layer_norms(state.params, grads) if opt_cfg.log_norms_per_layer else {}
+        per_layer = _per_layer_norms(state.params, grads, plan) if opt_cfg.log_norms_per_layer else {}
 
         # pre-clip global norm, for the clip and for log_norms
         raw_gnorm = clip_scale = None
         if opt_cfg.grad_clip_norm is not None or opt_cfg.log_norms:
-            raw_gnorm = _global_norm(grads)
+            raw_gnorm = _global_norm(grads, plan)
         if opt_cfg.grad_clip_norm is not None:
             clip_scale = torch.clamp(opt_cfg.grad_clip_norm / (raw_gnorm + 1e-12), max=1.0)
             torch._foreach_mul_(grads, clip_scale)
@@ -250,7 +262,7 @@ def make_train_step(
             out["uncertainty"] = metrics["uncertainty"]
         if opt_cfg.log_norms:
             out["grad_norm"] = raw_gnorm
-            out["param_norm"] = _global_norm(state.params.values())
+            out["param_norm"] = _global_norm(list(state.params.values()), plan)
             if clip_scale is not None:
                 out["clip_scale"] = clip_scale
         out.update(per_layer)
@@ -261,7 +273,8 @@ def make_train_step(
     return train_step
 
 
-def _per_layer_norms(params: dict[str, torch.Tensor], grads: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+def _per_layer_norms(params: dict[str, torch.Tensor], grads: list[torch.Tensor],
+                     plan: Optional[ParallelPlan] = None) -> dict[str, torch.Tensor]:
     """grad_norm/<group> and param_norm/<group> for every depth-2 group of
     the JAX params tree (``utils.interop.jax_group``): the JAX step's
     per-layer metric names."""
@@ -271,8 +284,12 @@ def _per_layer_norms(params: dict[str, torch.Tensor], grads: list[torch.Tensor])
     values = list(params.values())
     out = {}
     for prefix, tensors in (("grad_norm", grads), ("param_norm", values)):
-        for group, members in sorted(groups.items()):
-            out[f"{prefix}/{group}"] = _global_norm(tensors[i] for i in members)
+        names, members = zip(*sorted(groups.items()))
+        if plan is not None and plan.model_size > 1:
+            norms = list(torch.sqrt(plan.sq_norms(tensors, members)))
+        else:
+            norms = [_global_norm([tensors[i] for i in m]) for m in members]
+        out.update({f"{prefix}/{g}": v for g, v in zip(names, norms)})
     return out
 
 

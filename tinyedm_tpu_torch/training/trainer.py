@@ -1,7 +1,7 @@
 """The training driver: epochs, validation, checkpoints, previews, resume.
 
-Counterpart of ``tinyedm_tpu/training/trainer.py`` on one device (the card
-unless ``device="cpu"``):
+Counterpart of ``tinyedm_tpu/training/trainer.py``, one process per device
+(the card unless ``device="cpu"``):
 
 - The loop never waits for the card except at the logging cadence: the
   step's metrics stay device tensors until ``log_every_n_steps`` flushes
@@ -21,22 +21,30 @@ unless ``device="cpu"``):
 - ``device_preprocess`` ships uint8 images and flip flags to the device and
   normalizes and flips there (uint8 datamodules only).
 
-Under a process group (``parallel.mesh.init_distributed``) each rank trains
-on its share of every global batch (``shard_batch``; a data module that
-``yields_process_local``, as latpack does, yields only those rows) with its
-own random stream (``step_generator``), and the step's one all-reduce
-makes the update the global batch's (``parallel.mesh.ParallelPlan``);
-``zero1`` keeps only the rank's range of the Adam moments and EMA trees. ``samples_per_sec`` counts
-global samples. Validation pads each batch to a multiple of the world size
-with zero-weight rows, each rank evaluates its share with the draws of its
-global rows, and one all-reduce of the scalar sums ends it, so ``val_loss``
-does not depend on the world size. The ranks agree when to stop: a rank's
-SIGTERM rides the next step's all-reduce, and every rank leaves the loop
+Under a process group (``parallel.mesh.init_distributed``) the ranks form a
+``data x model`` grid, ``model_parallel`` ranks to a model group
+(``parallel.mesh.make_grid``; a world it does not divide raises
+``ValueError``). Each data rank trains on its share of every global batch
+(``shard_batch``; a data module that ``yields_process_local``, as latpack
+does, yields only those rows) with its own random stream
+(``step_generator``), which the ranks of its model group share; the step's
+gradient sync over the data group makes the update the global batch's
+(``parallel.mesh.ParallelPlan``). With ``model_parallel > 1`` every
+weight-normed kernel whose output count divides it is held as the rank's
+shard of output channels, in the params, the Adam moments and every EMA tree
+(``parallel/tensor.py``), and the model gathers activations over the model
+group. ``zero1`` keeps only the rank's range (within its data group) of the
+Adam moments and EMA trees. ``samples_per_sec`` counts global samples.
+Validation pads each batch to a multiple of the data size with zero-weight
+rows, each data rank evaluates its share with the draws of its global rows,
+and one all-reduce of the scalar sums over the data group ends it, so
+``val_loss`` does not depend on the grid. The ranks agree when to stop: a
+rank's SIGTERM rides the next step's sync, and every rank leaves the loop
 after the step that reads it. Only rank 0 logs and writes checkpoints; a
-ZeRO-1 save gathers the moments and EMA trees first, so its files are the
-data-parallel ones, and a run saved at one world size resumes at another.
-Tensor parallelism (``model_parallel > 1``) is not ported (ROADMAP.md
-section 1, item 8) and raises.
+save gathers ZeRO-1's ranges over the data group and the shards over the
+model group, one tensor at a time, so its files hold whole tensors and a
+run saved on one grid resumes on another. The previews and FID samples are
+drawn by rank 0's model group (every forward is collective); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ import torch
 from tinyedm_tpu_torch.data.datamodules import to_device
 from tinyedm_tpu_torch.diffusion.guidance import cfg_denoise_fn
 from tinyedm_tpu_torch.models.edm import init_weights
-from tinyedm_tpu_torch.parallel.mesh import ParallelPlan, all_reduce, barrier, distributed, shard_batch, world
+from tinyedm_tpu_torch.parallel.mesh import ParallelPlan, all_reduce, barrier, distributed, make_grid, shard_batch
+from tinyedm_tpu_torch.parallel.tensor import gather_tree, shard_model, shard_tree
 from tinyedm_tpu_torch.training.callbacks import Callback
 from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
 from tinyedm_tpu_torch.training.experiment import EDMSpec
@@ -89,24 +98,23 @@ class Trainer:
         device_preprocess: bool = False,
         device: Optional[str | torch.device] = None,
     ):
-        if model_parallel > 1:
-            raise NotImplementedError(
-                "model_parallel > 1: tensor parallelism is not ported yet (ROADMAP.md section 1, item 8)"
-            )
+        self.grid = make_grid(model_parallel)
         self.device = resolve_device(device)
-        self.rank, self.world_size = world()
+        self.rank = self.grid.rank
         self.zero1 = bool(zero1)
         self.spec = spec
-        # seeded weights, drawn on the CPU so that every device starts from
-        # the same ones; a resume replaces them
+        # seeded weights, drawn whole on the CPU so that every device starts
+        # from the same ones, then cut to the rank's shards; a resume
+        # replaces them
         model = spec.build_model()
         init_weights(model, torch.Generator().manual_seed(seed))
+        self.shards = shard_model(model, self.grid)
         self.model = model.to(self.device)
         # the step's collectives: under a process group, or for ZeRO-1's
         # range update (in one process a range of everything)
         self.plan = None
         if distributed() or self.zero1:
-            self.plan = ParallelPlan(dict(self.model.named_parameters()), zero1=self.zero1)
+            self.plan = ParallelPlan(dict(self.model.named_parameters()), zero1=self.zero1, sharded=self.shards)
         self.diffuser = spec.diffuser
         self.opt_cfg = spec.build_optimizer_config()
         self.ema_cfg = spec.build_ema_config()
@@ -185,17 +193,25 @@ class Trainer:
     def restore(self, step: Optional[int] = None) -> None:
         """The checkpoint of ``step`` (the latest by default) into the model
         and a state over its parameters; every rank reads the file."""
-        # ZeRO-1 reads the whole file into host memory and keeps its range
-        saved, _ = self.ckpt.restore(step, device="cpu" if self.zero1 else self.device)
-        self.model.load_state_dict({**saved.params, **saved.constants})
+        # ZeRO-1 and tensor parallelism read the whole file into host memory
+        # and keep the rank's range and shards
+        sharded = self.zero1 or self.grid.model_size > 1
+        saved, _ = self.ckpt.restore(step, device="cpu" if sharded else self.device)
+        m = self.grid.model_rank
+
+        def mine(tree):
+            tree = shard_tree(tree, self.shards, m)
+            return {k: v.to(self.device) for k, v in tree.items()} if sharded and not self.zero1 else tree
+
+        self.model.load_state_dict({**shard_tree(saved.params, self.shards, m), **saved.constants})
         self.state = self._place(TrainState(
             step=saved.step,
             params=dict(self.model.named_parameters()),
             constants=dict(self.model.named_buffers()),
-            mu=saved.mu,
-            nu=saved.nu,
+            mu=mine(saved.mu),
+            nu=mine(saved.nu),
             count=saved.count,
-            ema=saved.ema,
+            ema=tuple(mine(tree) for tree in saved.ema),
         ))
         self.global_step = saved.step
 
@@ -300,10 +316,11 @@ class Trainer:
                 if i < skip:
                     continue
                 # samples_per_sec counts global samples
-                n_samples += len(batch_np[0]) * (self.world_size if process_local else 1)
+                n_samples += len(batch_np[0]) * (self.grid.data_size if process_local else 1)
                 batch = self._to_device(shard_batch(batch_np, process_local))
                 sched_count = self.epoch if self.opt_cfg.scheduler_interval == "epoch" else self.global_step
-                generator = step_generator(self.seed, self.state.step, self.device, self.rank, self.world_size)
+                generator = step_generator(self.seed, self.state.step, self.device, self.grid.data_rank,
+                                           self.grid.data_size)
                 # the interrupt flag rides the step's all-reduce
                 flags = (self._interrupted,) if self.plan is not None else ()
                 self.state, metrics = self._train_step(self.state, batch, generator, sched_count, *flags)
@@ -358,9 +375,9 @@ class Trainer:
     def validate(self) -> Optional[float]:
         """val_loss = sum(sse) / sum(count) over the whole val set (None for
         an empty one), logged with the per-profile series. Over several
-        ranks each batch is padded to a multiple of the world size with
-        zero-weight rows and each rank evaluates its share; one all-reduce
-        of the sums ends it."""
+        data ranks each batch is padded to a multiple of the data size with
+        zero-weight rows and each data rank evaluates its share; one
+        all-reduce of the sums over the data group ends it."""
         if self.state is None:
             raise RuntimeError("validate() needs a state: call fit() or restore() first")
         with self._ema_whole():
@@ -370,7 +387,7 @@ class Trainer:
         state = self.state
         if self._whole_ema is not None:
             state = dataclasses.replace(state, ema=self._whole_ema)
-        rank, size = self.rank, self.world_size
+        rank, size = self.grid.data_rank, self.grid.data_size
         sums = None  # fp64 (sse, count, sse_ema0, ...)
         n_profiles = len(self._ema_sigma_rels) if len(self._ema_sigma_rels) > 1 else 0
         for i, (images, labels) in enumerate(self.datamodule.val_batches()):
@@ -392,7 +409,7 @@ class Trainer:
             row = torch.stack([out["sse"], out["count"], *(out[f"sse_ema{j}"] for j in range(n_profiles))]).double()
             sums = row if sums is None else sums + row
         if sums is not None:
-            all_reduce(sums)
+            all_reduce(sums, "data")
         if sums is None or float(sums[1]) == 0:
             self.logger.log_text("trainer", "validation skipped: empty val set")
             return None
@@ -439,20 +456,23 @@ class Trainer:
 
     # ------------------------------------------------------------ checkpoints
     def save_checkpoint(self, val_loss: Optional[float]) -> None:
-        """Rank 0 writes, then every rank waits for it; a ZeRO-1 state is
-        gathered first, tree by tree into host memory, so its file is the
-        data-parallel one."""
+        """Rank 0 writes, then every rank waits for it; a ZeRO-1 or
+        tensor-parallel state is gathered first, tree by tree into host
+        memory (ZeRO-1's ranges over the data group, then the shards over
+        the model group one tensor at a time), so its file holds whole
+        tensors, the data-parallel one's."""
         metrics = dict(self.extra_ckpt_metrics)
         if val_loss is not None:
             metrics["val_loss"] = val_loss
         state = self.state
-        if self.zero1:
-            def whole(tree):
-                full = self.plan.gather(tree)
-                return {k: v.cpu() for k, v in full.items()} if self.rank == 0 else {}
+        if self.zero1 or self.grid.model_size > 1:
+            def whole(tree, ranged: bool = True):
+                full = self.plan.gather(tree) if self.zero1 and ranged else tree
+                full = gather_tree(full, self.shards, self.grid, device="cpu")
+                return full if self.rank == 0 else {}
 
-            state = dataclasses.replace(state, mu=whole(state.mu), nu=whole(state.nu),
-                                        ema=tuple(whole(tree) for tree in state.ema))
+            state = dataclasses.replace(state, params=whole(state.params, ranged=False), mu=whole(state.mu),
+                                        nu=whole(state.nu), ema=tuple(whole(tree) for tree in state.ema))
         self.ckpt.save(self.global_step, state, config=self.config, metrics=metrics or None)
         barrier()
         self.logger.log_checkpoint(self.ckpt.directory / str(self.global_step), self.global_step)

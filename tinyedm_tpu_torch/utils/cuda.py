@@ -59,9 +59,11 @@ def folded_generator(seed: int, index: int, device: torch.device | str) -> torch
 def step_generator(seed: int, step: int, device: torch.device | str, rank: int = 0,
                    world_size: int = 1) -> torch.Generator:
     """The generator of train step ``step``: ``folded_generator(seed, step)``
-    in one process; over several ranks, a stream of each rank's own, folded
-    from the step's seed and the rank, so that no two ranks draw the same
-    sigmas, noise or dropout bits."""
+    with one data rank; over several, a stream of each data rank's own,
+    folded from the step's seed and ``rank`` (the data rank of
+    ``world_size`` data ranks), so that no two data ranks draw the same
+    sigmas, noise or dropout bits and the ranks of a model group draw the
+    same ones (a model group of one data rank draws one process's)."""
     if world_size == 1:
         return folded_generator(seed, step, device)
     return folded_generator(fold_seed(seed, step) % 2**32, rank, device)
