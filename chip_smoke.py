@@ -300,6 +300,36 @@ with a non-zero exit code:
     on two cards where the machine has two, else a line saying it did not
     run. Phases 3-4 hold rows 1-4 at these per-rank shapes (2 heads of 64 at
     batch 32, 2 of 144 and 192 at batch 8 forward and 32 backward).
+37. the reference API on the card: the Protocols of
+    tinyedm_tpu_torch.diffusion.protocols hold for objects built on the card
+    (validate_learning's model: its Embedding, Denoiser; a DenoiserWrapper;
+    the Diffuser and the three solvers); DenoiserWrapper around a
+    parameter-free net on the card against the CPU in fp32 (rtol = atol =
+    1e-6); mp_cat (NCHW channels, t 0.3) on the card against the CPU (fp32
+    within 1e-6, bf16 equal); mp_dropout on the card: the keep fraction at
+    rate 0.13 within 1e-3 of 0.87, every survivor exactly 1/0.87 rounded to
+    fp32 and to bf16, the same mask from the same generator seed, x itself
+    at rate 0;
+38. validate_learning (python -m tinyedm_tpu_torch.validate_learning), run
+    twice: the default (Heun-18) and --guided --autoguided
+    --solver dpmpp2m (label dropout 0.15; DPM-Solver++(2M)-18; CFG at scale 2
+    plain and on (0.1, 2.0); autoguidance at 1.5 and 2.0 by the EMA snapshot
+    of step 300): 1500 steps of 256, each printing RESULT: PASS under the
+    JAX experiment's thresholds, or the script fails; the per-class sims, ms
+    a step, seconds; rows 2 and 4 (n 64, 2 heads of 48) launched exactly 2 +
+    2 a train step and 2 a forward in every solve, with the EDM forwards
+    counted by batch (the stacked 512 of CFG); then rows 2 and 4 against
+    their plain versions at these shapes (forward at 256 and 512, backward
+    at 256), with phases 3-4's limits and times. The two runs go at once,
+    the guided one in a spawned process (each is bound by its host thread);
+39. a short soak at the full CIFAR-10 recipe (python -m
+    tinyedm_tpu_torch.soak: cifar10.yaml, lr 0.02, per-step schedule):
+    --rampup 100 --steady 200 --decay 100 --ckpt_every 200 --stop_at 300,
+    then --resume to 400 (resumed in the decay phase), in a temporary
+    directory: RESULT: PASS in both calls (the lr on the reference formula
+    at every logged step, finite losses, the fresh run's last loss below its
+    first), the checkpoints 200, 300 and 400; samples/s of each call beside
+    phase 9's bare step and phase 24's loop.
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
@@ -596,47 +626,58 @@ def _entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, librar
             "library_ms": library_ms, **extra}
 
 
-def phase_kernel_vs_plain() -> list[dict]:
+def _fwd_shape(tag: str, config: str, b: int, n: int, hd: int, heads: int, replaces: str) -> dict:
+    """The forward kernel against its plain version at one path's shape, bf16
+    and fp32, timed beside the plain version, SDPA, the bound and (bf16) the
+    CUDA-core kernel; returns the bf16 entry of the kernel line."""
     import torch
     import torch.nn.functional as F
 
     from tinyedm_tpu_torch.ops import fused_attention as fa
     from tinyedm_tpu_torch.ops.mp import pixel_norm
 
-    entries = []
-    for config, b, n, hd, replaces in FWD_SHAPES:
-        heads = SHAPE_HEADS.get(config, HEADS)
-        c = heads * hd
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).split(".")[-1]
-            qkv = _qkv(b, n, heads, hd, dtype, seed=n + hd)
-            out = fa.cosine_attention_qkv_cuda(qkv, heads)
-            torch.cuda.synchronize()
-            ref = fa.cosine_attention_qkv_plain(qkv, heads)
-            err = _check(out, ref, name, f"{config} n={n} hd={hd} {name}")
-            ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, heads))
-            plain_ms = time_ms(lambda: fa.cosine_attention_qkv_plain(qkv, heads), iters=5)
-            x = pixel_norm(qkv.reshape(b, n, 3, heads, hd), dim=-1)
-            q, k, v = (t.transpose(1, 2).contiguous() for t in x.unbind(2))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
-            flops = 4 * b * heads * n * n * hd
-            bound_ms, bound_by = _bound(nbytes, flops, name)
-            earlier, was = None, ""
-            if dtype == torch.bfloat16:  # the CUDA-core kernel that the tensor cores replaced
-                cc_err = _check(fa._fwd(qkv, heads, cuda_cores=True), ref, name,
-                                f"CUDA-core {config} n={n} hd={hd} {name}")
-                earlier = time_ms(lambda: fa._fwd(qkv, heads, cuda_cores=True), iters=5, reps=3)
-                was = f" (CUDA-core kernel {earlier:.4f} ms, max_abs {cc_err:.3g})"
-            print(f"[3 fwd kernel vs plain] cosine_attention_fwd {config} b={b} n={n} C={c} "
-                  f"heads={heads} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms{was}, plain "
-                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
-            if dtype == torch.bfloat16:  # the main path's type
-                entries.append(_entry(
-                    f"cosine_attention_fwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
-                    "cosine_attention_fwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
-                    earlier_ms=earlier, config=config, n=n))
+    c = heads * hd
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        qkv = _qkv(b, n, heads, hd, dtype, seed=n + hd)
+        out = fa.cosine_attention_qkv_cuda(qkv, heads)
+        torch.cuda.synchronize()
+        ref = fa.cosine_attention_qkv_plain(qkv, heads)
+        err = _check(out, ref, name, f"{config} n={n} hd={hd} {name}")
+        ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, heads))
+        plain_ms = time_ms(lambda: fa.cosine_attention_qkv_plain(qkv, heads), iters=5)
+        x = pixel_norm(qkv.reshape(b, n, 3, heads, hd), dim=-1)
+        q, k, v = (t.transpose(1, 2).contiguous() for t in x.unbind(2))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
+        flops = 4 * b * heads * n * n * hd
+        bound_ms, bound_by = _bound(nbytes, flops, name)
+        earlier, was = None, ""
+        if dtype == torch.bfloat16:  # the CUDA-core kernel that the tensor cores replaced
+            cc_err = _check(fa._fwd(qkv, heads, cuda_cores=True), ref, name,
+                            f"CUDA-core {config} n={n} hd={hd} {name}")
+            earlier = time_ms(lambda: fa._fwd(qkv, heads, cuda_cores=True), iters=5, reps=3)
+            was = f" (CUDA-core kernel {earlier:.4f} ms, max_abs {cc_err:.3g})"
+        print(f"[{tag}] cosine_attention_fwd {config} b={b} n={n} C={c} "
+              f"heads={heads} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms{was}, plain "
+              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        if dtype == torch.bfloat16:  # the main path's type
+            entry = _entry(
+                f"cosine_attention_fwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
+                "cosine_attention_fwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
+                earlier_ms=earlier, config=config, n=n)
+    return entry
+
+
+def phase_kernel_vs_plain() -> list[dict]:
+    import torch
+
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+
+    entries = [_fwd_shape("3 fwd kernel vs plain", config, b, n, hd, SHAPE_HEADS.get(config, HEADS), replaces)
+               for config, b, n, hd, replaces in FWD_SHAPES]
     # every head-dim bucket, ragged token counts (tails of both tiles), n=1
     for b, n, heads, hd in ODD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -676,64 +717,74 @@ def _sdpa_bwd_ms(q, k, v, g) -> tuple[float, float]:
     return both_ms - fwd_ms, both_ms, fwd_ms
 
 
-def phase_bwd_kernel_vs_plain() -> list[dict]:
-    """The backward kernel against its plain version at the training paths'
-    shapes. Library time: scaled_dot_product_attention's backward on the
-    pixel-normed q, k, v."""
+def _bwd_shape(tag: str, config: str, b: int, n: int, hd: int, heads: int, replaces: str) -> dict:
+    """The backward kernel against its plain version at one training path's
+    shape, as ``_fwd_shape``; library time: scaled_dot_product_attention's
+    backward on the pixel-normed q, k, v."""
     import torch
 
     from tinyedm_tpu_torch.ops import fused_attention as fa
     from tinyedm_tpu_torch.ops.mp import pixel_norm
 
-    entries = []
-    for config, b, n, hd, replaces in BWD_SHAPES:
-        heads = SHAPE_HEADS.get(config, HEADS)
-        c = heads * hd
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).split(".")[-1]
-            qkv = _qkv(b, n, heads, hd, dtype, seed=n + hd)
-            g = _cotangent(b, n, heads, hd, dtype, seed=n + hd)
-            o = fa.cosine_attention_qkv_cuda(qkv, heads)
-            torch.cuda.synchronize()
-            fwd_err = _check(o, fa.cosine_attention_qkv_plain(qkv, heads), name,
-                             f"fwd {config} b={b} n={n} {name}")
-            out = fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, heads)
-            torch.cuda.synchronize()
+    entry = None
+    c = heads * hd
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        qkv = _qkv(b, n, heads, hd, dtype, seed=n + hd)
+        g = _cotangent(b, n, heads, hd, dtype, seed=n + hd)
+        o = fa.cosine_attention_qkv_cuda(qkv, heads)
+        torch.cuda.synchronize()
+        fwd_err = _check(o, fa.cosine_attention_qkv_plain(qkv, heads), name,
+                         f"fwd {config} b={b} n={n} {name}")
+        out = fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, heads)
+        torch.cuda.synchronize()
+        ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads)
+        err, rel = _check_bwd(out, ref, name, f"bwd {config} n={n} {name}")
+        del ref
+        ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, heads), iters=10)
+        plain_ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads), iters=3)
+        x = pixel_norm(qkv.reshape(b, n, 3, heads, hd), dim=-1)
+        q, k, v = (t.transpose(1, 2).contiguous() for t in x.unbind(2))
+        gh = g.reshape(b, n, heads, hd).transpose(1, 2).contiguous()
+        library_ms, both_ms, sdpa_fwd_ms = _sdpa_bwd_ms(q, k, v, gh)
+        nbytes = 8 * b * n * c * qkv.element_size()
+        flops = 10 * b * heads * n * n * hd
+        bound_ms, bound_by = _bound(nbytes, flops, name)
+        earlier, was = None, ""
+        if dtype == torch.bfloat16:  # the CUDA-core kernels that the tensor cores replaced
             ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads)
-            err, rel = _check_bwd(out, ref, name, f"bwd {config} n={n} {name}")
+            _, cc_rel = _check_bwd(fa._bwd(qkv, g, o, heads, cuda_cores=True), ref, name,
+                                   f"CUDA-core bwd {config} n={n} {name}")
             del ref
-            ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_cuda(qkv, g, o, heads), iters=10)
-            plain_ms = time_ms(lambda: fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads), iters=3)
-            x = pixel_norm(qkv.reshape(b, n, 3, heads, hd), dim=-1)
-            q, k, v = (t.transpose(1, 2).contiguous() for t in x.unbind(2))
-            gh = g.reshape(b, n, heads, hd).transpose(1, 2).contiguous()
-            library_ms, both_ms, sdpa_fwd_ms = _sdpa_bwd_ms(q, k, v, gh)
-            nbytes = 8 * b * n * c * qkv.element_size()
-            flops = 10 * b * heads * n * n * hd
-            bound_ms, bound_by = _bound(nbytes, flops, name)
-            earlier, was = None, ""
-            if dtype == torch.bfloat16:  # the CUDA-core kernels that the tensor cores replaced
-                ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads)
-                _, cc_rel = _check_bwd(fa._bwd(qkv, g, o, heads, cuda_cores=True), ref, name,
-                                       f"CUDA-core bwd {config} n={n} {name}")
-                del ref
-                earlier = time_ms(lambda: fa._bwd(qkv, g, o, heads, cuda_cores=True), iters=3, reps=3)
-                was = f" (CUDA-core kernels {earlier:.4f} ms, rel_l2 {cc_rel:.3g})"
-            print(f"[4 bwd kernel vs plain] cosine_attention_bwd {config} b={b} n={n} C={c} "
-                  f"heads={heads} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms{was}, "
-                  f"plain {plain_ms:.4f} ms, sdpa bwd {library_ms:.4f} ms ({both_ms:.4f} - "
-                  f"{sdpa_fwd_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-                  f"{flops / 1e9:.2f} GFLOP); forward kernel vs plain max_abs {fwd_err:.3g}", flush=True)
-            if dtype == torch.bfloat16:  # the main path's type
-                fwd_kernel_ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, heads))
-                fwd_bound, fwd_by = _bound(4 * b * n * c * qkv.element_size(),
-                                           4 * b * heads * n * n * hd, name)
-                print(f"[4 bwd kernel vs plain] (the forward kernel at this batch: {fwd_kernel_ms:.4f} ms, "
-                      f"bound {fwd_bound:.4f} ms by {fwd_by})", flush=True)
-                entries.append(_entry(
-                    f"cosine_attention_bwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
-                    "cosine_attention_bwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
-                    earlier_ms=earlier, config=config, n=n))
+            earlier = time_ms(lambda: fa._bwd(qkv, g, o, heads, cuda_cores=True), iters=3, reps=3)
+            was = f" (CUDA-core kernels {earlier:.4f} ms, rel_l2 {cc_rel:.3g})"
+        print(f"[{tag}] cosine_attention_bwd {config} b={b} n={n} C={c} "
+              f"heads={heads} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms{was}, "
+              f"plain {plain_ms:.4f} ms, sdpa bwd {library_ms:.4f} ms ({both_ms:.4f} - "
+              f"{sdpa_fwd_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP); forward kernel vs plain max_abs {fwd_err:.3g}", flush=True)
+        if dtype == torch.bfloat16:  # the main path's type
+            fwd_kernel_ms = time_ms(lambda: fa.cosine_attention_qkv_cuda(qkv, heads))
+            fwd_bound, fwd_by = _bound(4 * b * n * c * qkv.element_size(),
+                                       4 * b * heads * n * n * hd, name)
+            print(f"[{tag}] (the forward kernel at this batch: {fwd_kernel_ms:.4f} ms, "
+                  f"bound {fwd_bound:.4f} ms by {fwd_by})", flush=True)
+            entry = _entry(
+                f"cosine_attention_bwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
+                "cosine_attention_bwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
+                earlier_ms=earlier, config=config, n=n)
+    return entry
+
+
+def phase_bwd_kernel_vs_plain() -> list[dict]:
+    """The backward kernel against its plain version at the training paths'
+    shapes (``_bwd_shape``), and at the odd shapes."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+
+    entries = [_bwd_shape("4 bwd kernel vs plain", config, b, n, hd, SHAPE_HEADS.get(config, HEADS), replaces)
+               for config, b, n, hd, replaces in BWD_SHAPES]
     for b, n, heads, hd in ODD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
@@ -3629,6 +3680,252 @@ def phase_tensor_parallel(smi: str) -> dict:
             "imagenet512_tp": c[0]["launches"]}
 
 
+# phase 38: validate_learning's two runs, and rows 2 and 4 at its shapes
+# (attention at 8x8: 2 heads of 48, the training batch 256, CFG's stacked 512)
+VL_RUNS = (("default", {}), ("guided", dict(guided=True, autoguided=True, solver="dpmpp2m")))
+VL_LAYERS, VL_HEADS = 2, 2  # attention layers a forward (EncA, DecA); heads a layer
+VL_FWD_SHAPES = [("validate", 256, 64, 48, f"{FUSED_FWD}:253"), ("validate_cfg", 512, 64, 48, f"{FUSED_FWD}:253")]
+VL_BWD_SHAPES = [("validate", 256, 64, 48, f"{FUSED_FWD}:305")]
+VL_TIMEOUT = 900  # seconds for the spawned run, start-up included
+# phase 39: the soak across both lr boundaries, stopped at 300 and resumed to 400
+SOAK_ARGS = ["--rampup", "100", "--steady", "200", "--decay", "100", "--ckpt_every", "200", "--tag", "chip"]
+SOAK_STOP, SOAK_TOTAL = 300, 400
+
+
+def phase_api(smi: str) -> None:
+    """Phase 37 (docstring)."""
+    import torch
+
+    from tinyedm_tpu_torch import (
+        DenoiserWrapper,
+        DeterministicSolver,
+        Diffuser,
+        MultistepSolver,
+        StochasticSolver,
+    )
+    from tinyedm_tpu_torch.diffusion import protocols
+    from tinyedm_tpu_torch.ops.dropout import mp_dropout
+    from tinyedm_tpu_torch.ops.mp import in_dtype, mp_cat
+    from tinyedm_tpu_torch.validate_learning import build_model
+
+    class Net(torch.nn.Module):  # tests/test_reference_parity.py's parameter-free net
+        def forward(self, cx, c_noise, emb):
+            return cx * (1.0 + c_noise.reshape(-1, 1, 1, 1)) + 0.25 * cx**2 * emb.mean(-1).reshape(-1, 1, 1, 1)
+
+    model = build_model(True, "cuda")
+    wrapper = DenoiserWrapper(Net(), 0.5).cuda()
+    objects = {"EDMEmbedding": [model.embedding], "EDMDenoiser": [model.denoiser, wrapper],
+               "EDMDiffuser": [Diffuser()],
+               "EDMSolver": [DeterministicSolver(), MultistepSolver(), StochasticSolver()]}
+    for name, objs in objects.items():
+        bad = [type(o).__name__ for o in objs if not isinstance(o, getattr(protocols, name))]
+        if bad:
+            fail(f"37 api: {bad} do not satisfy {name}")
+    if model.embedding.embedding_dim != 64 or next(model.parameters()).device.type != "cuda":
+        fail(f"37 api: embedding_dim {model.embedding.embedding_dim}, model on {next(model.parameters()).device}")
+    del model
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((256, 1, 16, 16), generator=g)
+    sigma = torch.exp(torch.randn((256,), generator=g) * 1.2 - 1.2)
+    emb = torch.randn((256, 64), generator=g)
+    cpu = wrapper(x, sigma, emb)
+    card = wrapper(x.cuda(), sigma.cuda(), emb.cuda())
+    wrap_err = float((card.cpu() - cpu).abs().max())
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-6, atol=1e-6,
+                               msg=lambda m: f"37 api: DenoiserWrapper card vs CPU: {m}")
+
+    cat_errs = {}
+    a, b = torch.randn((256, 64, 16, 16), generator=g), torch.randn((256, 32, 16, 16), generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = mp_cat(a.to(dtype), b.to(dtype), dim=1, t=0.3)
+        out = mp_cat(a.to(dtype).cuda(), b.to(dtype).cuda(), dim=1, t=0.3).cpu()
+        cat_errs[str(dtype).split(".")[-1]] = err = float((out.float() - ref.float()).abs().max())
+        if out.dtype != dtype or out.shape != (256, 96, 16, 16) or err > (1e-6 if dtype == torch.float32 else 0.0):
+            fail(f"37 api: mp_cat {dtype} card vs CPU max abs {err}, {out.dtype} {tuple(out.shape)}")
+
+    drop = {}
+    ones = torch.ones((4096, 4096), device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        y = mp_dropout(ones.to(dtype), 0.13, torch.Generator(device="cuda").manual_seed(1))
+        again = mp_dropout(ones.to(dtype), 0.13, torch.Generator(device="cuda").manual_seed(1))
+        kept = y != 0
+        keep = float(kept.float().mean())
+        exact = bool((y[kept] == in_dtype(1.0 / 0.87, dtype)).all())
+        if not (abs(keep - 0.87) < 1e-3 and exact and torch.equal(y, again) and y.dtype == dtype):
+            fail(f"37 api: mp_dropout {dtype}: keep {keep}, survivors exact {exact}, same mask "
+                 f"{torch.equal(y, again)}")
+        drop[str(dtype).split(".")[-1]] = keep
+    if mp_dropout(ones, 0.0, None) is not ones:
+        fail("37 api: mp_dropout at rate 0 is not the identity")
+    print(f"[37 api] Protocols hold for the card-built {', '.join(objects)} objects (Embedding.embedding_dim "
+          f"64); DenoiserWrapper card vs CPU fp32 max abs {wrap_err:.3g} (rtol = atol = 1e-6); mp_cat NCHW t 0.3 "
+          f"card vs CPU max abs {cat_errs}; mp_dropout rate 0.13 on 4096 x 4096: keep fraction {drop} (0.87 "
+          f"+- 1e-3), every survivor exactly 1/0.87 in its dtype, the same mask from the same seed | {smi}",
+          flush=True)
+
+
+def _stage_diffs(marks: list) -> dict:
+    """{stage: (launches, forwards by batch)} from the cumulative counts that
+    validate_learning's stage callback recorded."""
+    out, prev_l, prev_f = {}, {}, {}
+    for name, launches, forwards in marks:
+        out[name] = ({k: v - prev_l.get(k, 0) for k, v in launches.items() if v != prev_l.get(k, 0)},
+                     {k: v - prev_f.get(k, 0) for k, v in forwards.items() if v != prev_f.get(k, 0)})
+        prev_l, prev_f = launches, forwards
+    return out
+
+
+def _vl_run(tag: str) -> dict:
+    """One validate_learning run of ``VL_RUNS``, its lines tagged: the
+    result, with the launches and EDM forwards of each stage."""
+    from tinyedm_tpu_torch import validate_learning as vl
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+
+    marks = []
+    with _edm_forwards() as by_batch:
+        _clear_counts()
+        t0 = time.perf_counter()
+        result = vl.run(device="cuda", **dict(VL_RUNS)[tag], log=lambda line: print(f"[38 {tag}] {line}", flush=True),
+                        stage=lambda name: marks.append((name, dict(fa.launch_counts), dict(by_batch))))
+        result["seconds"] = time.perf_counter() - t0
+    result.update(stages=_stage_diffs(marks), flash=_flash_calls())
+    return result
+
+
+def _vl_child(tag: str, out: str) -> None:
+    """Phase 38's spawned process: ``_vl_run(tag)``, saved to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tinyedm_tpu_torch.utils.cuda import resolve_device
+
+    resolve_device("cuda")  # fp32 without TF32
+    torch.save(_vl_run(tag), out)
+
+
+def phase_validate_learning(smi: str) -> list[dict]:
+    """Phase 38 (docstring). The two runs go at once, the guided one in a
+    spawned process: each is bound by its own host thread, not the card.
+    Returns rows 2 and 4's entries at its shapes."""
+    import multiprocessing
+
+    import torch
+
+    from tinyedm_tpu_torch import validate_learning as vl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "guided.pt"
+        child = multiprocessing.get_context("spawn").Process(target=_vl_child, args=("guided", str(out)))
+        child.start()
+        t0 = time.perf_counter()
+        runs = {"default": _vl_run("default")}
+        child.join(max(1.0, VL_TIMEOUT - (time.perf_counter() - t0)))
+        if child.is_alive():
+            child.kill()
+            child.join(30)
+        if child.exitcode != 0 or not out.exists():
+            fail(f"38 validate_learning guided: the spawned run ended with exit code {child.exitcode}")
+        runs["guided"] = torch.load(out, weights_only=False)
+    wall = time.perf_counter() - t0
+    for tag, options in VL_RUNS:
+        result = runs[tag]
+        if not result["ok"]:
+            fail(f"38 validate_learning {tag}: RESULT: FAIL")
+        stages = result["stages"]
+        solver = options.get("solver", "heun")
+        forwards = vl.SOLVER_STEPS if solver == "dpmpp2m" else 2 * vl.SOLVER_STEPS - 1
+        b = vl.N_PER * vl.NUM_CLASSES
+        want = {"train": ({("fwd", 64): VL_LAYERS * vl.STEPS, ("bwd", 64): VL_LAYERS * vl.STEPS}, {}),
+                "sample": ({("fwd", 64): VL_LAYERS * forwards}, {b: forwards})}
+        if options.get("guided"):
+            want["cfg2"] = ({("fwd", 64): VL_LAYERS * forwards}, {2 * b: forwards})
+        for scale in vl.AUTO_SCALES if options.get("autoguided") else ():
+            want[f"auto{scale}"] = ({("fwd", 64): 2 * VL_LAYERS * forwards}, {b: 2 * forwards})
+        got = {k: v for k, v in stages.items() if k != "cfg2-interval"}
+        if got != want or result["flash"]:
+            fail(f"38 validate_learning {tag}: launches and forwards by stage {got}, expected {want}; flash "
+                 f"{result['flash']}")
+        if options.get("guided"):  # the interval's stacked forwards inside (0.1, 2.0], plain ones outside
+            launches, by = stages["cfg2-interval"]
+            if not (sum(by.values()) == forwards and by.get(2 * b) and by.get(b)
+                    and launches == {("fwd", 64): VL_LAYERS * forwards}):
+                fail(f"38 validate_learning {tag}: cfg2-interval launched {launches} over forwards {by}")
+        base = ", ".join(f"{own:.3f}/{other:.3f}" for own, other in result["base"])
+        guided = "; ".join(f"{g}: " + ", ".join(f"{r[0]:.3f} (margin {r[2]:.3f} vs {r[3]:.3f})" for r in rows)
+                           for g, rows in result["guided"].items())
+        solves = ", ".join(f"{k} {v:.2f} s ({sum(stages[k][1].values())} forwards {stages[k][1]})"
+                           for k, v in result["sample_s"].items())
+        print(f"[38 validate_learning] {tag} ({solver}-{vl.SOLVER_STEPS}{', --guided --autoguided' if options else ''}"
+              f"{', a spawned process' if tag == 'guided' else ''}): RESULT: PASS; own/best-other sims by class "
+              f"{base}" + (f"; {guided}" if guided else "")
+              + f"; {vl.STEPS} steps of {vl.BATCH} in {result['train_s']:.2f} s ({result['ms_per_step']:.3f} ms a "
+              f"step, {vl.BATCH / result['ms_per_step'] * 1e3:.1f} samples/s, beside the other run), final loss "
+              f"{result['final_loss']:.4f}; solves {solves}; rows 2 and 4 launched {VL_LAYERS} + {VL_LAYERS} a train "
+              f"step ({_fmt(stages['train'][0])} in all), {VL_LAYERS} a forward; {result['seconds']:.1f} s | {smi}",
+              flush=True)
+    print(f"[38 validate_learning] both runs at once in {wall:.1f} s, the spawned process's start-up included",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    entries = []
+    for config, b, n, hd, replaces in VL_FWD_SHAPES:
+        e = _fwd_shape("38 validate_learning", config, b, n, hd, VL_HEADS, replaces)
+        if config == "validate":  # every forward of the default run: its training and its Heun-18 solve
+            e["launches"] = sum(st[0].get(("fwd", n), 0) for st in runs["default"]["stages"].values())
+            e["path"] = "validate_learning default run: 1500 train steps at 256 and Heun-18 at 256"
+            e["launches_per_train_step"] = VL_LAYERS
+        else:  # the CFG solves of the guided run (the interval's forwards outside it at 256 included)
+            e["launches"] = sum(runs["guided"]["stages"][s][0].get(("fwd", n), 0) for s in ("cfg2", "cfg2-interval"))
+            e["path"] = "validate_learning --guided: CFG DPM++(2M)-18, stacked forwards at 512, plain and on (0.1, 2.0]"
+        entries.append(e)
+    for config, b, n, hd, replaces in VL_BWD_SHAPES:
+        e = _bwd_shape("38 validate_learning", config, b, n, hd, VL_HEADS, replaces)
+        e["launches"] = runs["default"]["stages"]["train"][0][("bwd", n)]
+        e["path"] = "validate_learning default run: 1500 train steps at 256"
+        e["launches_per_train_step"] = VL_LAYERS
+        entries.append(e)
+    for e in entries:
+        del e["config"], e["n"]
+    return entries
+
+
+def phase_soak(smi: str, bare: dict, loop_ms: float) -> None:
+    """Phase 39 (docstring). ``bare``: phase 9's result; ``loop_ms``: phase
+    24's loop ms/step."""
+    from tinyedm_tpu_torch import soak
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        run = Path("runs") / "soak_chip"
+        calls = []
+        for args in (["--stop_at", str(SOAK_STOP)], ["--resume"]):
+            t0 = time.perf_counter()
+            rc = soak.main(SOAK_ARGS + args)
+            seconds = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"39 soak {' '.join(args)}: exit code {rc} (RESULT: FAIL)")
+            calls.append((json.loads((run / "summary.json").read_text()), seconds))
+        records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        ckpts = sorted(int(p.name) for p in (run / "checkpoints").iterdir())
+    (fresh, t_fresh), (resumed, t_resumed) = calls
+    steps = [r["step"] for r in records]
+    off = [r for r in records if not math.isclose(r["lr"], soak.ref_lr(r["step"], 0.02, 100, 200), rel_tol=5e-5)
+           or not math.isfinite(r["train_loss"])]
+    if (fresh["steps"], fresh["resumed_at"], resumed["steps"], resumed["resumed_at"]) != (
+            SOAK_STOP, None, SOAK_TOTAL, SOAK_STOP) or ckpts != [200, SOAK_STOP, SOAK_TOTAL] or off \
+            or not fresh["final_loss"] < fresh["first_loss"] or steps != sorted(set(steps)) \
+            or not {98, 102, 298, 302, SOAK_TOTAL - 1} <= set(steps):
+        fail(f"39 soak: summaries {fresh} {resumed}, checkpoints {ckpts}, logged steps {steps}, off the formula {off}")
+    print(f"[39 soak] cifar10.yaml at full width (35.62 M parameters), rampup 100 / steady 200 / decay 100, "
+          f"stopped at {SOAK_STOP} and resumed to {SOAK_TOTAL} (decay phase): RESULT: PASS twice; {len(records)} "
+          f"logged steps on the lr formula (rel 5e-5), losses finite, first {fresh['first_loss']:.4f} -> "
+          f"{fresh['final_loss']:.4f} at {SOAK_STOP - 1}, {resumed['final_loss']:.4f} at {SOAK_TOTAL - 1}; "
+          f"checkpoints {ckpts}; {fresh['samples_per_s']:.1f} and {resumed['samples_per_s']:.1f} samples/s "
+          f"(phase 9's bare step {bare['samples_per_s']:.1f}, phase 24's loop "
+          + (f"{256 / loop_ms * 1e3:.1f}" if loop_ms else "not run") + f"); {t_fresh:.1f} s and "
+          f"{t_resumed:.1f} s | {smi}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3737,6 +4034,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 36: tensor parallelism, ranks sharing the card over gloo
     tp_counts = phase_tensor_parallel(smi)
+    torch.cuda.empty_cache()
+    # 37-39: the reference API, validate_learning, the soak
+    t37 = time.perf_counter()
+    phase_api(smi)
+    t38 = time.perf_counter()
+    vl_entries = phase_validate_learning(smi)
+    torch.cuda.empty_cache()
+    t39 = time.perf_counter()
+    phase_soak(smi, train_results["cifar10"], loop_ms["cifar10"])
+    print(f"[37-39] {t38 - t37:.1f} s, {t39 - t38:.1f} s, {time.perf_counter() - t39:.1f} s", flush=True)
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -3776,7 +4083,7 @@ def main() -> int:
         e["launches"] = block_train["counts"][key]
         e["launches_per_train_step"] = e["launches"] // block_steps
         e["path"] = "cifar10 training run, fused=\"block\""
-    entries = fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries
+    entries = fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries + vl_entries
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,6 +1,6 @@
 """Run the workflow phases of chip_smoke.py alone on the card.
 
-    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30] [32] [33] [34]
+    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30] [32] [33] [34] [37] [38] [39]
 
 Phases 1 (environment) and 2 (the kernels' build), the bare train steps
 that phases 25, 26 and 34 are read against (12: ImageNet-512, 23:
@@ -13,8 +13,11 @@ CIFAR-10; 29, the SD VAE at full width; 30, latent extraction through the
 CLI; 32, reference (Lightning) checkpoints at full width; 33, remat, the
 bf16 island and fused="on"; 34, data parallelism and ZeRO-1 over ranks,
 followed by 35, train --multihost under torch.distributed.run and generate
-on two ranks (phase 24's loop, beside which 34 prints, does not run here). Each phase prints its lines and gates as in chip_smoke.py, and its
-seconds. Needs a CUDA device; imports nothing of JAX.
+on two ranks (phase 24's loop, beside which 34 and 39 print, does not run
+here); 37, the reference API on the card; 38, validate_learning's two runs
+and rows 2 and 4 at its shapes; 39, the soak at the CIFAR-10 recipe, stopped
+and resumed. Each phase prints its lines and gates as in chip_smoke.py, and
+its seconds. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main(phases: list[str]) -> None:
     if "25" in phases:
         bare["25"] = cs.phase_train("23", "imagenet", eval_profiles=1)
         torch.cuda.empty_cache()
-    if "34" in phases:
+    if "34" in phases or "39" in phases:
         bare["34"] = cs.phase_train("9", "cifar10")
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as vae_tmp:
@@ -78,8 +81,14 @@ def main(phases: list[str]) -> None:
                 print(cs.phase_knobs(smi))
             elif name == "34":
                 cs.phase_data_parallel(smi, None, bare["34"])
+            elif name == "37":
+                cs.phase_api(smi)
+            elif name == "38":
+                print(cs.phase_validate_learning(smi))
+            elif name == "39":
+                cs.phase_soak(smi, bare["34"], None)
             else:
-                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29, 30, 32, 33 or 34)")
+                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29, 30, 32, 33, 34, 37, 38 or 39)")
             torch.cuda.empty_cache()
             print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -21,7 +21,7 @@ from tinyedm_tpu.models.unet import Denoiser as JaxDenoiser
 from tinyedm_tpu_torch.configs import CONFIGS, build_model
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "tinyedm_tpu"}
+FORBIDDEN = {"jax", "flax", "tinyedm_tpu", "experiments"}
 # what the machine with the card lacks: never imported by the port, and
 # wandb only inside a function (MetricLogger's guarded import)
 ABSENT_ON_THE_CARD = {"yaml", "PIL", "orbax", "torchvision", "tf_keras", "safetensors", "diffusers",
@@ -60,9 +60,13 @@ def _module_level_roots(path: Path) -> set[str]:
     return _import_roots(walk(ast.parse(path.read_text(), str(path)).body))
 
 
+NEW_MODULES = ("diffusion/protocols.py", "validate_learning.py", "soak.py", "soak_reference_pngs.py")
+
+
 def test_port_imports_no_jax():
     sources = _port_sources()
     assert len(sources) > 15 and all(p.exists() for p in sources)
+    assert all(ROOT / "tinyedm_tpu_torch" / m in sources for m in NEW_MODULES)
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & (FORBIDDEN | ABSENT_ON_THE_CARD))
            for p in sources}
     bad.update({str(p.relative_to(ROOT)) + " (module level)": sorted(_module_level_roots(p) & MODULE_LEVEL_ONLY)
@@ -81,9 +85,11 @@ def test_importing_the_port_loads_no_jax():
         "tinyedm_tpu_torch.data.latpack, tinyedm_tpu_torch.posthoc_ema, tinyedm_tpu_torch.eval_fid, "
         "tinyedm_tpu_torch.utils.fid, tinyedm_tpu_torch.utils.inception, tinyedm_tpu_torch.data.vae, "
         "tinyedm_tpu_torch.data.extract_latents, tinyedm_tpu_torch.data.images, "
-        "tinyedm_tpu_torch.data.resample, tinyedm_tpu_torch.utils.safetensors\n"
+        "tinyedm_tpu_torch.data.resample, tinyedm_tpu_torch.utils.safetensors, "
+        "tinyedm_tpu_torch.diffusion.protocols, tinyedm_tpu_torch.validate_learning, tinyedm_tpu_torch.soak, "
+        "tinyedm_tpu_torch.soak_reference_pngs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "{'jax', 'flax', 'tinyedm_tpu', 'yaml', 'PIL', 'orbax', 'wandb', 'torchvision', 'tf_keras', "
+        "{'jax', 'flax', 'tinyedm_tpu', 'experiments', 'yaml', 'PIL', 'orbax', 'wandb', 'torchvision', 'tf_keras', "
         "'safetensors', 'diffusers', 'lightning', 'pytorch_lightning', 'omegaconf'})\n"
         "assert not bad, bad\n"
         # nothing is built or loaded at import: nvJPEG only at the first JPEG

@@ -14,9 +14,17 @@ packed into one store (``data.latpack``), post-hoc EMA reconstruction
 (``posthoc_ema``) and FID/KID with an InceptionV3 in PyTorch (``eval_fid``,
 ``utils.fid``, ``utils.inception``, ``training.callbacks.FIDCallback``).
 Entry points run on the card unless ``device="cpu"`` is asked for.
+
+The reference API (the names of ``tinyedm_tpu.__all__``, ``Linear`` and
+``Conv2d`` the weight-normed layers, ``PreditionWriter`` in the reference's
+spelling) imports from here, as do the Protocols of ``diffusion.protocols``.
+Learning-level checks: ``validate_learning`` and ``soak``.
 """
 
 from tinyedm_tpu_torch.configs import CONFIGS, build_model, build_training
+from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
+from tinyedm_tpu_torch.diffusion.loss import WeightedMeanSquaredError
+from tinyedm_tpu_torch.diffusion.protocols import EDMDenoiser, EDMDiffuser, EDMEmbedding, EDMSolver
 from tinyedm_tpu_torch.diffusion.solver import (
     DeterministicSolver,
     MultistepSolver,
@@ -24,5 +32,61 @@ from tinyedm_tpu_torch.diffusion.solver import (
     karras_sigma_schedule,
 )
 from tinyedm_tpu_torch.models.edm import EDM
-from tinyedm_tpu_torch.models.unet import Denoiser
+from tinyedm_tpu_torch.models.layers import (
+    ClassEmbedding,
+    CosineAttention,
+    Embedding,
+    FourierEmbedding,
+    ScaleLong,
+    UncertaintyNet,
+    WNConv,
+    WNLinear,
+)
+from tinyedm_tpu_torch.models.unet import Denoiser, DenoiserWrapper
 from tinyedm_tpu_torch.ops.fused_attention import cosine_attention_qkv
+from tinyedm_tpu_torch.training.callbacks import (
+    GenerateCallback,
+    LatentsGenerateCallback,
+    PreditionWriter,
+)
+
+# the reference API's aliases
+Linear = WNLinear
+Conv2d = WNConv
+
+__all__ = [
+    # the reference API (tinyedm_tpu.__all__)
+    "EDM",
+    "Diffuser",
+    "GenerateCallback",
+    "PreditionWriter",
+    "LatentsGenerateCallback",
+    "DeterministicSolver",
+    "StochasticSolver",
+    "WeightedMeanSquaredError",
+    "Denoiser",
+    "DenoiserWrapper",
+    "Linear",
+    "Conv2d",
+    "WNLinear",
+    "WNConv",
+    "Embedding",
+    "FourierEmbedding",
+    "ClassEmbedding",
+    "CosineAttention",
+    "ScaleLong",
+    "UncertaintyNet",
+    # the port's own
+    "CONFIGS",
+    "build_model",
+    "build_training",
+    "MultistepSolver",
+    "karras_sigma_schedule",
+    "cosine_attention_qkv",
+    "EDMDiffuser",
+    "EDMEmbedding",
+    "EDMDenoiser",
+    "EDMSolver",
+]
+
+__version__ = "0.1.0"

@@ -184,6 +184,7 @@ class Embedding(nn.Module):
     ):
         super().__init__()
         self.fourier_dim = fourier_dim
+        self.embedding_dim = embedding_dim
         self.num_classes = num_classes
         self.add_factor = add_factor
         self.fourier_embed = FourierEmbedding(fourier_dim)

@@ -22,11 +22,15 @@ blocks stacked under one ``nn.scan``): an eager model gains nothing from a
 scan, so the port takes the flag, builds the same per-block modules and
 computes the same numbers. Its state dicts are always per-block;
 ``utils/interop.py`` unstacks a scanned JAX tree.
+
+``DenoiserWrapper`` is the generic EDM preconditioner around any net: the
+reference API's, exported for parity (the shipped configs use ``Denoiser``).
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import Optional, Sequence
 
 import torch
@@ -189,3 +193,38 @@ class Denoiser(nn.Module):
             x = self._block(block, train, generator, x, embedding, skip)
         out = gather(self.conv_out(x), self.conv_out.tp).float() * self.gain_out
         return out * c.c_out + noisy32 * c.c_skip
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_takes(cls: type) -> frozenset[str]:
+    """The names among ``train`` and ``generator`` that ``cls.forward`` takes."""
+    return frozenset({"train", "generator"} & set(inspect.signature(cls.forward).parameters))
+
+
+class DenoiserWrapper(nn.Module):
+    """D(x; sigma) = c_skip*x + c_out*net(c_in*x, c_noise, embedding), the
+    preconditioning in fp32, ``c_noise = ln(sigma)/4`` handed to the net as
+    (B,). The call is ``Denoiser``'s, so an ``EDM`` holds either. ``train``
+    (and ``generator``, the dropout bits' source) reach the net only where
+    its ``forward`` takes them; other nets keep the bare three-argument call,
+    as in the JAX package."""
+
+    def __init__(self, net: nn.Module, sigma_data: float = 0.5):
+        super().__init__()
+        self.net = net
+        self.sigma_data = sigma_data
+
+    def forward(
+        self,
+        noisy_image: torch.Tensor,
+        sigma: torch.Tensor,
+        embedding: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        noisy32 = noisy_image.float()
+        c = edm_precond(sigma, self.sigma_data)
+        takes = _forward_takes(type(self.net))
+        kwargs = {k: v for k, v in (("train", train), ("generator", generator)) if k in takes}
+        f = self.net(c.c_in * noisy32, c.c_noise, embedding, **kwargs)
+        return c.c_skip * noisy32 + c.c_out * f.float()

@@ -43,3 +43,11 @@ def apply_dropout_bits(bits: torch.Tensor, x: torch.Tensor, rate: float) -> torc
     keep = bits < threshold
     scale = in_dtype(1.0 / (1.0 - rate), x.dtype)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mp_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout with 16-bit threshold masks drawn from ``generator`` (on
+    ``x``'s device); ``nn.Dropout(rate)`` semantics, ``x`` itself at rate 0."""
+    if rate <= 0.0:
+        return x
+    return apply_dropout_bits(dropout_bits(x.shape, generator, x.device), x, rate)

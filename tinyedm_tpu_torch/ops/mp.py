@@ -106,3 +106,15 @@ def mp_add(a: torch.Tensor, b: torch.Tensor, t: float = 0.5) -> torch.Tensor:
     with ``t`` and the scale rounded to ``a.dtype``."""
     scale = 1.0 / math.sqrt((1.0 - t) ** 2 + t**2)
     return (a + (b - a) * in_dtype(t, a.dtype)) * in_dtype(scale, a.dtype)
+
+
+def mp_cat(a: torch.Tensor, b: torch.Tensor, dim: int = -1, t: float = 0.5) -> torch.Tensor:
+    """Magnitude-preserving concatenation along ``dim`` (EDM2 paper eq. 103),
+    each operand scaled by its weight rounded to its own dtype. ``dim``
+    defaults to the last axis, as the JAX package's ``axis`` does (its
+    images are NHWC): NCHW callers concatenating channels pass ``dim=1``."""
+    na, nb = a.shape[dim], b.shape[dim]
+    scale = math.sqrt((na + nb) / ((1.0 - t) ** 2 + t**2))
+    wa = scale * (1.0 - t) / math.sqrt(na)
+    wb = scale * t / math.sqrt(nb)
+    return torch.cat([a * in_dtype(wa, a.dtype), b * in_dtype(wb, b.dtype)], dim=dim)
