@@ -184,7 +184,7 @@ with a non-zero exit code:
     torchvision-layout state dict): the features on the card in fp32
     (TF32 off) against the CPU for 16 images (relative L2 <= 1e-4) and the
     img/s of feature extraction at batch 64 and 256; eval_fid stats on
-    synthetic CIFAR-10 pickle batches and eval_fid score of 1000 Heun-32
+    synthetic CIFAR-10 pickle batches and eval_fid score of 512 Heun-32
     samples (batch 128) of a seeded full-width checkpoint, with proxy and
     inception-unverified features and --kid: finite FID and KID, FID of
     the sample directory against itself at most 1e-9 of the covariance's
@@ -239,7 +239,7 @@ with a non-zero exit code:
     1e-4; the .ckpt sizes, export and import seconds;
 33. the model knobs: each recipe's train step (CIFAR-10 at 256,
     ImageNet-512 at 4 x 32, bf16) with remat off, "full" and "convs":
-    ms/step, peak GiB, step 0's loss bit-equal; one step's gradients in
+    ms/step over 3 steps after 1, peak GiB, step 0's loss bit-equal; one step's gradients in
     fp32 with cuDNN deterministic against remat off within relative L2
     1e-6 (or the spread of two remat-off runs, if larger) and the loss
     bit-equal; CIFAR-10 with mod_fp32=False (the bf16 island) against
@@ -314,7 +314,8 @@ with a non-zero exit code:
     twice: the default (Heun-18) and --guided --autoguided
     --solver dpmpp2m (label dropout 0.15; DPM-Solver++(2M)-18; CFG at scale 2
     plain and on (0.1, 2.0); autoguidance at 1.5 and 2.0 by the EMA snapshot
-    of step 300): 1500 steps of 256, each printing RESULT: PASS under the
+    of step 300): 600 steps of 256 (the experiment's 1500 cut for time),
+    each printing RESULT: PASS under the
     JAX experiment's thresholds, or the script fails; the per-class sims, ms
     a step, seconds; rows 2 and 4 (n 64, 2 heads of 48) launched exactly 2 +
     2 a train step and 2 a forward in every solve, with the EDM forwards
@@ -324,12 +325,27 @@ with a non-zero exit code:
     the guided one in a spawned process (each is bound by its host thread);
 39. a short soak at the full CIFAR-10 recipe (python -m
     tinyedm_tpu_torch.soak: cifar10.yaml, lr 0.02, per-step schedule):
-    --rampup 100 --steady 200 --decay 100 --ckpt_every 200 --stop_at 300,
-    then --resume to 400 (resumed in the decay phase), in a temporary
+    --rampup 50 --steady 100 --decay 50 --ckpt_every 100 --stop_at 150,
+    then --resume to 200 (resumed in the decay phase), in a temporary
     directory: RESULT: PASS in both calls (the lr on the reference formula
-    at every logged step, finite losses, the fresh run's last loss below its
-    first), the checkpoints 200, 300 and 400; samples/s of each call beside
-    phase 9's bare step and phase 24's loop.
+    at every logged step, both boundaries' steps +-2 among them, finite
+    losses, the fresh run's last loss below its first), the checkpoints 100,
+    150 and 200; samples/s of each call beside phase 9's bare step and phase
+    24's loop;
+40. the collective-audit CLI (python -m tinyedm_tpu_torch.collective_audit):
+    --devices 2 over NCCL refused on a one-card machine; its in-process
+    function on 2 ranks sharing the card over gloo (phase 36 (a)'s ranks,
+    after their steps and (c)'s generate: one start-up), cifar10.yaml at full
+    width on a 1 x 2 grid at batch 32 with --sampler: the ranks' inventories
+    equal, the train step's summary equal to phase 36 (a)'s, no train-step
+    collective as large as the params, the Heun-4 solve's model-group
+    gathers and closing barrier, rows 1-4 launched 11 + 11 a step and 7 x 11
+    a solve at 2 heads a rank; the train step's report (summary, payload,
+    ring wire bytes, one row per collective), the sampler's totals.
+
+Phases 34 (a), (b) and 36 (a), (b) also print their last step's collectives
+as the audit does (payload, ring wire bytes a rank, one row per collective),
+36 (c) its totals. Each phase prints its seconds ([phase N] s).
 
 Phases 18-22 run generate() twice, with fused attention and with
 fused="off" (final samples within 2e-2 relative L2), and count the EDM
@@ -463,7 +479,7 @@ PATHS = {
                   denorm=dict(mean=(0.5,), std=(0.25,)), warmup=2, timed=3, sched=500),
     # ImageNet-64 latents (experiments/conf/imagenet.yaml): 3 x 176 per step
     "imagenet": dict(batch=32, side=64, classes=1000, calls={256: 7, 64: 8}, microbatch=176,
-                     warmup=2, timed=3, sched=10000),
+                     warmup=1, timed=2, sched=10000),
 }
 # the run loop (phase 24): synthetic CIFAR-10 pickle batches, 5 x 1024 train
 # images (20 steps of 256 per epoch) and 1000 test images (a tail of 232)
@@ -482,7 +498,7 @@ IN512_SAMPLES, IN512_EPOCHS = 1000, 2
 IN512_PREVIEW = (32, 2 * 32 - 1)  # imagenet512.yaml's preview: 8 classes x 4 latents, Heun-32
 POSTHOC_TARGET = 0.13  # one of the tracked profiles: exactly representable at the latest step
 # FID on CIFAR-10 (phase 28)
-FID_SAMPLES, FID_BATCH, FID_KID_SUBSETS = 1000, 128, 10
+FID_SAMPLES, FID_BATCH, FID_KID_SUBSETS = 512, 128, 10
 FID_CALLBACK_SAMPLES = 256
 INCEPTION_BATCHES = (64, 256)  # the JAX feature function's sub-batch, and a larger one
 # the latent pipeline (phases 29-31): the sd-vae-ft-ema architecture with
@@ -530,6 +546,21 @@ def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+class Laps:
+    """Each phase's seconds: ``lap(name)`` prints ``[phase name] s`` for the
+    time since the last lap (or since the clock was made) and keeps it."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+        self.table: list[tuple[str, float]] = []
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.table.append((name, now - self.last))
+        self.last = now
+        print(f"[phase {name}] {self.table[-1][1]:.1f} s", flush=True)
 
 
 def rel_l2(a, b) -> float:
@@ -1312,7 +1343,6 @@ def phase_run_loop(smi: str, bare: dict) -> tuple[dict, float]:
 
     from tinyedm_tpu_torch.configs import build_model
     from tinyedm_tpu_torch.generate import generate
-    from tinyedm_tpu_torch.generate import main as generate_main
     from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
     from tinyedm_tpu_torch.utils.interop import save_weights
 
@@ -1422,10 +1452,9 @@ def phase_run_loop(smi: str, bare: dict) -> tuple[dict, float]:
         # sample the EMA checkpoint through the CLI, and from the same weights passed directly
         ckpt = str(run / "checkpoints")
         n = 128
-        generate_main(["--ckpt_path", ckpt, "--load_ema", "--num_samples", str(n), "--batch_size", str(n),
-                       "--output_dir", str(tmp / "cli")])
+        from_ckpt = _cli_generate(["--ckpt_path", ckpt, "--load_ema", "--num_samples", str(n), "--batch_size", str(n),
+                                   "--output_dir", str(tmp / "cli")])
         pngs = sorted((tmp / "cli").glob("*.png"))
-        from_ckpt = generate(str(tmp / "ckpt"), n, 32, n, ckpt_path=ckpt, load_ema=True, keep_samples=True)
         state, _ = CheckpointManager(ckpt).restore()
         model = build_model("cifar10", "cpu")
         model.load_state_dict({**state.ema[0], **state.constants})
@@ -1439,6 +1468,27 @@ def phase_run_loop(smi: str, bare: dict) -> tuple[dict, float]:
               f"for bit to generate() from the EMA weights as a weights file ({from_ckpt['img_per_s']:.2f} img/s "
               f"Heun-32 at batch {n})", flush=True)
     return per_step, loop_ms
+
+
+def _cli_generate(argv: list[str]) -> dict:
+    """``python -m tinyedm_tpu_torch.generate`` (its ``main``) on ``argv``,
+    with the samples its generate() call kept: the CLI's own result, in
+    place of a second, equivalent generate(ckpt_path=...) solve."""
+    from tinyedm_tpu_torch import generate as gen
+
+    kept = []
+    real = gen.generate
+
+    def keeping(*args, **kwargs):
+        kept.append(real(*args, **{**kwargs, "keep_samples": True}))
+        return kept[-1]
+
+    gen.generate = keeping
+    try:
+        gen.main(argv)
+    finally:
+        gen.generate = real
+    return kept[-1]
 
 
 def _write_latents(root: Path, n: int, seed: int):
@@ -1690,7 +1740,6 @@ def phase_posthoc(smi: str, run: Path, steps: list[int], tmp: Path) -> None:
     from tinyedm_tpu_torch import posthoc_ema
     from tinyedm_tpu_torch.configs import build_model
     from tinyedm_tpu_torch.generate import generate
-    from tinyedm_tpu_torch.generate import main as generate_main
     from tinyedm_tpu_torch.training.checkpoint import CheckpointManager
     from tinyedm_tpu_torch.training.ema import sigma_rel_to_gamma, solve_posthoc_weights
     from tinyedm_tpu_torch.utils.interop import save_weights
@@ -1728,11 +1777,10 @@ def phase_posthoc(smi: str, run: Path, steps: list[int], tmp: Path) -> None:
     # sample from it through the CLI, and from the same tree as a weights file
     n = PATHS["imagenet512"]["batch"]
     common = dict(num_classes=1000, num_channels=4, mean=LATENT_MEAN, std=LATENT_STD, keep_samples=True)
-    generate_main(["--ckpt_path", str(out), "--load_ema", "--num_classes", "1000", "--num_channels", "4",
-                   "--image_size", "64", "--num_samples", str(n), "--batch_size", str(n), "--output_dir",
-                   str(tmp / "cli"), "--mean", *map(str, LATENT_MEAN), "--std", *map(str, LATENT_STD)])
+    from_ckpt = _cli_generate(["--ckpt_path", str(out), "--load_ema", "--num_classes", "1000", "--num_channels", "4",
+                               "--image_size", "64", "--num_samples", str(n), "--batch_size", str(n), "--output_dir",
+                               str(tmp / "cli"), "--mean", *map(str, LATENT_MEAN), "--std", *map(str, LATENT_STD)])
     pngs = sorted((tmp / "cli").glob("*.png"))
-    from_ckpt = generate(str(tmp / "ckpt"), n, 64, n, ckpt_path=str(out), load_ema=True, **common)
     model = build_model("imagenet512", "cpu")
     model.load_state_dict({**written.ema[0], **written.constants})
     del written
@@ -2606,7 +2654,7 @@ REF_FWD_BATCH = 8
 # fused="on" layer shapes (batch, channels, side): n = 1024 and the odd 961
 REMAT_FORMS = {"off": {}, "full": dict(remat=True, remat_policy="full"),
                "convs": dict(remat=True, remat_policy="convs")}
-KNOB_STEPS = (2, 5)
+KNOB_STEPS = (1, 3)
 ON_LAYERS = [(8, 256, 32), (8, 256, 31)]
 ON_TOL = {"bfloat16": (1e-2, 2e-2), "float32": (1e-5, 1e-5)}  # output, gradients: relative L2
 
@@ -2681,7 +2729,6 @@ def phase_reference_checkpoints(smi: str, tmp: Path) -> None:
     from tinyedm_tpu_torch.config.registry import deinstantiate, instantiate, load_config
     from tinyedm_tpu_torch.configs import build_model
     from tinyedm_tpu_torch.generate import generate
-    from tinyedm_tpu_torch.generate import main as generate_main
     from tinyedm_tpu_torch.ops import fused_attention as fa
     from tinyedm_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
     from tinyedm_tpu_torch.utils import interop
@@ -2733,13 +2780,11 @@ def phase_reference_checkpoints(smi: str, tmp: Path) -> None:
             common.update(num_classes=1000, num_channels=4, mean=LATENT_MEAN, std=LATENT_STD)
         _clear_counts()
         with contextlib.redirect_stdout(said):
-            generate_main(args)
+            from_ckpt = _cli_generate(args)
         counts = {k: v for k, v in fa.launch_counts.items() if v}
         expected = {("fwd", m): 63 * c for m, c in p["calls"].items()}
         if "EMA weights loaded." not in said.getvalue() or counts != expected:
             fail(f"{config} generate --ckpt_path --load_ema: launches {counts}, expected {expected}")
-        from_ckpt = generate(str(tmp / f"{config}_a"), n, side, n, ckpt_path=str(imported), load_ema=True,
-                             **common)
         ema_model = build_model(config, "cpu")
         ema_model.load_state_dict({**ema_cpu, **{k: v.cpu() for k, v in state.constants.items()}})
         save_weights(ema_model, tmp / f"{config}_ema.pt", config)
@@ -3165,6 +3210,20 @@ def _per_step_inventory(inventories: list) -> str:
     return ", ".join(f"{v['count']} {k} of {v['bytes'] / 1e6:.2f} MB" for k, v in s.items()) or "none"
 
 
+def _print_inventory(tag: str, what: str, inv: list, param_bytes: int, rows: bool = True) -> None:
+    """One program's collectives as the collective-audit CLI reports them:
+    the summary, the payload, the ring estimate of the bytes a rank puts on
+    the wire beside the params' bytes, and ``format_inventory``'s rows."""
+    from tinyedm_tpu_torch.parallel.audit import format_inventory, inventory_summary, wire_bytes
+
+    print(f"[{tag}] {what}: {inventory_summary(inv)}; payload total {sum(c.bytes for c in inv) / 1e6:.2f} MB, "
+          f"ring-estimate wire bytes a rank {sum(wire_bytes(c) for c in inv) / 1e6:.2f} MB (params "
+          f"{param_bytes / 1e6:.2f} MB fp32)" + ("" if rows else f"; {len(inv)} rows not shown"), flush=True)
+    if rows:
+        for row in format_inventory(inv).splitlines():
+            print(f"[{tag}]   {row}", flush=True)
+
+
 def _flat(tree: dict, order: dict | None = None):
     """One fp64 vector of a host tree's tensors, in ``order``'s keys (its own
     by default)."""
@@ -3216,9 +3275,12 @@ def _check_ranks(tag: str, ranks: list[dict], ref: dict, smi: str) -> None:
           f"{_per_step_inventory(z1['inventories'])}; rows 1-4 launches {_fmt(want)} per rank step, as phase 9's "
           f"per step; moment bytes per rank dp {dp['moment_bytes'] / 1e6:.2f} MB, zero1 {z1_moments} MB; EMA bytes "
           f"dp {dp['ema_bytes'] / 1e6:.2f} MB, zero1 {z1_ema} MB | {smi}", flush=True)
+    param_bytes = 4 * sum(v.numel() for v in ours["start"].values())
+    for name, r in (("data parallel", dp), ("ZeRO-1", z1)):
+        _print_inventory(tag, f"{name}, one rank step", r["inventories"][-1], param_bytes)
 
 
-def phase_data_parallel(smi: str, loop_ms: float | None, bare: dict) -> None:
+def phase_data_parallel(smi: str, loop_ms: float | None, bare: dict, lap=None) -> None:
     """Phase 34 (docstring): (a) a one-rank NCCL group through the CIFAR-10
     run loop, (b) two ranks sharing the card over gloo, (c) two cards over
     NCCL where there are two; then phase 35, whose two-rank generate runs in
@@ -3277,6 +3339,7 @@ def phase_data_parallel(smi: str, loop_ms: float | None, bare: dict) -> None:
               f"gaps and {(grads[0].bytes - 4 * trainer.plan.padded) // 4} scalars), no all_gather; each "
               f"validation one all_reduce of {scalars[0].bytes} B; in all {summary}; launches {_fmt(counts)} | "
               f"{smi}", flush=True)
+        _print_inventory("34 data parallel", "(a) one loop step", grads[:1], trainer.plan.param_bytes)
         del trainer
         torch.cuda.empty_cache()
 
@@ -3298,6 +3361,8 @@ def phase_data_parallel(smi: str, loop_ms: float | None, bare: dict) -> None:
             print(f"[34 data parallel] (c) NCCL over two cards did not run: this machine has "
                   f"{torch.cuda.device_count()} card", flush=True)
 
+        if lap is not None:
+            lap("34")
         # 35: the CLIs over ranks
         phase_dp_clis(smi, tmp, ranks)
 
@@ -3487,9 +3552,10 @@ def _tp_generate(out_dir: str, model_parallel: int) -> dict:
 
 
 def _tp_rank(rank: int, size: int, store: str, out: str, backend: str, task: str, tmp: str) -> None:
-    """One spawned rank of phase 36: (a) the 1 x 2 grid's steps, (b) the
-    2 x 2 grid's ZeRO-1 step, (c) generate --model_parallel 2. Writes its
-    numbers to ``out``."""
+    """One spawned rank of phase 36: (a) the 1 x 2 grid's steps, then in
+    the same group (c) generate --model_parallel 2 and phase 40's audit
+    (``_audit_in_rank``), so that one start-up serves the three; or (b) the
+    2 x 2 grid's ZeRO-1 step. Writes its numbers to ``out``."""
     import os
     from datetime import timedelta
 
@@ -3502,12 +3568,15 @@ def _tp_rank(rank: int, size: int, store: str, out: str, backend: str, task: str
 
     mesh.init_distributed(backend=backend, init_method=f"file://{store}", timeout=timedelta(seconds=TP_TIMEOUT))
     device = resolve_device(None)
-    if task == "c":
-        result = _tp_generate(str(Path(tmp) / "gen-tp"), TP_SIZE)
-    else:
-        grid = mesh.make_grid(TP_SIZE)
-        result = {dt: _tp_steps(device, grid, zero1=task == "b", steps=TP_STEPS if task == "a" else 1,
-                                dropout=task == "a", dtype_name=dt) for dt in TP_DTYPES}
+    grid = mesh.make_grid(TP_SIZE)
+    result = {dt: _tp_steps(device, grid, zero1=task == "b", steps=TP_STEPS if task == "a" else 1,
+                            dropout=task == "a", dtype_name=dt) for dt in TP_DTYPES}
+    if task == "a":
+        result["c"] = _tp_generate(str(Path(tmp) / f"gen-tp-{backend}"), TP_SIZE)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["audit"] = _audit_in_rank()
+        result["audit"]["seconds"] = time.perf_counter() - t0
     result.update(device=str(device), backend=backend)
     torch.distributed.destroy_process_group()
     torch.save(result, out)
@@ -3622,14 +3691,17 @@ def _tp_gates(tag: str, ranks: list[dict], ref: dict, smi: str) -> None:
           f"(kind, group, size) {groups}, the largest {biggest / 1e6:.3f} MB (the params "
           f"{one['param_bytes'] / 1e6:.2f} MB); rows 1-4 launches {_fmt(want)} per rank step at "
           f"{HEADS // TP_SIZE} heads | {smi}", flush=True)
+    _print_inventory(tag, "bf16, one rank step", inv, one["param_bytes"])
 
 
-def phase_tensor_parallel(smi: str) -> dict:
+def phase_tensor_parallel(smi: str) -> tuple[dict, list[dict]]:
     """Phase 36 (docstring). Returns the rows 1-4 launches of (a)'s rank 0
-    (3 steps) and (c)'s rank 0 (one generate), by direction and n."""
+    (3 steps) and (c)'s rank 0 (one generate), by direction and n, and
+    (a)'s ranks' results, which hold phase 40's audit."""
     import numpy as np
     import torch
 
+    from tinyedm_tpu_torch.configs import model_from_config
     from tinyedm_tpu_torch.parallel.audit import inventory_summary
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3639,8 +3711,8 @@ def phase_tensor_parallel(smi: str) -> dict:
         t0 = time.perf_counter()
         a = _spawn_tp("a", TP_SIZE, "gloo", tmp)
         _tp_gates("36 tensor parallel (a) 1 x 2", a, ref, smi)
-        print(f"[36 tensor parallel] (a) spawned ranks ran {time.perf_counter() - t0:.1f} s, start-up included",
-              flush=True)
+        print(f"[36 tensor parallel] (a) spawned ranks ran {time.perf_counter() - t0:.1f} s, start-up, (c)'s "
+              f"generate and phase 40's audit included", flush=True)
         # (b) a 2 x 2 grid with ZeRO-1, one step, draws injected
         ref_b = {dt: _tp_steps("cuda", None, False, 1, False, dt) for dt in TP_DTYPES}
         _tp_gates("36 tensor parallel (b) 2 x 2 zero1", _spawn_tp("b", 2 * TP_SIZE, "gloo", tmp), ref_b, smi)
@@ -3649,12 +3721,12 @@ def phase_tensor_parallel(smi: str) -> dict:
         # (c) ImageNet-512 generate --model_parallel 2 against one process
         one = _tp_generate(str(tmp / "gen-one"), 1)
         torch.cuda.empty_cache()
-        c = _spawn_tp("c", TP_SIZE, "gloo", tmp)
+        c = [r["c"] for r in a]  # (a)'s ranks ran it
         ours, theirs = c[0]["samples"], one["samples"]
         if not (np.isfinite(ours).all() and ours.shape == theirs.shape == (TP_GEN, 64, 64, 4)):
             fail(f"36 (c): samples {ours.shape} finite {np.isfinite(ours).all()}")
         close = np.abs(ours - theirs) <= TP_GEN_TOL + TP_GEN_TOL * np.abs(theirs)
-        pngs = sorted(x.name for x in (tmp / "gen-tp").glob("*.png"))
+        pngs = sorted(x.name for x in (tmp / "gen-tp-gloo").glob("*.png"))
         if not close.all() or c[0]["written"] != list(range(TP_GEN)) or c[1]["written"] or len(pngs) != TP_GEN:
             fail(f"36 (c): {int((~close).sum())} values off rtol = atol = {TP_GEN_TOL}; rows written "
                  f"{[r['written'] for r in c]}, PNGs {pngs}")
@@ -3670,6 +3742,9 @@ def phase_tensor_parallel(smi: str) -> dict:
               f"{TP_GEN} PNGs written once, by model rank 0; rows 1-2 launches {_fmt(want)} a rank; collectives "
               f"{summary}; {max(r['seconds'] for r in c):.2f} s a rank (host-staged gloo, NOT NCCL's speed), one "
               f"process {one['seconds']:.2f} s | {smi}", flush=True)
+        with torch.device("meta"):
+            in512_bytes = 4 * sum(x.numel() for x in model_from_config("imagenet512").parameters())
+        _print_inventory("36 tensor parallel", "(c) generate on rank 0", c[0]["inventory"], in512_bytes, rows=False)
         # (d) NCCL over two cards
         if torch.cuda.device_count() >= 2:
             _tp_gates("36 tensor parallel (d) nccl 1 x 2", _spawn_tp("a", TP_SIZE, "nccl", tmp), ref, smi)
@@ -3677,19 +3752,109 @@ def phase_tensor_parallel(smi: str) -> dict:
             print(f"[36 tensor parallel] (d) NCCL over two cards did not run: this machine has "
                   f"{torch.cuda.device_count()} card", flush=True)
     return {"cifar10_tp": {k: v * TP_STEPS for k, v in a[0]["bfloat16"]["launches"][0].items()},
-            "imagenet512_tp": c[0]["launches"]}
+            "imagenet512_tp": c[0]["launches"]}, a
+
+
+# ---------------------------------------------------------------------------
+# phase 40: the collective-audit CLI (tinyedm_tpu_torch/collective_audit.py)
+# ---------------------------------------------------------------------------
+AUDIT_ARGS = dict(config="cifar10", batch=TP_GLOBAL, model_parallel=TP_SIZE, sampler=True)
+
+
+def _audit_in_rank() -> dict:
+    """``collective_audit.audit(**AUDIT_ARGS)`` on this rank, with the
+    (direction, n, heads) of every rows 1-4 launch it made."""
+    from tinyedm_tpu_torch import collective_audit
+    from tinyedm_tpu_torch.ops import fused_attention as fa
+
+    shapes = set()
+    real_fwd, real_bwd = fa._fwd, fa._bwd
+
+    def fwd(qkv, num_heads, *args, **kw):
+        shapes.add(("fwd", qkv.shape[1], num_heads))
+        return real_fwd(qkv, num_heads, *args, **kw)
+
+    def bwd(qkv, g, o, num_heads, *args, **kw):
+        shapes.add(("bwd", qkv.shape[1], num_heads))
+        return real_bwd(qkv, g, o, num_heads, *args, **kw)
+
+    fa._fwd, fa._bwd = fwd, bwd
+    try:
+        result = collective_audit.audit(**AUDIT_ARGS)
+    finally:
+        fa._fwd, fa._bwd = real_fwd, real_bwd
+    return {**result, "shapes": shapes}
+
+
+def phase_collective_audit(smi: str, tp_ranks: list[dict]) -> None:
+    """Phase 40 (docstring). ``tp_ranks``: phase 36 (a)'s ranks' results,
+    which hold the audit each ran after (a)'s steps and (c)'s generate; the
+    audit's train step must equal (a)'s last bf16 step in summary."""
+    import torch
+
+    from tinyedm_tpu_torch import collective_audit
+    from tinyedm_tpu_torch.parallel.audit import inventory_summary, wire_bytes
+
+    if torch.cuda.device_count() < 2:
+        try:
+            collective_audit.parse_args(["--devices", "2"])
+        except ValueError as e:
+            print(f"[40 collective audit] --devices 2 over NCCL on {torch.cuda.device_count()} card refused: {e}",
+                  flush=True)
+        else:
+            fail("40: --devices 2 over NCCL was not refused on one card")
+    ranks = [r["audit"] for r in tp_ranks]
+    tp_step = tp_ranks[0]["bfloat16"]["inventories"][-1]
+    seconds = max(r["seconds"] for r in ranks)
+    r0 = ranks[0]
+    train, sampler = r0["programs"]
+    forwards = 2 * collective_audit.HEUN_STEPS - 1
+    calls = PATHS["cifar10"]["calls"]
+    want_train = {(d, n): c for n, c in calls.items() for d in ("fwd", "bwd")}
+    want_sampler = {("fwd", n): c * forwards for n, c in calls.items()}
+    heads = {h for r in ranks for _, _, h in r["shapes"]}
+    bad = []
+    if any([p["inventory"] for p in r["programs"]] != [p["inventory"] for p in r0["programs"]] for r in ranks):
+        bad.append("the ranks' inventories differ")
+    if inventory_summary(train["inventory"]) != inventory_summary(tp_step):
+        bad.append(f"train step {inventory_summary(train['inventory'])} != phase 36 (a)'s "
+                   f"{inventory_summary(tp_step)}")
+    if any(r["programs"][0]["launches"] != want_train or r["programs"][1]["launches"] != want_sampler
+           for r in ranks) or heads != {HEADS // TP_SIZE}:
+        bad.append(f"rows 1-4 launches {[[p['launches'] for p in r['programs']] for r in ranks]} at heads {heads}, "
+                   f"expected {want_train} and {want_sampler} at {HEADS // TP_SIZE}")
+    inv = sampler["inventory"]
+    if {(c.kind, c.group) for c in inv[:-1]} != {("all_gather", "model")} or inv[-1].kind != "barrier":
+        bad.append(f"sampler collectives {inventory_summary(inv)}")
+    if max(c.bytes for c in train["inventory"]) >= r0["param_bytes"]:
+        bad.append("a train-step collective carries the whole params")
+    if bad:
+        fail(f"40 collective audit: {'; '.join(bad)}")
+    for line in collective_audit.report({**r0, "programs": [train]}).splitlines():
+        print(f"[40 collective audit] {line}", flush=True)
+    print(f"[40 collective audit] ===== {sampler['name']} =====: {inventory_summary(inv)}; payload total "
+          f"{sum(c.bytes for c in inv) / 1e6:.2f} MB, ring-estimate wire bytes a rank "
+          f"{sum(wire_bytes(c) for c in inv) / 1e6:.2f} MB a solve ({len(inv)} rows not shown); rows 1-4 launches "
+          f"{_fmt(sampler['launches'])}", flush=True)
+    print(f"[40 collective audit] collective_audit.audit on 2 ranks sharing the card over gloo, {AUDIT_ARGS}: the "
+          f"ranks' inventories equal, the train step's summary phase 36 (a)'s, rows 1-4 at {HEADS // TP_SIZE} heads "
+          f"a rank ({_fmt(want_train)} a step, {_fmt(want_sampler)} a solve); {seconds:.1f} s in phase 36 (a)'s "
+          f"ranks, after their steps (host-staged gloo, NOT NCCL's speed) | {smi}", flush=True)
 
 
 # phase 38: validate_learning's two runs, and rows 2 and 4 at its shapes
 # (attention at 8x8: 2 heads of 48, the training batch 256, CFG's stacked 512)
 VL_RUNS = (("default", {}), ("guided", dict(guided=True, autoguided=True, solver="dpmpp2m")))
+VL_STEPS = 600  # train steps a run (the JAX experiment's 1500 cut for time; the autoguide is step 300's EMA)
 VL_LAYERS, VL_HEADS = 2, 2  # attention layers a forward (EncA, DecA); heads a layer
 VL_FWD_SHAPES = [("validate", 256, 64, 48, f"{FUSED_FWD}:253"), ("validate_cfg", 512, 64, 48, f"{FUSED_FWD}:253")]
 VL_BWD_SHAPES = [("validate", 256, 64, 48, f"{FUSED_FWD}:305")]
 VL_TIMEOUT = 900  # seconds for the spawned run, start-up included
 # phase 39: the soak across both lr boundaries, stopped at 300 and resumed to 400
-SOAK_ARGS = ["--rampup", "100", "--steady", "200", "--decay", "100", "--ckpt_every", "200", "--tag", "chip"]
-SOAK_STOP, SOAK_TOTAL = 300, 400
+SOAK_RAMPUP, SOAK_STEADY, SOAK_DECAY, SOAK_CKPT = 50, 100, 50, 100
+SOAK_ARGS = ["--rampup", str(SOAK_RAMPUP), "--steady", str(SOAK_STEADY), "--decay", str(SOAK_DECAY), "--ckpt_every",
+             str(SOAK_CKPT), "--tag", "chip"]
+SOAK_STOP, SOAK_TOTAL = 150, 200  # stopped at the steady -> decay boundary, resumed in the decay phase
 
 
 def phase_api(smi: str) -> None:
@@ -3786,7 +3951,8 @@ def _vl_run(tag: str) -> dict:
     with _edm_forwards() as by_batch:
         _clear_counts()
         t0 = time.perf_counter()
-        result = vl.run(device="cuda", **dict(VL_RUNS)[tag], log=lambda line: print(f"[38 {tag}] {line}", flush=True),
+        result = vl.run(device="cuda", steps=VL_STEPS, **dict(VL_RUNS)[tag],
+                        log=lambda line: print(f"[38 {tag}] {line}", flush=True),
                         stage=lambda name: marks.append((name, dict(fa.launch_counts), dict(by_batch))))
         result["seconds"] = time.perf_counter() - t0
     result.update(stages=_stage_diffs(marks), flash=_flash_calls())
@@ -3836,7 +4002,7 @@ def phase_validate_learning(smi: str) -> list[dict]:
         solver = options.get("solver", "heun")
         forwards = vl.SOLVER_STEPS if solver == "dpmpp2m" else 2 * vl.SOLVER_STEPS - 1
         b = vl.N_PER * vl.NUM_CLASSES
-        want = {"train": ({("fwd", 64): VL_LAYERS * vl.STEPS, ("bwd", 64): VL_LAYERS * vl.STEPS}, {}),
+        want = {"train": ({("fwd", 64): VL_LAYERS * VL_STEPS, ("bwd", 64): VL_LAYERS * VL_STEPS}, {}),
                 "sample": ({("fwd", 64): VL_LAYERS * forwards}, {b: forwards})}
         if options.get("guided"):
             want["cfg2"] = ({("fwd", 64): VL_LAYERS * forwards}, {2 * b: forwards})
@@ -3859,7 +4025,7 @@ def phase_validate_learning(smi: str) -> list[dict]:
         print(f"[38 validate_learning] {tag} ({solver}-{vl.SOLVER_STEPS}{', --guided --autoguided' if options else ''}"
               f"{', a spawned process' if tag == 'guided' else ''}): RESULT: PASS; own/best-other sims by class "
               f"{base}" + (f"; {guided}" if guided else "")
-              + f"; {vl.STEPS} steps of {vl.BATCH} in {result['train_s']:.2f} s ({result['ms_per_step']:.3f} ms a "
+              + f"; {VL_STEPS} steps of {vl.BATCH} in {result['train_s']:.2f} s ({result['ms_per_step']:.3f} ms a "
               f"step, {vl.BATCH / result['ms_per_step'] * 1e3:.1f} samples/s, beside the other run), final loss "
               f"{result['final_loss']:.4f}; solves {solves}; rows 2 and 4 launched {VL_LAYERS} + {VL_LAYERS} a train "
               f"step ({_fmt(stages['train'][0])} in all), {VL_LAYERS} a forward; {result['seconds']:.1f} s | {smi}",
@@ -3873,7 +4039,7 @@ def phase_validate_learning(smi: str) -> list[dict]:
         e = _fwd_shape("38 validate_learning", config, b, n, hd, VL_HEADS, replaces)
         if config == "validate":  # every forward of the default run: its training and its Heun-18 solve
             e["launches"] = sum(st[0].get(("fwd", n), 0) for st in runs["default"]["stages"].values())
-            e["path"] = "validate_learning default run: 1500 train steps at 256 and Heun-18 at 256"
+            e["path"] = f"validate_learning default run: {VL_STEPS} train steps at 256 and Heun-18 at 256"
             e["launches_per_train_step"] = VL_LAYERS
         else:  # the CFG solves of the guided run (the interval's forwards outside it at 256 included)
             e["launches"] = sum(runs["guided"]["stages"][s][0].get(("fwd", n), 0) for s in ("cfg2", "cfg2-interval"))
@@ -3882,7 +4048,7 @@ def phase_validate_learning(smi: str) -> list[dict]:
     for config, b, n, hd, replaces in VL_BWD_SHAPES:
         e = _bwd_shape("38 validate_learning", config, b, n, hd, VL_HEADS, replaces)
         e["launches"] = runs["default"]["stages"]["train"][0][("bwd", n)]
-        e["path"] = "validate_learning default run: 1500 train steps at 256"
+        e["path"] = f"validate_learning default run: {VL_STEPS} train steps at 256"
         e["launches_per_train_step"] = VL_LAYERS
         entries.append(e)
     for e in entries:
@@ -3909,14 +4075,17 @@ def phase_soak(smi: str, bare: dict, loop_ms: float) -> None:
         ckpts = sorted(int(p.name) for p in (run / "checkpoints").iterdir())
     (fresh, t_fresh), (resumed, t_resumed) = calls
     steps = [r["step"] for r in records]
-    off = [r for r in records if not math.isclose(r["lr"], soak.ref_lr(r["step"], 0.02, 100, 200), rel_tol=5e-5)
+    off = [r for r in records
+           if not math.isclose(r["lr"], soak.ref_lr(r["step"], 0.02, SOAK_RAMPUP, SOAK_STEADY), rel_tol=5e-5)
            or not math.isfinite(r["train_loss"])]
     if (fresh["steps"], fresh["resumed_at"], resumed["steps"], resumed["resumed_at"]) != (
-            SOAK_STOP, None, SOAK_TOTAL, SOAK_STOP) or ckpts != [200, SOAK_STOP, SOAK_TOTAL] or off \
+            SOAK_STOP, None, SOAK_TOTAL, SOAK_STOP) or ckpts != [SOAK_CKPT, SOAK_STOP, SOAK_TOTAL] or off \
             or not fresh["final_loss"] < fresh["first_loss"] or steps != sorted(set(steps)) \
-            or not {98, 102, 298, 302, SOAK_TOTAL - 1} <= set(steps):
+            or not {b + d for b in (SOAK_RAMPUP, SOAK_RAMPUP + SOAK_STEADY) for d in (-2, 2)} | {SOAK_TOTAL - 1} \
+            <= set(steps):
         fail(f"39 soak: summaries {fresh} {resumed}, checkpoints {ckpts}, logged steps {steps}, off the formula {off}")
-    print(f"[39 soak] cifar10.yaml at full width (35.62 M parameters), rampup 100 / steady 200 / decay 100, "
+    print(f"[39 soak] cifar10.yaml at full width (35.62 M parameters), rampup {SOAK_RAMPUP} / steady {SOAK_STEADY} / "
+          f"decay {SOAK_DECAY}, "
           f"stopped at {SOAK_STOP} and resumed to {SOAK_TOTAL} (decay phase): RESULT: PASS twice; {len(records)} "
           f"logged steps on the lr formula (rel 5e-5), losses finite, first {fresh['first_loss']:.4f} -> "
           f"{fresh['final_loss']:.4f} at {SOAK_STOP - 1}, {resumed['final_loss']:.4f} at {SOAK_TOTAL - 1}; "
@@ -3938,32 +4107,47 @@ def main() -> int:
 
     resolve_device("cuda")  # fp32 without TF32
     t0 = time.perf_counter()
+    lap = Laps()
     smi = phase_environment()
+    lap("1")
     phase_build()
+    lap("2")
     fwd_entries = phase_kernel_vs_plain()
+    lap("3")
     bwd_entries = phase_bwd_kernel_vs_plain()
+    lap("4")
     flash_entries = phase_flash_kernels()
+    lap("5")
     layer_calls = phase_flash_layer()
+    lap("6")
     heun, train_counts, train_results = {}, {}, {}
     for tags, config in ((("7", "8", "9"), "cifar10"), (("10", "11", "12"), "imagenet512")):
         fused, unfused = _seeded_models(config)
         phase_forward(tags[0], config, fused, unfused)
         del unfused
+        lap(tags[0])
         heun[config] = phase_sample(tags[1], config, fused, "heun-32", {PATHS[config]["batch"]: 63})
         del fused
         torch.cuda.empty_cache()
+        lap(tags[1])
         train_results[config] = phase_train(tags[2], config)
         train_counts[config] = train_results[config]["counts"]
         torch.cuda.empty_cache()
+        lap(tags[2])
     block_entries = phase_block_kernels()
+    lap("13")
     phase_block_layer()
+    lap("14")
     block, unfused = _seeded_models("cifar10", "block")
     phase_forward("15", "cifar10", block, unfused, kind="block_fwd")
     del block, unfused
     torch.cuda.empty_cache()
+    lap("15")
     block_train = phase_train("16", "cifar10", fused="block", beside=train_results["cifar10"])
     torch.cuda.empty_cache()
+    lap("16")
     wino_entries = phase_winograd()
+    lap("17")
 
     # 18: MNIST (class-conditional): forward, CFG Heun-32 (stacked forwards
     # at twice the batch), training with label dropout, the eval step
@@ -3977,35 +4161,43 @@ def main() -> int:
     train_results["mnist"] = phase_train("18", "mnist", label_dropout=0.1, eval_profiles=0)
     train_counts["mnist"] = train_results["mnist"]["counts"]
     torch.cuda.empty_cache()
+    lap("18")
     # 19-20: CIFAR-10 with DPM-Solver++(2M) and with churn
     fused = _seeded("cifar10")
     b = PATHS["cifar10"]["batch"]
     phase_sample("19", "cifar10", fused, "dpm++(2m)-32", {b: 32}, beside=heun["cifar10"], solver="dpmpp2m")
+    lap("19")
     phase_sample("20", "cifar10", fused, "churn heun-32", {b: 63}, beside=heun["cifar10"], **CHURN)
     phase_churn_seeds("20", fused)
     del fused
     torch.cuda.empty_cache()
+    lap("20")
     # 21-22: ImageNet-512 with CFG on an interval and with autoguidance
     fused = _seeded("imagenet512")
     b = PATHS["imagenet512"]["batch"]
     imagenet_cfg = phase_sample(
         "21", "imagenet512", fused, f"cfg heun-32 on {CFG_INTERVAL}", {2 * b: 14, b: 49}, beside=heun["imagenet512"],
         guidance_scale=2.0, guidance_sigma_min=CFG_INTERVAL[0], guidance_sigma_max=CFG_INTERVAL[1])
+    lap("21")
     guide = _seeded("imagenet512", seed=1)
     phase_sample("22", "imagenet512", fused, "autoguidance heun-32", {b: 126}, beside=heun["imagenet512"],
                  guide=guide, guidance_scale=2.0)
     del fused, guide
     torch.cuda.empty_cache()
+    lap("22")
     # 23: ImageNet-64 training, the recipe's 3 x 176
     train_results["imagenet"] = phase_train("23", "imagenet", eval_profiles=1)
     train_counts["imagenet"] = train_results["imagenet"]["counts"]
     torch.cuda.empty_cache()
+    lap("23")
     # 24: the run loop at CIFAR-10 full width
     loop_per_step, loop_ms = {}, {}
     loop_per_step["cifar10"], loop_ms["cifar10"] = phase_run_loop(smi, train_results["cifar10"])
     torch.cuda.empty_cache()
+    lap("24")
     # 25: ImageNet-64 through the CLI at Lightning's 3 x 176
     loop_per_step["imagenet"] = phase_imagenet64_cli(smi, train_results["imagenet"])
+    lap("25")
     with tempfile.TemporaryDirectory() as vae_tmp:
         # the seeded sd-vae weights in a fake HF cache (phases 26, 29-31)
         vae_files = write_vae_files(Path(vae_tmp))
@@ -4014,36 +4206,47 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             in512 = phase_imagenet512_cli(smi, train_results["imagenet512"], Path(tmp), vae_files)
             loop_per_step["imagenet512"] = in512["per_step"]
+            lap("26 (with 31)")
             phase_posthoc(smi, in512["run"], in512["steps"], Path(tmp))
+        lap("27")
         # 28: FID on CIFAR-10
         phase_fid(smi)
         torch.cuda.empty_cache()
+        lap("28")
         # 29-30: the VAE at full width, latent extraction through the CLI
         phase_vae(smi, vae_files)
         torch.cuda.empty_cache()
+        lap("29")
         with tempfile.TemporaryDirectory() as tmp:
             phase_extract(smi, vae_files, Path(tmp))
+    lap("30")
     # 32: reference (Lightning) checkpoints at full width
     with tempfile.TemporaryDirectory() as tmp:
         phase_reference_checkpoints(smi, Path(tmp))
+    lap("32")
     # 33: remat, the bf16 island, fused="on"
     knob_entries = phase_knobs(smi)
     torch.cuda.empty_cache()
+    lap("33")
     # 34-35: data parallelism and ZeRO-1 over ranks, the CLIs over ranks
-    phase_data_parallel(smi, loop_ms["cifar10"], train_results["cifar10"])
+    phase_data_parallel(smi, loop_ms["cifar10"], train_results["cifar10"], lap)
     torch.cuda.empty_cache()
+    lap("35")
     # 36: tensor parallelism, ranks sharing the card over gloo
-    tp_counts = phase_tensor_parallel(smi)
+    tp_counts, tp_ranks = phase_tensor_parallel(smi)
     torch.cuda.empty_cache()
+    lap("36")
     # 37-39: the reference API, validate_learning, the soak
-    t37 = time.perf_counter()
     phase_api(smi)
-    t38 = time.perf_counter()
+    lap("37")
     vl_entries = phase_validate_learning(smi)
     torch.cuda.empty_cache()
-    t39 = time.perf_counter()
+    lap("38")
     phase_soak(smi, train_results["cifar10"], loop_ms["cifar10"])
-    print(f"[37-39] {t38 - t37:.1f} s, {t39 - t38:.1f} s, {time.perf_counter() - t39:.1f} s", flush=True)
+    lap("39")
+    # 40: the collective-audit CLI's function, run in phase 36 (a)'s ranks
+    phase_collective_audit(smi, tp_ranks)
+    lap("40")
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per

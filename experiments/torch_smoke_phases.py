@@ -1,23 +1,25 @@
 """Run the workflow phases of chip_smoke.py alone on the card.
 
-    python experiments/torch_smoke_phases.py [25] [26] [28] [29] [30] [32] [33] [34] [37] [38] [39]
+    python experiments/torch_smoke_phases.py [24] [25] [26] [28] [29] [30] [32] [33] [34] [36] [37] [38] [39]
 
 Phases 1 (environment) and 2 (the kernels' build), the bare train steps
-that phases 25, 26 and 34 are read against (12: ImageNet-512, 23:
+that phases 24, 25, 26, 34 and 39 are read against (12: ImageNet-512, 23:
 ImageNet-64, 9: CIFAR-10; only when one of them is named), then the phases
-named (all by default):
-25, ImageNet-64 through the CLI at 3 x 176; 26, ImageNet-512 through the
-CLI on a latpack store with its decoded previews (31), followed by 27,
-post-hoc EMA over its checkpoints and sampling from it; 28, FID on
-CIFAR-10; 29, the SD VAE at full width; 30, latent extraction through the
-CLI; 32, reference (Lightning) checkpoints at full width; 33, remat, the
-bf16 island and fused="on"; 34, data parallelism and ZeRO-1 over ranks,
-followed by 35, train --multihost under torch.distributed.run and generate
-on two ranks (phase 24's loop, beside which 34 and 39 print, does not run
-here); 37, the reference API on the card; 38, validate_learning's two runs
-and rows 2 and 4 at its shapes; 39, the soak at the CIFAR-10 recipe, stopped
-and resumed. Each phase prints its lines and gates as in chip_smoke.py, and
-its seconds. Needs a CUDA device; imports nothing of JAX.
+named (all by default): 24, the CIFAR-10 run loop through the CLI; 25,
+ImageNet-64 through the CLI at 3 x 176; 26, ImageNet-512 through the CLI on
+a latpack store with its decoded previews (31), followed by 27, post-hoc
+EMA over its checkpoints and sampling from it; 28, FID on CIFAR-10; 29, the
+SD VAE at full width; 30, latent extraction through the CLI; 32, reference
+(Lightning) checkpoints at full width; 33, remat, the bf16 island and
+fused="on"; 34, data parallelism and ZeRO-1 over ranks, followed by 35,
+train --multihost under torch.distributed.run and generate on two ranks
+(phase 24's loop, beside which 34 and 39 print, runs here only when named);
+36, tensor parallelism over ranks sharing the card, followed by 40, the
+collective-audit CLI's function (run in 36 (a)'s ranks); 37, the reference
+API on the card; 38, validate_learning's two runs and rows 2 and 4 at its
+shapes; 39, the soak at the CIFAR-10 recipe, stopped and resumed. Each
+phase prints its lines and gates as in chip_smoke.py, and its seconds.
+Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,14 +53,16 @@ def main(phases: list[str]) -> None:
     if "25" in phases:
         bare["25"] = cs.phase_train("23", "imagenet", eval_profiles=1)
         torch.cuda.empty_cache()
-    if "34" in phases or "39" in phases:
+    if {"24", "34", "39"} & set(phases):
         bare["34"] = cs.phase_train("9", "cifar10")
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as vae_tmp:
         vae_files = cs.write_vae_files(Path(vae_tmp))
         for name in phases:
             t = time.perf_counter()
-            if name == "25":
+            if name == "24":
+                print(cs.phase_run_loop(smi, bare["34"]))
+            elif name == "25":
                 print(cs.phase_imagenet64_cli(smi, bare["25"]))
             elif name == "26":
                 with tempfile.TemporaryDirectory() as tmp:
@@ -81,6 +85,11 @@ def main(phases: list[str]) -> None:
                 print(cs.phase_knobs(smi))
             elif name == "34":
                 cs.phase_data_parallel(smi, None, bare["34"])
+            elif name == "36":
+                _, ranks = cs.phase_tensor_parallel(smi)
+                t40 = time.perf_counter()
+                cs.phase_collective_audit(smi, ranks)
+                print(f"[phases] phase 40 {time.perf_counter() - t40:.1f} s", flush=True)
             elif name == "37":
                 cs.phase_api(smi)
             elif name == "38":
@@ -88,7 +97,7 @@ def main(phases: list[str]) -> None:
             elif name == "39":
                 cs.phase_soak(smi, bare["34"], None)
             else:
-                raise SystemExit(f"unknown phase {name} (25, 26, 28, 29, 30, 32, 33, 34, 37, 38 or 39)")
+                raise SystemExit(f"unknown phase {name} (24, 25, 26, 28, 29, 30, 32, 33, 34, 36, 37, 38 or 39)")
             torch.cuda.empty_cache()
             print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)

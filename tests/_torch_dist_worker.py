@@ -421,6 +421,15 @@ def plan_sync(rank: int, size: int, model_parallel: int = 1) -> list:
     return [dataclasses.astuple(c) for c in inv]
 
 
+def collective_audit(rank: int, size: int, **kwargs) -> dict:
+    """``tinyedm_tpu_torch.collective_audit.audit`` (the CLI's in-process
+    function) on the CPU, with its report's text."""
+    from tinyedm_tpu_torch.collective_audit import audit, report
+
+    result = audit(device="cpu", **kwargs)
+    return {**result, "report": report(result)}
+
+
 def many(rank: int, size: int, calls: list) -> list:
     """Several tasks, (name, args) each, in one group: one spawn for all."""
     return [globals()[task](rank, size, **args) for task, args in calls]

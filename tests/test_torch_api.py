@@ -376,7 +376,7 @@ JAX_ONLY = {
     "parallel/mesh.py": {"make_mesh", "DATA_AXIS", "MODEL_AXIS", "ShardingPlan", "batch_sharding", "replicated",
                          "constrain", "constrain_kernel", "constraint_mesh", "place_state", "place_variables",
                          "replicate_state", "state_shardings", "variables_shardings", "tp_param_spec", "zero1_spec"},
-    "parallel/audit.py": {"COLLECTIVE_KINDS", "group_shape", "while_body_computations", "format_inventory"},
+    "parallel/audit.py": {"COLLECTIVE_KINDS", "group_shape", "while_body_computations"},
     "generate.py": {"local_rows", "assemble_local_batch"},
     "training/train_step.py": {"make_adam"},
     "data/vae.py": {"JaxVAE", "convert_torch_vae", "Dtype"},
@@ -384,7 +384,6 @@ JAX_ONLY = {
     "ops/attention.py": {"MIN_PALLAS_TOKENS"},
     "utils/interop.py": {"denoiser_params_to_torch", "denoiser_params_from_torch", "embedding_to_torch",
                          "embedding_from_torch", "migrate_params_to_scanned"},
-    "utils/inception.py": {"convert_keras_inception"},  # ROADMAP item 4
     "models/blocks.py": {"Dtype"},
     "models/layers.py": {"Dtype"},
     "models/unet.py": {"Dtype"},

@@ -17,6 +17,13 @@ model-group collectives, and no collective carries the parameter tree.
     with collective_inventory() as inv:
         state, metrics = train_step(state, batch, generator, count)
     inventory_summary(inv)  # {"all_reduce": {"count": 1, "bytes": ...}}
+    print(format_inventory(inv))  # one row per collective
+    sum(wire_bytes(c) for c in inv)  # what this rank puts on the wire (ring)
+
+A collective made inside a Python loop (the sampler's Heun steps) is
+recorded on every trip, so an inventory counts what a program sends, where
+the JAX package's static HLO shows a loop body once
+(``experiments/collective_audit.py``'s "PER TRIP").
 """
 
 from __future__ import annotations
@@ -84,3 +91,32 @@ def inventory_summary(inv: Iterable[Collective]) -> dict[str, dict[str, int]]:
         d["count"] += 1
         d["bytes"] += c.bytes
     return out
+
+
+def wire_bytes(c: Collective) -> float:
+    """The bytes a rank puts on the wire for ``c`` under the ring algorithm
+    (``experiments/collective_audit.py::_wire_bytes``): an all-reduce (a
+    reduce-scatter and an all-gather) 2(n-1)/n of its payload, an
+    all-gather (n-1)/n of the gathered output, a barrier none; n is the
+    group size."""
+    n = c.group_size
+    if c.kind == "all_reduce":
+        return c.bytes * 2 * (n - 1) / n
+    if c.kind == "all_gather":
+        return c.bytes * (n - 1) / n
+    if c.kind == "barrier":
+        return 0.0
+    raise ValueError(f"no ring estimate for a collective of kind {c.kind!r}")
+
+
+def format_inventory(inv: Iterable[Collective]) -> str:
+    """A table of ``inv``, one row per collective in program order: kind,
+    payload MB, group and its size, dtype (the JAX package's
+    ``format_inventory``, for the port's records)."""
+    lines = []
+    for c in inv:
+        group = f"{c.group or 'world'}[{c.group_size}]"
+        lines.append(f"{c.kind:<12} {c.bytes / 1e6:>10.3f} MB  group={group:<10} {c.dtype or '-'}")
+    if not lines:
+        lines.append("(no collectives: single-device program)")
+    return "\n".join(lines)

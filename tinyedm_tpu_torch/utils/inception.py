@@ -21,8 +21,9 @@ there is no torchvision branch.
 ``jax.image.resize(..., "bilinear")`` does: a triangle kernel with half-pixel
 centres, widened by the scale when downsampling (antialiased), plain
 bilinear when upsampling. ``proxy_feature_fn`` draws its projections from
-``np.random.default_rng(seed)``, the JAX function's draws. The keras
-converter (``convert_keras_inception``) is not ported (it needs tf_keras).
+``np.random.default_rng(seed)``, the JAX function's draws.
+``convert_keras_inception`` reads a keras ``applications.InceptionV3`` by
+duck typing, as the JAX function does: no keras import.
 """
 
 from __future__ import annotations
@@ -218,6 +219,51 @@ def convert_torch_inception(state_dict: dict) -> dict[str, np.ndarray]:
     for prefix in _conv_prefixes():
         w, b = _fold_bn(state_dict, prefix)
         out[f"{prefix}.conv.weight"], out[f"{prefix}.conv.bias"] = w, b
+    return out
+
+
+def convert_keras_inception(model) -> dict[str, np.ndarray]:
+    """A keras (keras 2 or 3, or tf_keras) ``applications.InceptionV3`` as
+    the state dict of ``InceptionV3Pool3`` (OIHW kernels, BatchNorms
+    folded); load it with ``tf_avgpool=True``, keras's pool semantic.
+
+    Keras makes one Conv2D and one BatchNormalization per conv, named by a
+    global creation counter (``conv2d``, ``conv2d_1``, ...), in the order of
+    this module's convs (``_conv_prefixes``); ``model.layers`` is sorted
+    topologically and interleaves branches, so the layers are sorted by
+    that counter instead. Read by duck typing: ``model.layers``, each
+    layer's ``name`` and class name, a Conv2D's ``kernel`` (HWIO),
+    ``bias`` and ``use_bias``, a BatchNormalization's ``gamma``, ``beta``,
+    ``moving_mean``, ``moving_variance``, ``epsilon``, ``scale`` and
+    ``center``."""
+    import re
+
+    def creation_index(layer) -> int:
+        m = re.fullmatch(r"[a-z_\d]*?(?:_(\d+))?", layer.name)
+        if m is None:
+            raise ValueError(f"layer {layer.name!r} is not default-named; convert_keras_inception needs a freshly "
+                             "built applications.InceptionV3 (default layer names)")
+        return int(m.group(1) or 0)
+
+    def of_class(name: str) -> list:
+        return sorted((layer for layer in model.layers if layer.__class__.__name__ == name), key=creation_index)
+
+    convs, bns, prefixes = of_class("Conv2D"), of_class("BatchNormalization"), _conv_prefixes()
+    if not len(convs) == len(bns) == len(prefixes):
+        raise ValueError(f"expected {len(prefixes)} conv/bn pairs, got {len(convs)} convs / {len(bns)} bns - not an "
+                         "InceptionV3 trunk")
+    out = {}
+    for prefix, conv, bn in zip(prefixes, convs, bns):
+        w = np.asarray(conv.kernel, np.float32)  # HWIO
+        n_out = w.shape[-1]
+        gamma = np.asarray(bn.gamma, np.float32) if bn.scale else np.ones(n_out, np.float32)
+        beta = np.asarray(bn.beta, np.float32) if bn.center else np.zeros(n_out, np.float32)
+        mean = np.asarray(bn.moving_mean, np.float32)
+        var = np.asarray(bn.moving_variance, np.float32)
+        scale = gamma / np.sqrt(var + bn.epsilon)
+        bias = np.asarray(conv.bias, np.float32) if conv.use_bias else 0.0
+        out[f"{prefix}.conv.weight"] = np.ascontiguousarray((w * scale).transpose(3, 2, 0, 1))
+        out[f"{prefix}.conv.bias"] = beta + (bias - mean) * scale
     return out
 
 
