@@ -387,6 +387,7 @@ JAX_ONLY = {
     "models/blocks.py": {"Dtype"},
     "models/layers.py": {"Dtype"},
     "models/unet.py": {"Dtype"},
+    "utils/profiling.py": {"StepTimer", "device_memory_stats"},
 }
 
 

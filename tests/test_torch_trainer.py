@@ -364,15 +364,10 @@ def test_uneven_accumulation_raises_as_the_jax_cli(tmp_path):
 
 
 def test_profiling_hooks_on_the_cpu(tmp_path):
-    from tinyedm_tpu_torch.utils.profiling import StepTimer, device_memory_stats, trace
+    from tinyedm_tpu_torch.utils.profiling import span, trace
 
     with trace(tmp_path / "profile") as prof:
-        torch.ones(64).sum()
-    assert (tmp_path / "profile" / "trace.json").stat().st_size > 0 and prof.key_averages()
-    timer = StepTimer(window=2)
-    for _ in range(4):
-        timer.mark()
-    assert len(timer._times) == 2 and timer.steps_per_sec() > 0
-    assert timer.sync_value(torch.tensor(1.5)) == 1.5
-    stats = device_memory_stats()
-    assert stats == {} if not torch.cuda.is_available() else all("peak_bytes_in_use" in v for v in stats.values())
+        with span("tinyedm.test_region"):
+            torch.ones(64).sum()
+    written = (tmp_path / "profile" / "trace.json").read_text()
+    assert prof.key_averages() and '"tinyedm.test_region"' in written

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from tinyedm_tpu_torch.diffusion.guidance import IntervalGate
+from tinyedm_tpu_torch.utils.profiling import span
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
 
@@ -92,7 +93,8 @@ class DeterministicSolver:
         denoise_fn(x, sigma_batch, class_labels) -> D(x; sigma). x0: standard
         normal noise. Returns the final sample in the solver dtype."""
         t = self.t_steps
-        return _heun(denoise_fn, x0, class_labels, self.torch_dtype, t, t[:-1], None, None)
+        with span("tinyedm.solve"):
+            return _heun(denoise_fn, x0, class_labels, self.torch_dtype, t, t[:-1], None, None)
 
 
 def _scalar(v: float, dtype: torch.dtype) -> float:
@@ -155,7 +157,8 @@ def _heun(
         if i < n - 1:
             half_steps.append((_scalar(t[i + 1], dtype), False))
         for sigma, is_predict in half_steps:
-            d = _branch(denoise_fn, sigma)(x, _sigma_batch(sigma, b, x.device), class_labels).to(dtype)
+            with span("tinyedm.solve.denoise"):
+                d = _branch(denoise_fn, sigma)(x, _sigma_batch(sigma, b, x.device), class_labels).to(dtype)
             dx = (x - d) / sigma
             if is_predict:
                 x_base, x = x, x + h * dx
@@ -219,15 +222,17 @@ class MultistepSolver:
     ) -> torch.Tensor:
         dtype = self.torch_dtype
         b = x0.shape[0]
-        x = x0.to(dtype) * _scalar(self.t_steps[0], dtype)
-        d_prev = None
-        for row in self.tables():
-            sigma, ratio, phi, c1, c2 = (_scalar(v, dtype) for v in row)
-            d = _branch(denoise_fn, sigma)(x, _sigma_batch(sigma, b, x.device), class_labels).to(dtype)
-            d_hat = d if c2 == 0.0 else c1 * d + c2 * d_prev
-            x = ratio * x + phi * d_hat
-            d_prev = d
-        return x
+        with span("tinyedm.solve"):
+            x = x0.to(dtype) * _scalar(self.t_steps[0], dtype)
+            d_prev = None
+            for row in self.tables():
+                sigma, ratio, phi, c1, c2 = (_scalar(v, dtype) for v in row)
+                with span("tinyedm.solve.denoise"):
+                    d = _branch(denoise_fn, sigma)(x, _sigma_batch(sigma, b, x.device), class_labels).to(dtype)
+                d_hat = d if c2 == 0.0 else c1 * d + c2 * d_prev
+                x = ratio * x + phi * d_hat
+                d_prev = d
+            return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,6 +297,7 @@ class StochasticSolver:
                 "StochasticSolver with S_churn > 0 needs an explicit generator "
                 "(solve(..., generator=torch.Generator(device).manual_seed(...)))"
             )
-        t_hat, churn = self.tables()
-        return _heun(denoise_fn, x0, class_labels, self.torch_dtype, self.t_steps, t_hat,
-                     churn if self.S_churn > 0 else None, generator, rows)
+        with span("tinyedm.solve"):
+            t_hat, churn = self.tables()
+            return _heun(denoise_fn, x0, class_labels, self.torch_dtype, self.t_steps, t_hat,
+                         churn if self.S_churn > 0 else None, generator, rows)

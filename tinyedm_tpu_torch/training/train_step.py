@@ -40,6 +40,7 @@ from tinyedm_tpu_torch.training.lr_schedule import edm_lr_multiplier
 from tinyedm_tpu_torch.training.state import TrainState, force_weight_norm
 from tinyedm_tpu_torch.utils.cuda import folded_generator
 from tinyedm_tpu_torch.utils.interop import jax_group
+from tinyedm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,23 +171,26 @@ def make_grad_fn(model: EDM, diffuser: Diffuser, opt_cfg: OptimizerConfig, model
         loss = grads = metrics = None
         for i in range(a):
             mb = slice(i * m, (i + 1) * m)
-            mloss, mmetrics = loss_fn(images[mb], labels[mb] if labels is not None else None,
-                                      generator)
-            seed = None if model_size == 1 else torch.full_like(mloss, 1.0 / model_size)
-            mgrads = torch.autograd.grad(mloss, params, grad_outputs=seed, allow_unused=True)
-            mgrads = [torch.zeros_like(p) if g is None else g for g, p in zip(mgrads, params)]
-            mloss, mmetrics = mloss.detach(), {k: v.detach() for k, v in mmetrics.items()}
-            if grads is None:
-                loss, metrics, grads = mloss, mmetrics, mgrads
-            else:
-                loss = loss + mloss
-                metrics = {k: metrics[k] + mmetrics[k] for k in metrics}
-                torch._foreach_add_(grads, mgrads)
+            with span("tinyedm.train_step.forward"):
+                mloss, mmetrics = loss_fn(images[mb], labels[mb] if labels is not None else None,
+                                          generator)
+            with span("tinyedm.train_step.backward"):
+                seed = None if model_size == 1 else torch.full_like(mloss, 1.0 / model_size)
+                mgrads = torch.autograd.grad(mloss, params, grad_outputs=seed, allow_unused=True)
+                mgrads = [torch.zeros_like(p) if g is None else g for g, p in zip(mgrads, params)]
+                mloss, mmetrics = mloss.detach(), {k: v.detach() for k, v in mmetrics.items()}
+                if grads is None:
+                    loss, metrics, grads = mloss, mmetrics, mgrads
+                else:
+                    loss = loss + mloss
+                    metrics = {k: metrics[k] + mmetrics[k] for k in metrics}
+                    torch._foreach_add_(grads, mgrads)
         if a > 1:
-            torch._foreach_mul_(grads, 1.0 / a)
-            loss = loss * (1.0 / a)
-            if "uncertainty" in metrics:
-                metrics["uncertainty"] = metrics["uncertainty"] * (1.0 / a)
+            with span("tinyedm.train_step.backward"):
+                torch._foreach_mul_(grads, 1.0 / a)
+                loss = loss * (1.0 / a)
+                if "uncertainty" in metrics:
+                    metrics["uncertainty"] = metrics["uncertainty"] * (1.0 / a)
         return loss, metrics, grads
 
     return grad_fn
@@ -219,56 +223,61 @@ def make_train_step(
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator], sched_count,
                    interrupt: bool = False):
-        images, labels = batch
-        loss, metrics, grads = grad_fn(state, images, labels, generator)
-        stop = None
-        if plan is not None:
-            means = [loss] + ([metrics["uncertainty"]] if "uncertainty" in metrics else [])
-            flag = torch.full((), float(interrupt), device=loss.device)
-            grads, means, sums = plan.sync(grads, means, [metrics["sse"], metrics["count"]], [flag])
-            loss, metrics = means[0], {"sse": sums[0], "count": sums[1]} | (
-                {"uncertainty": means[1]} if len(means) > 1 else {})
-            stop = sums[2]
-        per_layer = _per_layer_norms(state.params, grads, plan) if opt_cfg.log_norms_per_layer else {}
+        with span("tinyedm.train_step"):
+            images, labels = batch
+            loss, metrics, grads = grad_fn(state, images, labels, generator)
+            stop = None
+            if plan is not None:
+                means = [loss] + ([metrics["uncertainty"]] if "uncertainty" in metrics else [])
+                flag = torch.full((), float(interrupt), device=loss.device)
+                grads, means, sums = plan.sync(grads, means, [metrics["sse"], metrics["count"]], [flag])
+                loss, metrics = means[0], {"sse": sums[0], "count": sums[1]} | (
+                    {"uncertainty": means[1]} if len(means) > 1 else {})
+                stop = sums[2]
+            with span("tinyedm.train_step.optimizer"):
+                per_layer = _per_layer_norms(state.params, grads, plan) if opt_cfg.log_norms_per_layer else {}
 
-        # pre-clip global norm, for the clip and for log_norms
-        raw_gnorm = clip_scale = None
-        if opt_cfg.grad_clip_norm is not None or opt_cfg.log_norms:
-            raw_gnorm = _global_norm(grads, plan)
-        if opt_cfg.grad_clip_norm is not None:
-            clip_scale = torch.clamp(opt_cfg.grad_clip_norm / (raw_gnorm + 1e-12), max=1.0)
-            torch._foreach_mul_(grads, clip_scale)
+                # pre-clip global norm, for the clip and for log_norms
+                raw_gnorm = clip_scale = None
+                if opt_cfg.grad_clip_norm is not None or opt_cfg.log_norms:
+                    raw_gnorm = _global_norm(grads, plan)
+                if opt_cfg.grad_clip_norm is not None:
+                    clip_scale = torch.clamp(opt_cfg.grad_clip_norm / (raw_gnorm + 1e-12), max=1.0)
+                    torch._foreach_mul_(grads, clip_scale)
 
-        lr = opt_cfg.lr * edm_lr_multiplier(sched_count, opt_cfg.rampup_steps,
-                                            opt_cfg.steady_steps)
-        if plan is not None and plan.zero1:
-            adam_update_range(state, grads, plan, opt_cfg.betas, opt_cfg.eps, float(lr))
-            plan.gather_params(state.params)
-        else:
-            adam_update(state, grads, opt_cfg.betas, opt_cfg.eps, float(lr))
-        force_weight_norm(state.params)
-        # power-function EMA(s): decay and check on the pre-increment step;
-        # under ZeRO-1 on this rank's pieces of the params
-        ema_source = state.params
-        if plan is not None and plan.zero1:
-            ema_source = {plan.names[i]: v for (i, *_), v in zip(plan.pieces, plan.pieces_of(state.params))}
-        for tree, gamma in zip(state.ema, gammas):
-            maybe_ema_update(tree, ema_source, state.step, gamma, every_n)
-        state.step += 1
+                lr = opt_cfg.lr * edm_lr_multiplier(sched_count, opt_cfg.rampup_steps,
+                                                    opt_cfg.steady_steps)
+                with span("tinyedm.train_step.optimizer.adam"):
+                    if plan is not None and plan.zero1:
+                        adam_update_range(state, grads, plan, opt_cfg.betas, opt_cfg.eps, float(lr))
+                        plan.gather_params(state.params)
+                    else:
+                        adam_update(state, grads, opt_cfg.betas, opt_cfg.eps, float(lr))
+                with span("tinyedm.train_step.optimizer.weight_norm"):
+                    force_weight_norm(state.params)
+                # power-function EMA(s): decay and check on the pre-increment step;
+                # under ZeRO-1 on this rank's pieces of the params
+                ema_source = state.params
+                if plan is not None and plan.zero1:
+                    ema_source = {plan.names[i]: v for (i, *_), v in zip(plan.pieces, plan.pieces_of(state.params))}
+                with span("tinyedm.train_step.optimizer.ema"):
+                    for tree, gamma in zip(state.ema, gammas):
+                        maybe_ema_update(tree, ema_source, state.step, gamma, every_n)
+                state.step += 1
 
-        out = {"train_loss": loss, "learning_rate": lr, "sse": metrics["sse"],
-               "count": metrics["count"]}
-        if "uncertainty" in metrics:
-            out["uncertainty"] = metrics["uncertainty"]
-        if opt_cfg.log_norms:
-            out["grad_norm"] = raw_gnorm
-            out["param_norm"] = _global_norm(list(state.params.values()), plan)
-            if clip_scale is not None:
-                out["clip_scale"] = clip_scale
-        out.update(per_layer)
-        if stop is not None:
-            out["interrupt"] = stop
-        return state, out
+            out = {"train_loss": loss, "learning_rate": lr, "sse": metrics["sse"],
+                   "count": metrics["count"]}
+            if "uncertainty" in metrics:
+                out["uncertainty"] = metrics["uncertainty"]
+            if opt_cfg.log_norms:
+                out["grad_norm"] = raw_gnorm
+                out["param_norm"] = _global_norm(list(state.params.values()), plan)
+                if clip_scale is not None:
+                    out["clip_scale"] = clip_scale
+            out.update(per_layer)
+            if stop is not None:
+                out["interrupt"] = stop
+            return state, out
 
     return train_step
 

@@ -1,23 +1,45 @@
-"""Profiling hooks: a device trace, a step timer and the memory counters.
+"""Profiling hooks: named spans at the port's layer boundaries, and a trace
+of a region that shows them beside the kernels.
 
-Counterpart of ``tinyedm_tpu/utils/profiling.py``, on ``torch.profiler`` and
-``torch.cuda``.
+The spans are ``record_function`` ranges, entered only while a torch
+profiler records: untraced, ``span`` costs one check of the profiler's state
+and returns a shared null context. Their names are dotted by nesting:
+
+- ``tinyedm.train_step``: one optimizer step (``training/train_step.py``),
+  holding per microbatch ``.forward`` (labels, diffuser draws, the denoiser
+  forward, the loss) and ``.backward`` (the backward and the gradient sum),
+  one ``.backward`` more for the microbatches' mean, then ``.optimizer``
+  (norms and clip, ``.optimizer.adam``, ``.optimizer.weight_norm``,
+  ``.optimizer.ema``);
+- ``tinyedm.solve``: one batch's solve (``diffusion/solver.py``), holding
+  ``tinyedm.solve.denoise`` for each denoiser evaluation.
+
+The backward's kernels are launched from the autograd engine's device
+thread while the calling thread waits inside ``.backward``: read them by
+time, not by thread.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range in the profiler's trace while a torch profiler records; else nothing."""
+    return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else _OFF
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | Path) -> Iterator[torch.profiler.profile]:
     """Trace the host and (where there is one) the card around a region and
-    write a Chrome trace (``trace.json``) into ``log_dir``:
+    write a Chrome trace (``trace.json``) into ``log_dir``, where the spans
+    stand beside the operators and kernels they hold:
 
         with trace("runs/x/profile") as prof:
             for _ in range(10): state, m = step(...)
@@ -33,51 +55,3 @@ def trace(log_dir: str | Path) -> Iterator[torch.profiler.profile]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(log_dir / "trace.json"))
-
-
-class StepTimer:
-    """Rolling wall-clock step times with explicit device fences.
-
-    ``mark()`` every step; ``sync_value(t)`` with a device scalar from the
-    step at a measurement boundary: reading it on the host waits for the
-    card to produce it, the only fence a timed loop needs."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._times: list[float] = []
-        self._last: Optional[float] = None
-
-    def mark(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._last = now
-
-    def sync_value(self, device_scalar) -> float:
-        v = float(device_scalar)
-        self._last = time.perf_counter()
-        return v
-
-    @property
-    def mean_step_time(self) -> float:
-        return sum(self._times) / max(len(self._times), 1)
-
-    def steps_per_sec(self) -> float:
-        t = self.mean_step_time
-        return 1.0 / t if t else 0.0
-
-
-def device_memory_stats() -> dict:
-    """Per-card allocator bytes in use, their peak and the card's total
-    (empty without CUDA)."""
-    out = {}
-    for i in range(torch.cuda.device_count() if torch.cuda.is_available() else 0):
-        stats = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {
-            "bytes_in_use": stats.get("allocated_bytes.all.current"),
-            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
-            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
-        }
-    return out
