@@ -49,8 +49,9 @@ with a non-zero exit code:
    weights with gain_out = 1, fused attention against fused="off" (relative
    L2 <= 1e-2), with exactly 11 forward kernel launches;
 8. CIFAR-10 Heun-32: tinyedm_tpu_torch.generate.generate() for 128 images at
-   batch 128 (63 forwards, 693 launches, 128 PNGs, img/s and peak memory),
-   then the same solve with fused="off" (final fp32 samples within 2e-2
+   batch 128 (63 forwards, 693 launches, 128 PNGs, img/s and peak memory,
+   and one weight_norm_cast launch a weight-normed layer a forward, 63 x
+   115, the launches of phase 41's entries), then the same solve with fused="off" (final fp32 samples within 2e-2
    relative L2);
 9. CIFAR-10 training: the recipe's train step at full width (batch 256,
    bf16, dropout 0.13, seeded synthetic images, the recipe's steady lr):
@@ -64,7 +65,8 @@ with a non-zero exit code:
     n = 256, 8 at n = 64) and no flash launch (the default topology attends
     at 16x16 and 8x8 only);
 11. ImageNet-512 Heun-32: generate() for 32 latents at batch 32 with
-    --num_classes 1000 (945 launches, 32 RGBA PNGs), as phase 8;
+    --num_classes 1000 (945 launches, 32 RGBA PNGs, 63 x 195 weight_norm_cast
+    launches), as phase 8;
 12. ImageNet-512 training: the recipe's step (batch 128 in 4 microbatches
     of 32, uncertainty loss, two EMA profiles, per-step lr count in the
     steady range), as phase 9, with 60 forward and 60 backward fused calls
@@ -341,7 +343,23 @@ with a non-zero exit code:
     collective as large as the params, the Heun-4 solve's model-group
     gathers and closing barrier, rows 1-4 launched 11 + 11 a step and 7 x 11
     a solve at 2 heads a rank; the train step's report (summary, payload,
-    ring wire bytes, one row per collective), the sampler's totals.
+    ring wire bytes, one row per collective), the sampler's totals;
+41. weight_norm_cast (csrc/weight_norm.cu), the effective weights of a
+    no-gradient forward: the kernel against its plain version (the autograd
+    composite's ops) at every weight shape of the CIFAR-10 and ImageNet-512
+    models, bf16 outputs at most one bf16 ulp apart and equal in at least
+    99.9% of their elements, fp32 within 2^-20 relative, plus rows of 20,000
+    values and more and a weight at an odd element offset; the device times
+    of the kernel and of the plain version's kernels at five layer shapes
+    (a profile over enough copies of the weight to pass the L2 cache), the
+    host-bound times of back-to-back calls beside them, and the bound (bytes);
+    a Heun-2 solve (3 forwards) of each model at its sampling batch, cuDNN
+    deterministic, through the kernel's route (one launch a weight-normed
+    layer a forward), the composite's and a control's (a kernel whose bf16
+    cast truncates): each route twice gives the same samples, and the
+    kernel's samples lie within WN_SOLVE_LIMIT relative L2 of the
+    composite's, the control's beyond it; both solves' seconds;
+    a CIFAR-10 train step at 256 launching it 0 times.
 
 Phases 34 (a), (b) and 36 (a), (b) also print their last step's collectives
 as the audit does (payload, ring wire bytes a rank, one row per collective),
@@ -439,9 +457,22 @@ FLASH_ODD = [(2, 1, 1, 256), (2, 1025, 2, 48), (1, 1100, 2, 64), (2, 2000, 1, 20
              (1, 1100, 3, 144), (1, 1030, 1, 192), (3, 1024, 1, 33), (2, 1030, 2, 20),
              (2, 1030, 2, 144), (2, 1030, 2, 128), (1, 1030, 1, 256)]
 KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd", "flash_attention_bwd",
-           "attention_block_fwd", "attention_block_bwd", "winograd_fwd")
+           "attention_block_fwd", "attention_block_bwd", "winograd_fwd", "weight_norm")
 LIBRARIES = ("nvjpeg_decode",)  # built beside the kernels; no TPU kernel's port (phase 30's JPEGs)
-PTXAS_SHOWN = ("flash_attention_bwd", "attention_block_fwd", "attention_block_bwd")  # ptxas -v in phase 2
+PTXAS_SHOWN = ("flash_attention_bwd", "attention_block_fwd", "attention_block_bwd",
+               "weight_norm")  # ptxas -v in phase 2
+# phase 41: the shapes whose times the kernel table keeps, and the limit
+# of the Heun-2 samples of the kernel's route against the composite's,
+# cuDNN deterministic. Read on an H100: each route twice 0; the kernel's
+# 0.0081 (its bf16 weights one ulp from the composite's in 4 elements a
+# million, its fp32 embedding weights within 4e-7 relative in 16% of
+# theirs, since a row's sum of squares is added in another order: the bf16
+# roundings downstream carry that to every sample); a control whose bf16
+# cast truncates, 0.0156 and 0.0194. The limit lies between them, near
+# their geometric mean.
+WN_TIMED = [("cifar10", (256, 256, 3, 3)), ("cifar10", (768, 256, 1, 1)), ("imagenet512", (768, 768, 3, 3)),
+            ("imagenet512", (768, 1536, 3, 3)), ("imagenet512", (768, 1000))]
+WN_SOLVE_LIMIT = 0.0115
 # the whole-block kernels at the CIFAR-10 attention widths: (batch, n) per
 # direction, the sampling batch forward and the training batch backward
 BLOCK_C = 256
@@ -1021,9 +1052,19 @@ def _flash_calls() -> dict:
 def _clear_counts() -> None:
     from tinyedm_tpu_torch.ops import attention as fl
     from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.ops import mp
 
     fa.launch_counts.clear()
     fl.launch_counts.clear()
+    mp.weight_norm_cast.launches = 0
+
+
+def _wn_layers_run(model) -> int:
+    """The weight-normed layers a forward of ``model`` runs: all but the
+    uncertainty head's (``u``), which only the training loss reads."""
+    from tinyedm_tpu_torch.models.layers import _WeightNormed
+
+    return sum(isinstance(m, _WeightNormed) for name, m in model.named_modules() if not name.startswith("u."))
 
 
 def phase_forward(tag: str, config: str, fused, unfused, kind: str = "fwd") -> None:
@@ -1098,6 +1139,7 @@ def phase_sample(tag: str, config: str, fused, what: str, forwards: dict[int, in
 
     from tinyedm_tpu_torch.generate import generate
     from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.ops import mp
     from tinyedm_tpu_torch.utils.interop import save_weights
 
     p = PATHS[config]
@@ -1114,6 +1156,7 @@ def phase_sample(tag: str, config: str, fused, what: str, forwards: dict[int, in
             _clear_counts()
             result = generate(str(Path(tmp) / "fused"), b, p["side"], b, **kwargs)
             counts, flash, by_batch = dict(fa.launch_counts), _flash_calls(), dict(seen)
+            wn_launches = mp.weight_norm_cast.launches
         pngs = sorted((Path(tmp) / "fused").glob("*.png"))
         color_types = {png.read_bytes()[25] for png in pngs}  # IHDR's color type byte
         ref = generate(str(Path(tmp) / "off"), b, p["side"], b, fused="off", **kwargs)
@@ -1132,13 +1175,15 @@ def phase_sample(tag: str, config: str, fused, what: str, forwards: dict[int, in
         other = (f"; {beside['what']} in this run: {beside['img_per_s']:.2f} img/s ({beside['seconds']:.3f} s, "
                  f"this run {result['seconds'] / beside['seconds']:.3f}x its wall time)")
     print(f"[{tag} {what}] {config}: {b} samples at batch {b}: {sum(by_batch.values())} forwards by batch "
-          f"{dict(sorted(by_batch.items()))}, {sum(counts.values())} launches {_fmt(counts)}, {len(pngs)} PNGs "
+          f"{dict(sorted(by_batch.items()))}, {sum(counts.values())} launches {_fmt(counts)}, weight_norm_cast "
+          f"{wn_launches}, {len(pngs)} PNGs "
           f"(color type {p['color']}), {result['img_per_s']:.2f} img/s ({result['seconds']:.3f} s), peak "
           f"{result['peak_bytes'] / 2**30:.3f} GiB; unfused solve {ref['img_per_s']:.2f} img/s; fused vs "
           f"unfused samples rel L2 {err:.3g} (<= 2e-2){other}", flush=True)
     if not err <= 2e-2:
         fail(f"fused vs unfused {what} samples rel L2 {err} > 2e-2")
-    return dict(counts=counts, img_per_s=result["img_per_s"], seconds=result["seconds"], what=f"{what} (phase {tag})")
+    return dict(counts=counts, wn_launches=wn_launches, forwards=sum(by_batch.values()), img_per_s=result["img_per_s"],
+                seconds=result["seconds"], what=f"{what} (phase {tag})")
 
 
 def phase_churn_seeds(tag: str, fused) -> None:
@@ -4095,6 +4140,232 @@ def phase_soak(smi: str, bare: dict, loop_ms: float) -> None:
           f"{t_resumed:.1f} s | {smi}", flush=True)
 
 
+def _wn_shapes(config: str) -> list:
+    """Every (weight shape, compute dtype) of the config's weight-normed
+    layers, from the model built on the meta device."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import model_from_config
+    from tinyedm_tpu_torch.models.layers import WNConv, WNLinear
+
+    with torch.device("meta"):
+        model = model_from_config(config)
+    return sorted({(tuple(m.weight.shape), m.dtype) for m in model.modules() if isinstance(m, (WNConv, WNLinear))},
+                  key=str)
+
+
+def _wn_gap(out, ref) -> tuple[float, int]:
+    """(worst gap, elements unequal) of the kernel's output against the
+    plain version's: bf16 ulps of ref, or the fp32 relative gap."""
+    import torch
+
+    unequal = int((out != ref).sum())
+    ref32 = ref.float()
+    if out.dtype == torch.bfloat16:
+        mag = ref32.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        return float(((out.float() - ref32).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max()), unequal
+    return float(((out - ref).abs() / ref.abs().clamp_min(1e-30)).max()), unequal
+
+
+def _wn_check(w, scale: float, dtype, what: str) -> tuple[float, int]:
+    import torch
+
+    from tinyedm_tpu_torch.ops import mp
+
+    before = mp.weight_norm_cast.launches
+    out = mp.weight_norm_cast(w, scale, dtype)
+    torch.cuda.synchronize()
+    if mp.weight_norm_cast.launches != before + 1:
+        fail(f"{what}: weight_norm_cast did not launch its kernel once")
+    gap, unequal = _wn_gap(out, mp.weight_norm_cast_plain(w, scale, dtype))
+    limit = 1.0 if dtype == torch.bfloat16 else 2.0**-20
+    if not gap <= limit:
+        fail(f"{what}: kernel vs plain gap {gap} > {limit}")
+    return gap, unequal
+
+
+def _wn_times(fn, w) -> tuple[float, float]:
+    """(device ms, host ms) a call of ``fn(w_i)``, cycling over copies of
+    ``w`` that together pass the 50 MB L2 cache (in a forward each weight
+    comes from memory): the device time of its kernels in a profile, and
+    the CUDA-event time of back-to-back calls, which the host's dispatch
+    bounds where the kernels are short."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    copies = [w.clone() for _ in range(max(2, math.ceil(128e6 / (w.numel() * 4))))]
+    state = {"i": 0}
+
+    def call():
+        fn(copies[state["i"] % len(copies)])
+        state["i"] += 1
+
+    host_ms = time_ms(call, iters=len(copies), reps=3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in copies:
+            fn(c)
+        torch.cuda.synchronize()
+    device_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() != DeviceType.CPU)
+    return device_ns / 1e6 / len(copies), host_ms
+
+
+def _wn_truncating(w, scale: float, dtype):
+    """The Heun-2 gate's control, a wrong kernel: the composite's fp32
+    weight cast to bf16 by truncation instead of rounding to nearest."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import mp
+
+    y = mp.weight_norm_cast_plain(w, scale, torch.float32)
+    if dtype == torch.bfloat16:
+        y = (y.view(torch.int32) & -65536).view(torch.float32)
+    return y.to(dtype)
+
+
+def phase_weight_norm() -> list[dict]:
+    """Phase 41 (the module docstring). Returns the kernel line's entries;
+    main() fills in their launches from phases 8 and 11."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import build_training
+    from tinyedm_tpu_torch.generate import make_solver
+    from tinyedm_tpu_torch.models import layers
+    from tinyedm_tpu_torch.ops import mp
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    tag = "41 weight norm"
+    g = torch.Generator(device="cuda").manual_seed(41)
+    for config in ("cifar10", "imagenet512"):
+        worst, unequal, total, worst32 = 0.0, 0, 0, 0.0
+        shapes = _wn_shapes(config)
+        for shape, dtype in shapes:
+            w = torch.randn(shape, generator=g, device="cuda") * 1.7
+            gap, n = _wn_check(w, 1.0 / math.sqrt(math.prod(shape[1:])), dtype, f"{config} {shape} {dtype}")
+            if dtype == torch.bfloat16:
+                worst, unequal, total = max(worst, gap), unequal + n, total + w.numel()
+            else:
+                worst32 = max(worst32, gap)
+        print(f"[{tag}] {config}: {len(shapes)} weight shapes, kernel vs plain: bf16 worst {worst:.0f} ulp, "
+              f"{unequal} of {total} elements unequal ({unequal / total:.2e}, <= 1e-3), fp32 worst relative "
+              f"{worst32:.3g} (<= 2^-20)", flush=True)
+        if unequal > 1e-3 * total:
+            fail(f"{config}: {unequal} of {total} bf16 elements differ from the plain version")
+    for shape in [(4, 20000), (2, 3000, 3, 3), (7, 45), (3, 1)]:
+        w = torch.randn(shape, generator=g, device="cuda")
+        flat = torch.empty(w.numel() + 1, device="cuda")
+        view = flat[1:].view(shape)
+        view.copy_(w)
+        for dtype in (torch.bfloat16, torch.float32):
+            _wn_check(w, 0.37, dtype, f"{shape} {dtype}")
+            _wn_check(view, 0.37, dtype, f"{shape} {dtype} at an odd element offset")
+    print(f"[{tag}] rows of 20,000 and 27,000 (beyond the models' longest), 45 and 1, aligned and at an odd element "
+          f"offset: ok", flush=True)
+
+    entries = []
+    for config, shape in WN_TIMED:
+        dtype = torch.float32 if len(shape) == 2 else torch.bfloat16
+        w = torch.randn(shape, generator=g, device="cuda")
+        scale = 1.0 / math.sqrt(math.prod(shape[1:]))
+        gap, _ = _wn_check(w, scale, dtype, f"timed {shape}")
+        ms, call_ms = _wn_times(lambda x: mp.weight_norm_cast(x, scale, dtype), w)
+        plain_ms, plain_call_ms = _wn_times(lambda x: mp.weight_norm_cast_plain(x, scale, dtype), w)
+        nbytes = w.numel() * (4 + torch.finfo(dtype).bits // 8)
+        bound_ms, bound_by = _bound(nbytes, 0, "float32")
+        name = str(dtype).split(".")[-1]
+        print(f"[{tag}] weight_norm_cast {config} {'x'.join(map(str, shape))} -> {name}: kernel {ms:.4f} ms on "
+              f"the card ({call_ms:.4f} ms a call back to back), plain {plain_ms:.4f} ms ({plain_call_ms:.4f}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB)", flush=True)
+        entries.append(_entry(f"weight_norm_cast[{config} {'x'.join(map(str, shape))} {name}]", "weight_norm.cu",
+                              "none (XLA fused the composite under jit)", gap, ms, plain_ms, bound_ms, bound_by,
+                              None, call_ms=call_ms, plain_call_ms=plain_call_ms, config=config))
+
+    # the kernel's route, the composite's and the control's, cuDNN
+    # deterministic: the same route twice gives the same samples, so the
+    # effective weights are all that differs between two routes
+    routes = {"kernel": mp.weight_norm_cast, "composite": mp.weight_norm_cast_plain, "truncating": _wn_truncating}
+    solver = make_solver("heun", 2, None, 0.0, 1.0, 0.0, float("inf"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for config in ("cifar10", "imagenet512"):
+            p = PATHS[config]
+            model = _seeded(config)
+            layers_run = _wn_layers_run(model)
+            weights = [m for name, m in model.named_modules()
+                       if isinstance(m, layers._WeightNormed) and not name.startswith("u.")]
+            unequal = {torch.bfloat16: [0, 0, 0.0], torch.float32: [0, 0, 0.0]}  # unequal, of, worst gap
+            with torch.inference_mode():
+                for m in weights:
+                    gap, n = _wn_gap(mp.weight_norm_cast(m.weight, m.scale, m.dtype),
+                                     mp.weight_norm_cast_plain(m.weight, m.scale, m.dtype))
+                    tally = unequal[m.dtype]
+                    tally[:] = tally[0] + n, tally[1] + m.weight.numel(), max(tally[2], gap)
+            (b_n, b_of, b_gap), (f_n, f_of, f_gap) = unequal[torch.bfloat16], unequal[torch.float32]
+            channels = model.denoiser.conv_in.weight.shape[1] - 1
+            x0 = torch.randn((p["batch"], channels, p["side"], p["side"]), generator=g, device="cuda")
+            labels = (torch.randint(0, p["classes"], (p["batch"],), generator=g, device="cuda")
+                      if p["classes"] else None)
+            results, seconds = {}, {}
+            for route in ("kernel", "composite", "kernel", "composite", "truncating"):
+                layers.weight_norm_cast = routes[route]
+                try:
+                    before = mp.weight_norm_cast.launches
+                    with _edm_forwards() as seen, torch.inference_mode():
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        results.setdefault(route, []).append(solver.solve(model, x0, labels).float())
+                        torch.cuda.synchronize()
+                        seconds[route] = time.perf_counter() - t  # the last run of the route's
+                    launches, forwards = mp.weight_norm_cast.launches - before, sum(seen.values())
+                finally:
+                    layers.weight_norm_cast = mp.weight_norm_cast
+                expected = layers_run * forwards if route == "kernel" else 0
+                if launches != expected:
+                    fail(f"{config} heun-2, {route} route: {launches} weight_norm_cast launches in {forwards} "
+                         f"forwards, expected {expected}")
+            (k0, k1), (c0, c1), (trunc,) = results["kernel"], results["composite"], results["truncating"]
+            floor_k, floor_c = rel_l2(k1, k0), rel_l2(c1, c0)
+            err, control = rel_l2(k1, c1), rel_l2(trunc, c1)
+            print(f"[{tag}] {config} heun-2 at batch {p['batch']}, cuDNN deterministic: {forwards} forwards, "
+                  f"{layers_run} launches a forward, its effective weights unequal to the composite's in {b_n} of "
+                  f"{b_of} bf16 elements (worst {b_gap:.0f} ulp) and {f_n} of {f_of} fp32 (worst relative "
+                  f"{f_gap:.3g}); samples rel L2: kernel vs composite route {err:.3g} "
+                  f"(<= {WN_SOLVE_LIMIT:g}), kernel twice {floor_k:.3g} and composite twice {floor_c:.3g} "
+                  f"(== 0), control (bf16 cast truncating) vs composite {control:.3g} (> {WN_SOLVE_LIMIT:g}); "
+                  f"solve {seconds['kernel']:.4f} s vs composite {seconds['composite']:.4f} s "
+                  f"({1e3 * seconds['kernel'] / forwards:.2f} vs {1e3 * seconds['composite'] / forwards:.2f} ms a "
+                  f"forward)", flush=True)
+            if floor_k or floor_c:
+                fail(f"{config} heun-2: a route run twice gave other samples (kernel {floor_k}, composite "
+                     f"{floor_c})")
+            if not err <= WN_SOLVE_LIMIT < control:
+                fail(f"{config} heun-2 kernel route vs composite rel L2 {err}, control {control}: the limit "
+                     f"{WN_SOLVE_LIMIT} does not lie between them")
+            del model, results
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    model, diffuser, opt_cfg, ema_cfg, batch, _ = build_training("cifar10", "cuda", seed=0)
+    state = init_train_state(model, opt_cfg, ema_cfg)
+    step = make_train_step(model, diffuser, opt_cfg, ema_cfg)
+    images = torch.randn((batch, 3, 32, 32), generator=g, device="cuda")
+    before = mp.weight_norm_cast.launches
+    for _ in range(2):
+        state, metrics = step(state, (images, None), g, PATHS["cifar10"]["sched"])
+    torch.cuda.synchronize()
+    launches = mp.weight_norm_cast.launches - before
+    print(f"[{tag}] cifar10 train step at {batch}: {launches} weight_norm_cast launches in 2 steps (expected 0), "
+          f"loss {float(metrics['train_loss']):.4g}", flush=True)
+    if launches or not math.isfinite(float(metrics["train_loss"])):
+        fail(f"cifar10 train steps launched weight_norm_cast {launches} times or lost a finite loss")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4127,6 +4398,10 @@ def main() -> int:
         del unfused
         lap(tags[0])
         heun[config] = phase_sample(tags[1], config, fused, "heun-32", {PATHS[config]["batch"]: 63})
+        heun[config]["wn_layers"] = _wn_layers_run(fused)
+        if heun[config]["wn_launches"] != 63 * heun[config]["wn_layers"]:
+            fail(f"{config} heun-32 launched weight_norm_cast {heun[config]['wn_launches']} times in 63 forwards, "
+                 f"expected one a weight-normed layer a forward, {63 * heun[config]['wn_layers']}")
         del fused
         torch.cuda.empty_cache()
         lap(tags[1])
@@ -4247,6 +4522,8 @@ def main() -> int:
     # 40: the collective-audit CLI's function, run in phase 36 (a)'s ranks
     phase_collective_audit(smi, tp_ranks)
     lap("40")
+    wn_entries = phase_weight_norm()
+    lap("41")
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -4286,7 +4563,14 @@ def main() -> int:
         e["launches"] = block_train["counts"][key]
         e["launches_per_train_step"] = e["launches"] // block_steps
         e["path"] = "cifar10 training run, fused=\"block\""
-    entries = fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries + vl_entries
+    # weight_norm_cast: launches of one heun-32 sampling batch of its config
+    for e in wn_entries:
+        run = heun[e.pop("config")]
+        e["launches"] = run["wn_launches"]
+        e["launches_per_forward"] = run["wn_launches"] / run["forwards"]
+        e["path"] = run["what"]
+    entries = (fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries + vl_entries
+               + wn_entries)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

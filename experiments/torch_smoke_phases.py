@@ -1,6 +1,6 @@
 """Run the workflow phases of chip_smoke.py alone on the card.
 
-    python experiments/torch_smoke_phases.py [24] [25] [26] [28] [29] [30] [32] [33] [34] [36] [37] [38] [39]
+    python experiments/torch_smoke_phases.py [24] [25] [26] [28] [29] [30] [32] [33] [34] [36] [37] [38] [39] [41]
 
 Phases 1 (environment) and 2 (the kernels' build), the bare train steps
 that phases 24, 25, 26, 34 and 39 are read against (12: ImageNet-512, 23:
@@ -17,7 +17,9 @@ train --multihost under torch.distributed.run and generate on two ranks
 36, tensor parallelism over ranks sharing the card, followed by 40, the
 collective-audit CLI's function (run in 36 (a)'s ranks); 37, the reference
 API on the card; 38, validate_learning's two runs and rows 2 and 4 at its
-shapes; 39, the soak at the CIFAR-10 recipe, stopped and resumed. Each
+shapes; 39, the soak at the CIFAR-10 recipe, stopped and resumed; 41,
+weight_norm_cast against its plain version, its times and its launches in
+Heun-2 solves and a CIFAR-10 train step. Each
 phase prints its lines and gates as in chip_smoke.py, and its seconds.
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -96,8 +98,10 @@ def main(phases: list[str]) -> None:
                 print(cs.phase_validate_learning(smi))
             elif name == "39":
                 cs.phase_soak(smi, bare["34"], None)
+            elif name == "41":
+                print(cs.phase_weight_norm())
             else:
-                raise SystemExit(f"unknown phase {name} (24, 25, 26, 28, 29, 30, 32, 33, 34, 36, 37, 38 or 39)")
+                raise SystemExit(f"unknown phase {name} (24, 25, 26, 28, 29, 30, 32, 33, 34, 36, 37, 38, 39 or 41)")
             torch.cuda.empty_cache()
             print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -2,10 +2,12 @@
 
 Counterpart of ``tinyedm_tpu/models/layers.py``. Activations are NCHW and
 conv weights OIHW; stored weights are fp32 and every forward recomputes the
-effective weight ``normalize(w) / sqrt(fan_in)`` in fp32 before casting it to
-the compute dtype, as the JAX package does. Parameters are made empty and
-filled by ``reset_parameters(generator)`` (see ``models/edm.py::init_weights``)
-or by a loaded state dict.
+effective weight ``normalize(w) / sqrt(fan_in)`` in fp32 and casts it to the
+compute dtype, as the JAX package does (``compute_weight``): where a gradient
+is wanted, through the eager autograd composite; where none is, with one
+``weight_norm_cast``, on the card one launch of its CUDA kernel. Parameters
+are made empty and filled by ``reset_parameters(generator)`` (see
+``models/edm.py::init_weights``) or by a loaded state dict.
 
 Under tensor parallelism (``parallel/tensor.py::shard_model``) a sharded
 ``WNConv`` or ``WNLinear`` holds its rank's output channels and its grid in
@@ -30,31 +32,56 @@ from tinyedm_tpu_torch.ops.fused_attention import (
     block_kernel_fits,
     cosine_attention_qkv,
 )
-from tinyedm_tpu_torch.ops.mp import mp_add, mp_silu, pixel_norm, weight_normalize
+from tinyedm_tpu_torch.ops.mp import (
+    mp_add,
+    mp_silu,
+    pixel_norm,
+    weight_norm_cast,
+    weight_norm_cast_plain,
+    weight_normalize,
+)
 from tinyedm_tpu_torch.parallel.tensor import gather, local
 
 
-class WNLinear(nn.Module):
-    """Weight-normalized, bias-free linear layer; stored weight (out, in)."""
+class _WeightNormed(nn.Module):
+    """A stored fp32 weight (out, ...) whose effective weight is
+    ``weight_normalize(w) / sqrt(fan_in)``, used in ``dtype``."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, shape: tuple[int, ...], dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.tp = None  # the grid of a sharded layer
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.tp = None  # the grid of a sharded layer (its rows; fan-in whole)
+        self.scale = 1.0 / math.sqrt(math.prod(shape[1:]))  # 1 / sqrt(fan_in)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.weight.normal_(generator=generator)
 
     def effective_weight(self) -> torch.Tensor:
-        return weight_normalize(self.weight) * (1.0 / math.sqrt(self.weight.shape[1]))
+        return weight_normalize(self.weight) * self.scale
+
+    def compute_weight(self) -> torch.Tensor:
+        """The effective weight in ``dtype``: the autograd composite where a
+        gradient is wanted, else one ``weight_norm_cast`` (as ``pixel_norm``
+        routes)."""
+        w = self.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return weight_norm_cast_plain(w, self.scale, self.dtype)
+        return weight_norm_cast(w, self.scale, self.dtype)
+
+
+class WNLinear(_WeightNormed):
+    """Weight-normalized, bias-free linear layer; stored weight (out, in)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__((out_features, in_features), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.effective_weight().to(self.dtype))
+        return F.linear(x.to(self.dtype), self.compute_weight())
 
 
-class WNConv(nn.Module):
+class WNConv(_WeightNormed):
     """Weight-normalized, bias-free 2D conv, padding SAME; OIHW stored weight.
 
     The JAX package's conv_in im2col GEMM and its 1x1-as-GEMM rewrite are XLA
@@ -67,22 +94,10 @@ class WNConv(nn.Module):
         kernel_size: int,
         dtype: torch.dtype = torch.float32,
     ):
-        super().__init__()
-        self.dtype = dtype
-        k = kernel_size
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
-        self.tp = None  # the grid of a sharded layer
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            self.weight.normal_(generator=generator)
-
-    def effective_weight(self) -> torch.Tensor:
-        fan_in = self.weight[0].numel()
-        return weight_normalize(self.weight) * (1.0 / math.sqrt(fan_in))
+        super().__init__((out_channels, in_channels, kernel_size, kernel_size), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.effective_weight().to(self.dtype)
+        w = self.compute_weight()
         return F.conv2d(x.to(self.dtype), w, padding=w.shape[-1] // 2)
 
 
@@ -266,11 +281,11 @@ class CosineAttention(nn.Module):
         tokens = x.flatten(2).transpose(1, 2)  # (b, n, C) view
         tp = self.qkv_conv.tp
         if self.fused == "block" and tp is None and block_kernel_fits(n, c, self.num_heads):
-            w_qkv = self.qkv_conv.effective_weight().to(self.dtype)[:, :, 0, 0].t()
-            w_out = self.out_conv.effective_weight().to(self.dtype)[:, :, 0, 0].t()
+            w_qkv = self.qkv_conv.compute_weight()[:, :, 0, 0].t()
+            w_out = self.out_conv.compute_weight()[:, :, 0, 0].t()
             y = attention_block(tokens, w_qkv, w_out, self.num_heads)
             return y.transpose(1, 2).reshape(b, c, h, w)
-        w_qkv = self.qkv_conv.effective_weight().to(self.dtype)[:, :, 0, 0]
+        w_qkv = self.qkv_conv.compute_weight()[:, :, 0, 0]
         qkv = torch.matmul(tokens, w_qkv.t())  # (b, n, 3C), contiguous; a rank's rows under TP
         heads = self.num_heads
         by_head = tp is not None and heads % tp.model_size == 0
@@ -288,6 +303,6 @@ class CosineAttention(nn.Module):
             y = attend(q, k, v).reshape(b, n, heads * hd)
         if by_head:
             y = gather(y, tp, -1)
-        w_out = self.out_conv.effective_weight().to(self.dtype)[:, :, 0, 0]
+        w_out = self.out_conv.compute_weight()[:, :, 0, 0]
         y = torch.matmul(y, w_out.t()).transpose(1, 2).reshape(b, -1, h, w)
         return gather(mp_add(local(x, self.out_conv.tp), y, 0.5), self.out_conv.tp)

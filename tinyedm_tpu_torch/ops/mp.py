@@ -6,16 +6,23 @@ denominator is cast to the input dtype before the divide, so a bf16 tensor is
 divided by a bf16 number exactly as in the JAX package. ``pixel_norm``
 differentiates through the JAX package's custom VJP: it saves the
 input-dtype tensor and the reduced norms, not an fp32 copy of the input.
+
+``weight_norm_cast`` is a layer's effective weight in its compute dtype
+where no gradient is wanted: on the card one launch of the hand-written
+kernel in ``csrc/weight_norm.cu``, on the CPU the composite it replaces.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from tinyedm_tpu_torch.ops._build import load_library, raise_on_error
 
 # silu(x)/0.596 preserves unit variance for unit-variance input
 _MP_SILU_SCALE = 1.0 / 0.596
@@ -94,6 +101,63 @@ def weight_normalize(w: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     if w.ndim == 4:
         return pixel_norm(w, dim=(1, 2, 3), eps=eps)
     raise ValueError(f"weight_normalize expects 2D or 4D weight, got shape {tuple(w.shape)}")
+
+
+def weight_norm_cast_plain(w: torch.Tensor, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """The composite: ``weight_normalize(w) * scale`` cast to ``dtype``."""
+    return (weight_normalize(w) * scale).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_norm_library() -> ctypes.CDLL:
+    lib = load_library("weight_norm")
+    lib.weight_norm_cast.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.weight_norm_cast.restype = ctypes.c_int
+    return lib
+
+
+def weight_norm_cast_cuda(w: torch.Tensor, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """One launch of the kernel on the current stream: a stored fp32
+    weight, 2-D or 4-D on a CUDA device, to bf16 or fp32. It runs once a
+    layer a forward, so its host time counts: the raw stream handle, and a
+    device guard only where the weight is not on the current device."""
+    if w.ndim not in (2, 4):
+        raise ValueError(f"weight_norm_cast expects 2D or 4D weight, got shape {tuple(w.shape)}")
+    if not w.is_cuda or w.dtype != torch.float32 or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernel takes an fp32 weight on a CUDA device to bf16 or fp32, "
+                         f"got {w.dtype} on {w.device} to {dtype}")
+    device = w.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return weight_norm_cast_cuda(w, scale, dtype)
+    if not w.is_contiguous():
+        w = w.contiguous()
+    y = torch.empty(w.shape, dtype=dtype, device=w.device)
+    if y.numel() == 0:
+        return y
+    rows = w.shape[0]
+    lib = _weight_norm_library()
+    err = lib.weight_norm_cast(w.data_ptr(), y.data_ptr(), rows, w.numel() // rows, scale,
+                               dtype == torch.bfloat16, torch._C._cuda_getCurrentRawStream(device))
+    raise_on_error(lib, err, "weight_norm_cast")
+    weight_norm_cast.launches += 1
+    return y
+
+
+def weight_norm_cast(w: torch.Tensor, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """``weight_normalize(w) * scale`` in ``dtype``, for a weight no gradient
+    flows to. A CPU tensor takes the plain composite; any other device
+    launches the CUDA kernel or raises. The kernel takes the composite's fp32
+    steps in its order, with the constants rounded to fp32 as the composite
+    rounds them, so only the order of the sum of squares differs.
+    ``weight_norm_cast.launches`` counts the kernel's launches."""
+    if w.device.type == "cpu":
+        return weight_norm_cast_plain(w, scale, dtype)
+    return weight_norm_cast_cuda(w, scale, dtype)
+
+
+weight_norm_cast.launches = 0
 
 
 def mp_silu(x: torch.Tensor) -> torch.Tensor:
