@@ -359,7 +359,18 @@ with a non-zero exit code:
     cast truncates): each route twice gives the same samples, and the
     kernel's samples lie within WN_SOLVE_LIMIT relative L2 of the
     composite's, the control's beyond it; both solves' seconds;
-    a CIFAR-10 train step at 256 launching it 0 times.
+    a CIFAR-10 train step at 256 launching it 0 times;
+42. the flash kernels at DiT-XL/2's attention (configs.DIT_XL2_512: a
+    microbatch of 32, 1024 tokens, 16 heads of 72, the q, k, v views of one
+    qkv tensor), bf16: the forward and backward against the plain versions
+    (phase 5's limits), their times on the 80 bucket that hd 72 takes,
+    beside the plain versions, SDPA, the bound at hd 72 and, at hd 96 with
+    the same b, n and heads, the 96 bucket's (the kernel hd 72 took before:
+    the same k16 and n8 steps, 96 channels loaded where 72 are); then one
+    make_train_step step of configs.build_training("dit_xl2_512") at that
+    microbatch on seeded latents and labels: a finite loss and one flash
+    forward and one flash backward a block at n = 1024: the model path's
+    launches in phase 42's entries and phase 5's.
 
 Phases 34 (a), (b) and 36 (a), (b) also print their last step's collectives
 as the audit does (payload, ring wire bytes a rank, one row per collective),
@@ -441,6 +452,10 @@ FLASH_SHAPES = [(1024, 96), (4096, 48), (1024, 64), (4096, 64)]
 FLASH_BATCH = 32
 FLASH_LAYERS = [(32, 384, 32), (8, 192, 64)]  # (batch, channels, side)
 FLASH_REPLACES = {"fwd": "tinyedm_tpu/ops/attention.py:38", "bwd": "tinyedm_tpu/ops/attention.py:144"}
+# phase 42: (batch, n, heads, hd) of DiT-XL/2's attention at one rank's
+# microbatch of the dit_xl2_512 recipe
+DIT_FLASH = (32, 1024, 16, 72)
+DIT_STEP_PATH = "dit_xl2_512 train step, a microbatch of 32 (edmbench cell dit_xl2_512.train.b32)"
 TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 BWD_TOL = {"bfloat16": 1e-3, "float32": 1e-5}  # relative L2
 # (batch, n, heads, hd): every head-dim bucket, ragged token counts (tails of
@@ -967,6 +982,94 @@ def phase_flash_kernels() -> list[dict]:
     return entries
 
 
+def _dit_step_calls(b: int) -> dict:
+    """The flash calls of one make_train_step step of the dit_xl2_512
+    recipe at its microbatch ``b``, on seeded weights, latents and labels."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import CONFIGS, build_training
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    model, diffuser, opt_cfg, ema_cfg, batch, _ = build_training("dit_xl2_512", "cuda", seed=0)
+    if batch // opt_cfg.accum_steps != b:
+        fail(f"the dit_xl2_512 recipe's microbatch is {batch // opt_cfg.accum_steps}, phase 42 times {b}")
+    opt_cfg = dataclasses.replace(opt_cfg, accum_steps=1)
+    cfg = CONFIGS["dit_xl2_512"]
+    d = cfg["denoiser"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = 0.5 * torch.randn((b, d["in_channels"], d["input_size"], d["input_size"]), generator=gen, device="cuda")
+    y = torch.randint(0, cfg["embedding"]["num_classes"], (b,), generator=gen, device="cuda")
+    state = init_train_state(model, opt_cfg, ema_cfg)
+    step = make_train_step(model, diffuser, opt_cfg, ema_cfg)
+    torch.cuda.synchronize()
+    _clear_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, (x, y), gen, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    calls, loss = _flash_calls(), float(metrics["train_loss"])
+    n = (d["input_size"] // d["patch_size"]) ** 2
+    expected = {("flash_fwd", n): d["depth"], ("flash_bwd", n): d["depth"]}
+    print(f"[42 flash at DiT-XL/2] one dit_xl2_512 train step at {b}: loss {loss:.4f}, {seconds:.2f} s "
+          f"(the first), flash calls {_fmt(calls)}", flush=True)
+    if calls != expected or not math.isfinite(loss):
+        fail(f"a dit_xl2_512 train step made flash calls {calls} (expected {expected}), loss {loss}")
+    del model, state, step, metrics, x, y
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_flash_dit() -> tuple[list[dict], dict]:
+    """42: the flash kernels at DiT-XL/2's shape (hd 72, the 80 bucket)
+    against the plain versions, timed beside the 96 bucket at hd 96, and
+    the flash calls of a dit_xl2_512 train step (``_dit_step_calls``):
+    returns the kernels' entries and those calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from tinyedm_tpu_torch.ops import attention as fl
+
+    b, n, heads, hd = DIT_FLASH
+    name = "bfloat16"
+    q, k, v, g = _flash_inputs(b, n, heads, hd, torch.bfloat16, seed=hd)
+    what = f"b={b} n={n} heads={heads} hd={hd} {name}"
+    fwd_err, bwd_err, bwd_rel = _check_flash(q, k, v, g, name, what)
+    out, stats = fl.flash_attention_fwd_cuda(q, k, v)
+    fwd_ms = time_ms(lambda: fl.flash_attention_fwd_cuda(q, k, v), iters=3, reps=3)
+    bwd_ms = time_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats), iters=3, reps=3)
+    fwd_plain = time_ms(lambda: fl.flash_attention_plain(q, k, v), iters=1, reps=3)
+    bwd_plain = time_ms(lambda: fl.flash_attention_bwd_plain(q, k, v, g), iters=1, reps=3)
+    qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    fwd_sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5, reps=3)
+    bwd_sdpa, _, _ = _sdpa_bwd_ms(qh, kh, vh, gh)
+    del qh, kh, vh, gh, out, stats, q, k, v, g
+    io = b * n * heads * hd * 2
+    fwd_bound, fwd_by = _bound(4 * io, 4 * b * heads * n * n * hd, name)
+    bwd_bound, bwd_by = _bound(7 * io, 10 * b * heads * n * n * hd, name)
+    q, k, v, g = _flash_inputs(b, n, heads, 96, torch.bfloat16, seed=96)
+    out, stats = fl.flash_attention_fwd_cuda(q, k, v)
+    fwd96 = time_ms(lambda: fl.flash_attention_fwd_cuda(q, k, v), iters=3, reps=3)
+    bwd96 = time_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats), iters=3, reps=3)
+    del q, k, v, g, out, stats
+    torch.cuda.empty_cache()
+    print(f"[42 flash at DiT-XL/2] {what} (bucket 80): forward max_abs {fwd_err:.3g}, kernel {fwd_ms:.4f} ms "
+          f"(bucket 96 at hd 96: {fwd96:.4f} ms), plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound "
+          f"{fwd_bound:.4f} ms ({fwd_by}); backward max_abs {bwd_err:.3g} worst rel_l2 {bwd_rel:.3g}, kernels "
+          f"{bwd_ms:.4f} ms (bucket 96: {bwd96:.4f} ms), plain {bwd_plain:.4f} ms, sdpa bwd {bwd_sdpa:.4f} ms, "
+          f"bound {bwd_bound:.4f} ms ({bwd_by})", flush=True)
+    calls = _dit_step_calls(b)
+    entries = []
+    for d, err, ms, plain_ms, bound_ms, bound_by, lib_ms, ms96 in (
+        ("fwd", fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_sdpa, fwd96),
+        ("bwd", bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_by, bwd_sdpa, bwd96),
+    ):
+        entries.append(_entry(
+            f"flash_attention_{d}[b={b} n={n} heads={heads} hd={hd}]", f"flash_attention_{d}.cu", FLASH_REPLACES[d],
+            err, ms, plain_ms, bound_ms, bound_by, lib_ms, bucket96_ms=ms96, launches=calls[f"flash_{d}", n],
+            launches_per_train_step=calls[f"flash_{d}", n], path=DIT_STEP_PATH))
+    return entries, calls
+
+
 def phase_flash_layer() -> dict[tuple[str, int], int]:
     """CosineAttention(use_pallas=True) against use_pallas=False on the same
     weights, forward and backward; returns the flash calls of the layers'
@@ -1222,7 +1325,7 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     from tinyedm_tpu_torch.configs import build_training, model_from_config
     from tinyedm_tpu_torch.data.datamodules import SyntheticDataModule, to_device
     from tinyedm_tpu_torch.ops import fused_attention as fa
-    from tinyedm_tpu_torch.training.state import is_weight_normed
+    from tinyedm_tpu_torch.training.state import weight_normed_names
     from tinyedm_tpu_torch.training.train_step import (
         init_train_state,
         make_eval_step,
@@ -1281,11 +1384,11 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
         if not torch.isfinite(u).all():
             fail(f"non-finite uncertainty: {u.tolist()}")
         uncertainty = f", uncertainty {u[0]:.4g} .. {u[-1]:.4g}"
-    for k, prm in state.params.items():
-        if is_weight_normed(k, prm):
-            rms = prm.detach().reshape(prm.shape[0], -1).pow(2).mean(dim=1).sqrt()
-            if not torch.allclose(rms, torch.ones_like(rms), atol=1e-3):
-                fail(f"{k}: per-output RMS {rms.min().item()}..{rms.max().item()} after the step, not 1")
+    for k in weight_normed_names(model):
+        prm = state.params[k]
+        rms = prm.detach().reshape(prm.shape[0], -1).pow(2).mean(dim=1).sqrt()
+        if not torch.allclose(rms, torch.ones_like(rms), atol=1e-3):
+            fail(f"{k}: per-output RMS {rms.min().item()}..{rms.max().item()} after the step, not 1")
     ms = 1e3 * seconds / p["timed"]
     result = dict(counts=counts, ms=ms, samples_per_s=batch / ms * 1e3, peak_gib=peak / 2**30)
     other = ""
@@ -1312,7 +1415,7 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     )
     # the WN weights' gradients (all but a few dozen of the values): the
     # scalar gains' gradients are few and large, and would decide a global norm
-    names = [k for k, prm in state.params.items() if is_weight_normed(k, prm)]
+    names = weight_normed_names(model)
     pairs = [(g, u) for k, g, u in zip(state.params, grads, ugrads) if k in names]
     err = rel_l2(torch.cat([g.reshape(-1) for g, _ in pairs]), torch.cat([u.reshape(-1) for _, u in pairs]))
     worst = max(rel_l2(g, u) for g, u in pairs)
@@ -4524,6 +4627,8 @@ def main() -> int:
     lap("40")
     wn_entries = phase_weight_norm()
     lap("41")
+    dit_entries, dit_calls = phase_flash_dit()
+    lap("42")
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -4550,12 +4655,14 @@ def main() -> int:
             e["launches_per_train_step"] = train_counts[key][direction, n] // steps
         if key in loop_per_step:
             e["launches_per_loop_step"] = loop_per_step[key][direction, n]
-    # flash kernels: the layer check's calls; the models' paths launch none
+    # flash kernels: the layer check's calls, and a model path's: phase 42's
+    # dit_xl2_512 train step (at n = 1024, hd 72)
     for e in flash_entries:
         direction = "flash_bwd" if "bwd" in e["name"] else "flash_fwd"
         e["launches"] = layer_calls[direction, e.pop("n")]
-        e["launches_model_paths"] = 0
+        e["launches_model_paths"] = sum(v for (kind, _), v in dit_calls.items() if kind == direction)
         e["path"] = "flash layer check (CosineAttention use_pallas=True)"
+        e["model_path"] = DIT_STEP_PATH
     # block kernels: launches of the CIFAR-10 training run with fused="block"
     block_steps = PATHS["cifar10"]["warmup"] + PATHS["cifar10"]["timed"]
     for e in block_entries:
@@ -4570,7 +4677,7 @@ def main() -> int:
         e["launches_per_forward"] = run["wn_launches"] / run["forwards"]
         e["path"] = run["what"]
     entries = (fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries + vl_entries
-               + wn_entries)
+               + wn_entries + dit_entries)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -33,7 +33,6 @@ from tinyedm_tpu_torch.data.latpack import PackedLatentsDataModule
 from tinyedm_tpu_torch.diffusion.solver import DeterministicSolver
 from tinyedm_tpu_torch.models.edm import EDM
 from tinyedm_tpu_torch.models.layers import Embedding
-from tinyedm_tpu_torch.models.unet import Denoiser
 from tinyedm_tpu_torch.training.callbacks import FIDCallback, GenerateCallback, LatentsGenerateCallback
 from tinyedm_tpu_torch.training.experiment import EDMSpec
 
@@ -157,7 +156,8 @@ def _spec(name: str, **overrides) -> EDMSpec:
 def test_spec_configs_equal_build_training(name, monkeypatch):
     spec = _spec(name)
     assert isinstance(spec, EDMSpec) and isinstance(spec.denoiser, ModuleSpec)
-    assert spec.denoiser.cls is Denoiser and spec.denoiser.dtype is torch.bfloat16
+    assert (spec.embedding.cls, spec.denoiser.cls) == configs.classes(name)
+    assert spec.denoiser.dtype is torch.bfloat16
     monkeypatch.setattr(configs, "build_model", lambda *args, **kwargs: None)  # the configs only
     _, diffuser, opt_cfg, ema_cfg, _, interval = configs.build_training(name, "cpu")
     assert spec.build_optimizer_config() == opt_cfg

@@ -54,7 +54,7 @@ from tinyedm_tpu_torch.configs import CONFIGS, model_from_config
 from tinyedm_tpu_torch.models.layers import CosineAttention
 from tinyedm_tpu_torch.ops.fused_attention import cosine_attention_qkv_plain
 from tinyedm_tpu_torch.parallel.audit import Collective
-from tinyedm_tpu_torch.parallel.tensor import head_rows, shards_output, tp_shards
+from tinyedm_tpu_torch.parallel.tensor import head_rows, tp_shards
 from tinyedm_tpu_torch.utils.interop import _port_key
 
 OPT_TP = {**OPT, "log_norms_per_layer": True}
@@ -150,7 +150,7 @@ def test_shard_rule_matches_jax_tp_param_spec(name, model_size):
     for key, (shape, leaf) in jax_leaves.items():
         spec = tp_param_spec(shape, model_size) if leaf == "w" else tp_param_spec((), model_size)
         jax_sharded = MODEL_AXIS in tuple(spec)
-        assert (key in shards) == jax_sharded == shards_output(key, port[key], model_size), key
+        assert (key in shards) == jax_sharded, key
         if jax_sharded:
             per = shape[_TP_OUT_AXIS[len(shape)]] // model_size
             assert all(len(rows) == per for rows in shards[key]) and port[key][0] // model_size == per, key

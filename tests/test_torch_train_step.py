@@ -68,7 +68,7 @@ from tinyedm_tpu_torch.models.layers import Embedding
 from tinyedm_tpu_torch.models.unet import Denoiser
 from tinyedm_tpu_torch.ops.precond import edm_loss_weight
 from tinyedm_tpu_torch.training.ema import EMAConfig
-from tinyedm_tpu_torch.training.state import is_weight_normed
+from tinyedm_tpu_torch.training.state import weight_normed_names
 from tinyedm_tpu_torch.training.train_step import (
     OptimizerConfig,
     init_train_state,
@@ -334,10 +334,10 @@ def test_step_invariants_and_dropout_draws():
         losses.append(float(m["train_loss"]))
         assert state.step == 1 and np.isfinite(losses[-1])
         assert all(torch.equal(state.ema[0][k], p) for k, p in state.params.items())
-        for k, p in state.params.items():
-            if is_weight_normed(k, p):
-                rms = p.detach().reshape(p.shape[0], -1).pow(2).mean(dim=1).sqrt()
-                assert torch.allclose(rms, torch.ones_like(rms), atol=1e-3), k
+        for k in weight_normed_names(model):
+            p = state.params[k]
+            rms = p.detach().reshape(p.shape[0], -1).pow(2).mean(dim=1).sqrt()
+            assert torch.allclose(rms, torch.ones_like(rms), atol=1e-3), k
     assert losses[0] == losses[1] != losses[2]
 
 

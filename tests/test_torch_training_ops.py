@@ -35,7 +35,7 @@ from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
 from tinyedm_tpu_torch.ops import dropout, mp
 from tinyedm_tpu_torch.training import ema
 from tinyedm_tpu_torch.training.lr_schedule import edm_lr_multiplier, make_lr_fn
-from tinyedm_tpu_torch.training.state import force_weight_norm
+from tinyedm_tpu_torch.training.state import force_weight_norm, weight_normed_names
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -181,7 +181,7 @@ def test_force_weight_norm_only_touches_wn_weights():
     params = {k: v.detach().clone() * 3.0 for k, v in model.named_parameters()}
     params["denoiser.gain_out"] = torch.tensor(0.7)
     before = {k: v.clone() for k, v in params.items()}
-    force_weight_norm(params)
+    force_weight_norm(params, weight_normed_names(model))
     n_wn = 0
     for k, v in params.items():
         if k.endswith(".weight"):

@@ -57,6 +57,9 @@ TARGET_ALIASES = {
     "tinyedm.Embedding": "tinyedm_tpu.models.layers.Embedding",
     "tinyedm.Denoiser": "tinyedm_tpu.models.unet.Denoiser",
     "tinyedm.DenoiserWrapper": "tinyedm_tpu.models.unet.DenoiserWrapper",
+    # the port's transformer denoiser (models/dit.py), which the JAX package lacks
+    "tinyedm.DiTEmbedding": "tinyedm_tpu.models.dit.DiTEmbedding",
+    "tinyedm.DiTDenoiser": "tinyedm_tpu.models.dit.DiTDenoiser",
     "tinyedm.DeterministicSolver": "tinyedm_tpu.diffusion.solver.DeterministicSolver",
     "tinyedm.callbacks.GenerateCallback": "tinyedm_tpu.training.callbacks.GenerateCallback",
     "tinyedm.callbacks.LatentsGenerateCallback": "tinyedm_tpu.training.callbacks.LatentsGenerateCallback",

@@ -3,8 +3,10 @@
 Each entry of ``CONFIGS`` is the ``model`` block (``embedding`` and
 ``denoiser`` keywords) of a config in ``experiments/conf/``, with
 interpolations resolved and ``_target_`` dropped; ``TRAINING`` holds the
-training recipe of a config beside it. A CPU test holds each constant equal
-to its YAML file. The port reads no YAML: the machine with the card has no
+training recipe of a config beside it. An entry builds the U-Net's
+``Embedding`` and ``Denoiser`` unless its ``classes`` names others, as the
+DiT's ``DiTEmbedding`` and ``DiTDenoiser`` (``models/dit.py``). A CPU test
+holds each constant equal to its YAML file. The port reads no YAML: the machine with the card has no
 YAML parser.
 """
 
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
+from tinyedm_tpu_torch.models.dit import DiTDenoiser, DiTEmbedding
 from tinyedm_tpu_torch.models.edm import EDM, init_weights
 from tinyedm_tpu_torch.models.layers import Embedding
 from tinyedm_tpu_torch.models.unet import Denoiser
@@ -137,8 +140,30 @@ IMAGENET = {
     "denoiser": {k: v for k, v in IMAGENET512["denoiser"].items() if k != "use_pallas_attention"},
 }
 
+# experiments/conf/dit_xl2_512.yaml: DiT-XL/2 (Peebles & Xie 2022,
+# facebookresearch/DiT models.py::DiT_XL_2) on the 64x64x4 SD-VAE latents of
+# 512px images, 1024 tokens of patch 2, under EDM preconditioning (out_channels
+# 4 where DiT's learned sigma doubles them); bf16 linears and attention,
+# the flash-attention route at n = 1024
+DIT_XL2_512 = {
+    "classes": (DiTEmbedding, DiTDenoiser),
+    "embedding": {"hidden_size": 1152, "num_classes": 1000, "frequency_dim": 256},
+    "denoiser": {
+        "input_size": 64,
+        "in_channels": 4,
+        "out_channels": 4,
+        "patch_size": 2,
+        "hidden_size": 1152,
+        "depth": 28,
+        "num_heads": 16,
+        "mlp_ratio": 4.0,
+        "sigma_data": 0.5,
+        "dtype": "bfloat16",
+    },
+}
+
 CONFIGS = {"cifar10": CIFAR10, "smoke": SMOKE, "imagenet512": IMAGENET512, "mnist": MNIST,
-           "imagenet": IMAGENET}
+           "imagenet": IMAGENET, "dit_xl2_512": DIT_XL2_512}
 
 # experiments/conf/cifar10.yaml: the training recipe around the model block
 # (datamodule batch, the model block's diffuser and optimizer/EMA keys, the
@@ -213,8 +238,28 @@ IMAGENET_TRAINING = {
     "every_n_steps": 1,
 }
 
+# experiments/conf/dit_xl2_512.yaml: DiT's train.py, AdamW at lr 1e-4 and
+# weight decay 0 (Adam here), no lr schedule (steady past any run), a global
+# batch of 256 (8 microbatches of 32 on one card; 32 a rank on 8), class
+# dropout 0.1; DiT's constant EMA decay 0.9999 becomes one power profile
+DIT_XL2_512_TRAINING = {
+    "seed": 0,
+    "batch_size": 256,
+    "accumulate_grad_batches": 8,
+    "diffuser": {"P_std": 1.0, "P_mean": -0.4},
+    "use_uncertainty": False,
+    "lr": 0.0001,
+    "steady_steps": 7000000,
+    "rampup_steps": 0,
+    "scheduler_interval": "step",
+    "label_dropout": 0.1,
+    "use_ema": True,
+    "ema_length": 0.05,
+    "every_n_steps": 1,
+}
+
 TRAINING = {"cifar10": CIFAR10_TRAINING, "imagenet512": IMAGENET512_TRAINING,
-            "mnist": MNIST_TRAINING, "imagenet": IMAGENET_TRAINING}
+            "mnist": MNIST_TRAINING, "imagenet": IMAGENET_TRAINING, "dit_xl2_512": DIT_XL2_512_TRAINING}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -234,11 +279,19 @@ def build_model(
     ``dtype`` overrides the config's compute dtype and ``knobs`` adds
     Denoiser keywords (``remat``, ``remat_policy``, ``mod_fp32``,
     ``scan_blocks``). The config's dropout rate and ``use_pallas_attention``
-    are built in; dropout runs only in a forward with ``train=True``."""
+    are built in; dropout runs only in a forward with ``train=True``. A DiT
+    config takes no ``fused`` route and no knobs: its attention has one
+    route."""
     dev = resolve_device(device)
     model = model_from_config(name, dtype, fused=fused, knobs=knobs)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def classes(name: str) -> tuple[type, type]:
+    """The named config's embedding and denoiser classes: its ``classes``,
+    else the U-Net's."""
+    return CONFIGS[name].get("classes", (Embedding, Denoiser))
 
 
 def model_from_config(name: str, dtype: Optional[torch.dtype] = None, *,
@@ -249,6 +302,11 @@ def model_from_config(name: str, dtype: Optional[torch.dtype] = None, *,
     cfg = CONFIGS[name]
     den_kwargs = dict(cfg["denoiser"])
     config_dtype = _DTYPES[den_kwargs.pop("dtype")]
+    embedding_cls, denoiser_cls = classes(name)
+    if denoiser_cls is not Denoiser:  # the DiT: one attention route, no U-Net knobs
+        if knobs:
+            raise ValueError(f"the {name} DiT takes no U-Net knobs, got {sorted(knobs)}")
+        return EDM(embedding_cls(**cfg["embedding"]), denoiser_cls(**den_kwargs, dtype=dtype or config_dtype))
     use_uncertainty = TRAINING.get(name, {}).get("use_uncertainty", False)
     return EDM(
         Embedding(**cfg["embedding"]),
@@ -280,6 +338,7 @@ def build_training(
         steady_steps=t["steady_steps"],
         scheduler_interval=t["scheduler_interval"],
         accum_steps=t["accumulate_grad_batches"],
+        label_dropout=t.get("label_dropout", 0.0),
     )
     ema_cfg = (
         EMAConfig(sigma_rels=tuple(t.get("ema_lengths") or (t["ema_length"],)),

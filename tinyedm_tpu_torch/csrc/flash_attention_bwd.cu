@@ -557,6 +557,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* g,
   if (hd <= 32) TINYEDM_FLASH_BWD_LAUNCH(32);
   if (hd <= 48) TINYEDM_FLASH_BWD_LAUNCH(48);
   if (hd <= 64) TINYEDM_FLASH_BWD_LAUNCH(64);
+  if (hd <= 80) TINYEDM_FLASH_BWD_LAUNCH(80);  // DiT-XL/2's 72, as in the forward
   if (hd <= 96) TINYEDM_FLASH_BWD_LAUNCH(96);
   if (hd <= 128) TINYEDM_FLASH_BWD_LAUNCH(128);
   if (hd <= 192) TINYEDM_FLASH_BWD_LAUNCH(192);

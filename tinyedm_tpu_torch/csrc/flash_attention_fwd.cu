@@ -336,6 +336,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, flo
   if (hd <= 32) TINYEDM_FLASH_LAUNCH(32);
   if (hd <= 48) TINYEDM_FLASH_LAUNCH(48);
   if (hd <= 64) TINYEDM_FLASH_LAUNCH(64);
+  if (hd <= 80) TINYEDM_FLASH_LAUNCH(80);  // DiT-XL/2's 72: 5 k16 steps where 96 takes 6
   if (hd <= 96) TINYEDM_FLASH_LAUNCH(96);
   if (hd <= 128) TINYEDM_FLASH_LAUNCH(128);
   if (hd <= 192) TINYEDM_FLASH_LAUNCH(192);

@@ -253,7 +253,7 @@ def generate(
             f"num_classes={num_classes} but the {config} model has "
             f"{model_classes or 'no'} classes (0 means unconditional)"
         )
-    model_channels = model.denoiser.conv_in.weight.shape[1] - 1  # input channels: never sharded
+    model_channels = model.denoiser.in_channels
     if num_channels is not None and num_channels != model_channels:
         raise ValueError(f"num_channels={num_channels} but the {config} model has {model_channels} channels")
     guide_source = guide_weights if guide_ckpt_path is None else guide_ckpt_path

@@ -3,7 +3,10 @@
 Counterpart of ``tinyedm_tpu/models/edm.py``: ``forward`` is
 ``EDM.__call__``, the function the ODE solver drives, and
 ``denoise_with_aux`` the training forward, which also returns the
-uncertainty head's output.
+uncertainty head's output. The two halves are any modules of the
+``EDMEmbedding`` and ``EDMDenoiser`` protocols: the U-Net's ``Embedding``
+and ``Denoiser``, or the DiT's ``DiTEmbedding`` and ``DiTDenoiser``
+(``models/dit.py``).
 """
 
 from __future__ import annotations
@@ -13,12 +16,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tinyedm_tpu_torch.models.layers import Embedding, UncertaintyNet
-from tinyedm_tpu_torch.models.unet import Denoiser
+from tinyedm_tpu_torch.diffusion.protocols import EDMDenoiser, EDMEmbedding
+from tinyedm_tpu_torch.models.layers import UncertaintyNet
 
 
 class EDM(nn.Module):
-    def __init__(self, embedding: Embedding, denoiser: Denoiser, use_uncertainty: bool = False):
+    def __init__(self, embedding: EDMEmbedding, denoiser: EDMDenoiser, use_uncertainty: bool = False):
         super().__init__()
         self.embedding = embedding
         self.denoiser = denoiser

@@ -24,7 +24,8 @@ computes the same numbers. Its state dicts are always per-block;
 ``utils/interop.py`` unstacks a scanned JAX tree.
 
 ``DenoiserWrapper`` is the generic EDM preconditioner around any net: the
-reference API's, exported for parity (the shipped configs use ``Denoiser``).
+reference API's, exported for parity; the U-Net configs use ``Denoiser``, the
+DiT config ``models/dit.py::DiTDenoiser``, a ``DenoiserWrapper``.
 """
 
 from __future__ import annotations
@@ -113,6 +114,7 @@ class Denoiser(nn.Module):
             skip_connections,
         )
         self.sigma_data = sigma_data
+        self.in_channels = in_channels
         self.dtype = dtype
         self.skip_connections = tuple(bool(s) for s in skip_connections)
         self.remat = remat

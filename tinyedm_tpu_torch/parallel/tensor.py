@@ -43,7 +43,7 @@ from torch import nn
 
 from tinyedm_tpu_torch.parallel.audit import open_inventories, recording_into
 from tinyedm_tpu_torch.parallel.mesh import Grid, all_gather_into, all_reduce
-from tinyedm_tpu_torch.training.state import is_weight_normed
+from tinyedm_tpu_torch.training.state import weight_normed_names
 
 
 class _Gather(torch.autograd.Function):
@@ -94,24 +94,20 @@ def head_rows(channels: int, heads: int, model_size: int, model_rank: int) -> to
     return rows[:, model_rank * per : (model_rank + 1) * per].reshape(-1)
 
 
-def shards_output(name: str, shape: tuple, model_size: int) -> bool:
-    """``tp_param_spec``'s rule: a weight-normed kernel whose output count
-    (axis 0) divides ``model_size`` shards; everything else replicates."""
-    return (model_size > 1 and is_weight_normed(name, torch.empty(shape, device="meta"))
-            and shape[0] >= model_size and shape[0] % model_size == 0)
-
-
 def tp_shards(model: nn.Module, model_size: int) -> dict[str, list[torch.Tensor]]:
     """The sharded params of ``model`` (whole) over ``model_size`` ranks: by
     name, the row indices of each model rank's shard (contiguous ranges; by
-    head for an attention ``qkv_conv`` whose heads divide ``model_size``)."""
+    head for an attention ``qkv_conv`` whose heads divide ``model_size``).
+    ``tp_param_spec``'s rule: a WN layer's weight whose output count (axis
+    0) divides ``model_size`` shards; everything else replicates."""
     from tinyedm_tpu_torch.models.layers import CosineAttention
 
     heads = {f"{name}.qkv_conv.weight".lstrip("."): m.num_heads for name, m in model.named_modules()
              if isinstance(m, CosineAttention)}
     out = {}
+    wn = set(weight_normed_names(model))
     for name, p in model.named_parameters():
-        if not shards_output(name, tuple(p.shape), model_size):
+        if model_size == 1 or name not in wn or p.shape[0] % model_size:
             continue
         rows = p.shape[0]
         if name in heads and heads[name] % model_size == 0:

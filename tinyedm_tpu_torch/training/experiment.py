@@ -12,6 +12,7 @@ drawn. ``build_optimizer_config`` and ``build_ema_config`` give the port's
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional
 
 from tinyedm_tpu_torch.config.registry import ModuleSpec
@@ -24,8 +25,8 @@ from tinyedm_tpu_torch.training.train_step import OptimizerConfig
 @dataclasses.dataclass
 class EDMSpec:
     diffuser: Diffuser
-    embedding: ModuleSpec  # of models.layers.Embedding
-    denoiser: ModuleSpec  # of models.unet.Denoiser
+    embedding: ModuleSpec  # of models.layers.Embedding (models.dit.DiTEmbedding)
+    denoiser: ModuleSpec  # of models.unet.Denoiser (models.dit.DiTDenoiser)
     use_ema: bool = False
     use_uncertainty: bool = False
     steady_steps: int = 1
@@ -75,12 +76,14 @@ class EDMSpec:
     def build_model(self, inference_fast: bool = False, *, fused: Optional[str] = None) -> EDM:
         """The spec's EDM, parameters allocated but not drawn; ``fused``
         overrides the denoiser's attention route (None: the spec's own,
-        ``"auto"`` unless the config sets it). ``inference_fast`` selects
+        ``"auto"`` unless the config sets it; a denoiser without routes, the
+        DiT's, takes none). ``inference_fast`` selects
         nothing in the port: the JAX package uses it to put sampling on its
         Pallas attention kernel, and the port's fused CUDA kernels are
         already the default route (``fused="auto"``)."""
         del inference_fast
-        denoiser = self.denoiser.build(**({} if fused is None else {"fused": fused}))
+        routes = "fused" in inspect.signature(self.denoiser.cls).parameters
+        denoiser = self.denoiser.build(**({"fused": fused} if fused is not None and routes else {}))
         return EDM(self.embedding.build(), denoiser, use_uncertainty=self.use_uncertainty)
 
     def build_optimizer_config(self) -> OptimizerConfig:

@@ -10,8 +10,10 @@ the state's weights.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 import torch
+from torch import nn
 
 from tinyedm_tpu_torch.ops.mp import weight_normalize
 
@@ -27,18 +29,26 @@ class TrainState:
     ema: tuple[dict[str, torch.Tensor], ...]  # one tree per tracked sigma_rel
 
 
-def is_weight_normed(name: str, tensor: torch.Tensor) -> bool:
-    """The stored weights of the WN layers: every ``weight`` parameter of the
-    port (WNConv OIHW, WNLinear (out, in)); gains are named ``gain``/``gain_out``
-    and the Fourier constants are buffers."""
-    return name.rsplit(".", 1)[-1] == "weight" and tensor.ndim in (2, 4)
+def is_weight_normed(module: nn.Module) -> bool:
+    """Whether ``module`` is a WN layer (``WNConv``, ``WNLinear``): its
+    stored ``weight`` is normalized. A plain layer, such as a DiT linear, is
+    not, whatever its weight is named."""
+    from tinyedm_tpu_torch.models.layers import _WeightNormed
+
+    return isinstance(module, _WeightNormed)
+
+
+def weight_normed_names(model: nn.Module) -> tuple[str, ...]:
+    """The state-dict names of the WN layers' stored weights in ``model``
+    (WNConv OIHW, WNLinear (out, in)), in module order."""
+    return tuple(f"{name}.weight".lstrip(".") for name, m in model.named_modules() if is_weight_normed(m))
 
 
 @torch.no_grad()
-def force_weight_norm(params: dict[str, torch.Tensor]) -> None:
-    """Re-normalize, in place, every stored weight-normed weight to unit
-    per-output RMS (``normalize(normalize(w)) == normalize(w)`` up to the eps
-    offset), as the reference does on each training forward."""
-    for name, p in params.items():
-        if is_weight_normed(name, p):
-            p.copy_(weight_normalize(p))
+def force_weight_norm(params: dict[str, torch.Tensor], names: Iterable[str]) -> None:
+    """Re-normalize, in place, the stored weights ``names`` of ``params``
+    (``weight_normed_names``) to unit per-output RMS
+    (``normalize(normalize(w)) == normalize(w)`` up to the eps offset), as
+    the reference does on each training forward."""
+    for name in names:
+        params[name].copy_(weight_normalize(params[name]))

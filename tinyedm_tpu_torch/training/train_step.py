@@ -37,7 +37,7 @@ from tinyedm_tpu_torch.ops.precond import edm_loss_weight
 from tinyedm_tpu_torch.parallel.mesh import ParallelPlan
 from tinyedm_tpu_torch.training.ema import EMAConfig, maybe_ema_update
 from tinyedm_tpu_torch.training.lr_schedule import edm_lr_multiplier
-from tinyedm_tpu_torch.training.state import TrainState, force_weight_norm
+from tinyedm_tpu_torch.training.state import TrainState, force_weight_norm, weight_normed_names
 from tinyedm_tpu_torch.utils.cuda import folded_generator
 from tinyedm_tpu_torch.utils.interop import jax_group
 from tinyedm_tpu_torch.utils.profiling import span
@@ -72,7 +72,7 @@ def init_train_state(
     the normalized weights."""
     del opt_cfg  # Adam's state does not depend on its settings
     params = dict(model.named_parameters())
-    force_weight_norm(params)
+    force_weight_norm(params, weight_normed_names(model))
     n_ema = len(ema_cfg.sigma_rels) if ema_cfg is not None else 0
     with torch.no_grad():
         return TrainState(
@@ -218,6 +218,7 @@ def make_train_step(
     plan's flat buffer (``ParallelPlan.adopt_params``)."""
     model_size = plan.model_size if plan is not None else 1
     grad_fn = make_grad_fn(model, diffuser, opt_cfg, model_size)
+    wn_names = weight_normed_names(model)
     gammas = ema_cfg.gammas if ema_cfg is not None else ()
     every_n = ema_cfg.every_n_steps if ema_cfg is not None else 1
 
@@ -254,7 +255,7 @@ def make_train_step(
                     else:
                         adam_update(state, grads, opt_cfg.betas, opt_cfg.eps, float(lr))
                 with span("tinyedm.train_step.optimizer.weight_norm"):
-                    force_weight_norm(state.params)
+                    force_weight_norm(state.params, wn_names)
                 # power-function EMA(s): decay and check on the pre-increment step;
                 # under ZeRO-1 on this rank's pieces of the params
                 ema_source = state.params
