@@ -363,7 +363,9 @@ with a non-zero exit code:
 42. the flash kernels at DiT-XL/2's attention (configs.DIT_XL2_512: a
     microbatch of 32, 1024 tokens, 16 heads of 72, the q, k, v views of one
     qkv tensor), bf16: the forward and backward against the plain versions
-    (phase 5's limits), their times on the 80 bucket that hd 72 takes,
+    (phase 5's limits), two backward calls on the same inputs bit for bit
+    equal, their times on the 80 bucket that hd 72 takes (the backward's
+    two passes apart, by the profiler: (a) dq and delta, (b) dk and dv),
     beside the plain versions, SDPA, the bound at hd 72 and, at hd 96 with
     the same b, n and heads, the 96 bucket's (the kernel hd 72 took before:
     the same k16 and n8 steps, 96 channels loaded where 72 are); then one
@@ -476,6 +478,7 @@ KERNELS = ("cosine_attention_fwd", "cosine_attention_bwd", "flash_attention_fwd"
 LIBRARIES = ("nvjpeg_decode",)  # built beside the kernels; no TPU kernel's port (phase 30's JPEGs)
 PTXAS_SHOWN = ("flash_attention_bwd", "attention_block_fwd", "attention_block_bwd",
                "weight_norm")  # ptxas -v in phase 2
+WG_LAUNCH_REGS = 65536 // 384 // 8 * 8  # a thread's registers in a block of three warpgroups
 # phase 41: the shapes whose times the kernel table keeps, and the limit
 # of the Heun-2 samples of the kernel's route against the composite's,
 # cuDNN deterministic. Read on an H100: each route twice 0; the kernel's
@@ -652,6 +655,16 @@ def phase_build() -> None:
         for line in _build.ptxas_log.get(name, "").splitlines():
             if re.search(r"Compiling entry function|spill stores|Used \d+ registers", line):
                 print(f"[2 build] ptxas {name}: {line.strip()}", flush=True)
+    # the flash backward's warpgroup kernels move registers from their
+    # producers to their consumers (setmaxnreg): the launch has to give every
+    # thread of the 384 its share of the whole register file, or a consumer's
+    # request would wait forever
+    log = _build.ptxas_log.get("flash_attention_bwd", "")
+    short = {entry: n for entry, n in _build.ptxas_registers(log).items()
+             if "_wg_kernel" in entry and n != WG_LAUNCH_REGS}
+    if short or "setmaxnreg ignored" in log:
+        fail(f"flash_attention_bwd's warpgroup kernels launch with {short or 'setmaxnreg ignored'}, "
+             f"not {WG_LAUNCH_REGS} registers a thread")
 
 
 def _qkv(b, n, heads, hd, dtype, seed):
@@ -1019,6 +1032,29 @@ def _dit_step_calls(b: int) -> dict:
     return calls
 
 
+def _flash_bwd_passes(fn, calls: int = 5) -> tuple[float, float]:
+    """Device ms a call of the flash backward's two passes, pass (a)
+    (``flash_bwd_dq_*``) and pass (b) (``flash_bwd_dkv_*``), from a profile
+    of ``calls`` calls of ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ns = {"dq": 0, "dkv": 0}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            for key in ns:
+                if f"flash_bwd_{key}_" in e.name():
+                    ns[key] += e.duration_ns()
+    return ns["dq"] / 1e6 / calls, ns["dkv"] / 1e6 / calls
+
+
 def phase_flash_dit() -> tuple[list[dict], dict]:
     """42: the flash kernels at DiT-XL/2's shape (hd 72, the 80 bucket)
     against the plain versions, timed beside the 96 bucket at hd 96, and
@@ -1035,8 +1071,14 @@ def phase_flash_dit() -> tuple[list[dict], dict]:
     what = f"b={b} n={n} heads={heads} hd={hd} {name}"
     fwd_err, bwd_err, bwd_rel = _check_flash(q, k, v, g, name, what)
     out, stats = fl.flash_attention_fwd_cuda(q, k, v)
+    twice = [fl.flash_attention_bwd_cuda(q, k, v, g, stats) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(*twice)):
+        fail(f"flash bwd {what}: two calls on the same inputs differ")
+    del twice
     fwd_ms = time_ms(lambda: fl.flash_attention_fwd_cuda(q, k, v), iters=3, reps=3)
     bwd_ms = time_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats), iters=3, reps=3)
+    pass_a, pass_b = _flash_bwd_passes(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats))
     fwd_plain = time_ms(lambda: fl.flash_attention_plain(q, k, v), iters=1, reps=3)
     bwd_plain = time_ms(lambda: fl.flash_attention_bwd_plain(q, k, v, g), iters=1, reps=3)
     qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
@@ -1054,19 +1096,21 @@ def phase_flash_dit() -> tuple[list[dict], dict]:
     torch.cuda.empty_cache()
     print(f"[42 flash at DiT-XL/2] {what} (bucket 80): forward max_abs {fwd_err:.3g}, kernel {fwd_ms:.4f} ms "
           f"(bucket 96 at hd 96: {fwd96:.4f} ms), plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound "
-          f"{fwd_bound:.4f} ms ({fwd_by}); backward max_abs {bwd_err:.3g} worst rel_l2 {bwd_rel:.3g}, kernels "
-          f"{bwd_ms:.4f} ms (bucket 96: {bwd96:.4f} ms), plain {bwd_plain:.4f} ms, sdpa bwd {bwd_sdpa:.4f} ms, "
+          f"{fwd_bound:.4f} ms ({fwd_by}); backward max_abs {bwd_err:.3g} worst rel_l2 {bwd_rel:.3g}, two calls "
+          f"bit-identical, kernels {bwd_ms:.4f} ms (profiled: pass (a) {pass_a:.4f} ms, pass (b) {pass_b:.4f} ms; "
+          f"bucket 96: {bwd96:.4f} ms), plain {bwd_plain:.4f} ms, sdpa bwd {bwd_sdpa:.4f} ms, "
           f"bound {bwd_bound:.4f} ms ({bwd_by})", flush=True)
     calls = _dit_step_calls(b)
     entries = []
-    for d, err, ms, plain_ms, bound_ms, bound_by, lib_ms, ms96 in (
-        ("fwd", fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_sdpa, fwd96),
-        ("bwd", bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_by, bwd_sdpa, bwd96),
+    for d, err, ms, plain_ms, bound_ms, bound_by, lib_ms, ms96, extra in (
+        ("fwd", fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_sdpa, fwd96, {}),
+        ("bwd", bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_by, bwd_sdpa, bwd96,
+         {"pass_a_ms": pass_a, "pass_b_ms": pass_b}),
     ):
         entries.append(_entry(
             f"flash_attention_{d}[b={b} n={n} heads={heads} hd={hd}]", f"flash_attention_{d}.cu", FLASH_REPLACES[d],
             err, ms, plain_ms, bound_ms, bound_by, lib_ms, bucket96_ms=ms96, launches=calls[f"flash_{d}", n],
-            launches_per_train_step=calls[f"flash_{d}", n], path=DIT_STEP_PATH))
+            launches_per_train_step=calls[f"flash_{d}", n], path=DIT_STEP_PATH, **extra))
     return entries, calls
 
 

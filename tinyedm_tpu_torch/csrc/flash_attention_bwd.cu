@@ -18,9 +18,10 @@
 //
 // What bounds it on an H100 SXM: it reads q, k, v, g and writes dq, dk, dv,
 // 7 b n heads hd sizeof(T) bytes, against 10 b heads n^2 hd FLOP (five
-// products of q k^T's size: S, dP, dq, dk, dv): at the ImageNet-512 widths
-// (b = 32, bf16) 0.130 ms of tensor-core time at (n = 1024, 4 heads of 96)
-// and 1.042 ms at (4096, 4 x 48), far above the bytes: bound by operations.
+// products of q k^T's size: S, dP, dq, dk, dv): 0.391 ms of tensor-core time
+// at DiT-XL/2's attention (b = 32, n = 1024, 16 heads of 72, bf16), 0.130 ms
+// at (1024, 4 heads of 96) and 1.042 ms at (4096, 4 x 48), far above the
+// bytes: bound by operations.
 //
 // Design: dq sums over every key, dk and dv over every query. Rather than
 // fp32 atomics (whose order, and so whose result, changes from run to run),
@@ -33,38 +34,68 @@
 //       tiles, recomputes p and ds from m, s and delta, and sums
 //       dk = ds^T q and dv = p^T g over all queries in registers.
 // p is recomputed from the forward's statistics rather than stored (n^2
-// values per head).
+// values per head). In bf16, p and ds stay fp32 and enter each product as a
+// hi + lo pair of bf16 operands, hi = bf16(x), lo = bf16(x - hi): one
+// rounding of p and ds to bf16 puts the gradients 2.6e-3 (relative L2) off
+// the plain version, past the 1e-3 gate; the pair leaves about 1e-4, the
+// rounding of the outputs (tests/test_torch_flash_split.py). So
+// dq = ds_hi k + ds_lo k, and so on.
 //
-// bf16 at n >= 2 (tensor cores): the products run on mma.sync.m16n8k16
-// (mma_common.cuh). q, k, v and g are staged as padded bf16 rows (stride
-// hd rounded up to 16, plus 8 elements: ldmatrix without bank conflicts) by
-// 16-byte cp.async copies where hd and the strides allow (element loads
-// otherwise: hd = 20, 33), the next streamed tile in flight while this one
-// multiplies, one barrier per tile. p and ds stay fp32 in the accumulator
-// fragments and enter the next product as a hi + lo pair of bf16 A
-// fragments, hi = bf16(x), lo = bf16(x - hi): one rounding of p and ds to
-// bf16 puts the gradients 2.6e-3 (relative L2) off the plain version, past
-// the 1e-3 gate; the pair leaves about 1e-4, the rounding of the outputs
-// (tests/test_torch_flash_split.py). So dq = ds_hi k + ds_lo k, and so on.
-//   (a) 4 warps own 64 query rows, 16 each, and take the 64-key tiles 32
-//       keys at a time: S = Q K^T and dP = G V^T (Q and G fragments held in
-//       registers up to hd 128), p = exp(S scale - m) / s (the quotient
-//       correctly rounded, masked past n), sweep 1 sums dp p per row (the
-//       quad's lanes meet by shuffles: delta), sweep 2 forms ds and
-//       dq += ds_hi K + ds_lo K (K by ldmatrix.trans). S is computed with
-//       the forward's instructions in the forward's order
-//       (flash_attention_fwd.cu), so its logits are the forward's bit for bit.
-//   (b) 8 warps own 64 key rows: warps 0-3 sum dk of 16 keys each, warps 4-7
-//       dv of the same keys, so that each warp's sum stays in registers at
-//       hd 256; both kinds compute S^T = K Q^T, whose fragments are already
-//       the A operand of the next product (keys as rows); the dk warps also
-//       dP^T = V G^T and dS^T = P^T (dP^T - delta) scale, then
-//       dk += dS^T_hi Q + dS^T_lo Q; the dv warps dv += P^T_hi G + P^T_lo G.
+// bf16 at n >= 2 and hd <= 128 (the buckets 32, 48, 64, 80, 96, 128):
+// warpgroup products, wgmma (wgmma_common.cuh). A block is three
+// warpgroups: two consumers, 64 owned rows each, and a producer. The
+// producers stage the block's 128 own rows once and stream the other
+// side's rows, 64 a tile, into a ring of 4 or 5 stages under mbarriers, by
+// 16-byte cp.async copies (element copies where hd or the strides forbid
+// them: hd 20, 33), with zeros past hd (up to the bucket) and past n; each
+// waits for its copies of a stage, fences them to the async proxy that the
+// products read through and arrives at the stage's barrier; each consumer
+// warp releases a stage when its last product that reads it is done. The
+// producers keep 56 registers a thread and hand the rest to the consumers
+// (setmaxnreg: 224 each, of the 168 a thread that 384 threads launch with).
+// Tiles are stored as blocks of 8 columns of 16-byte rows, so that one tile
+// is the K-major operand of S and dP and the MN-major operand of the sums.
+// The logits' fp32 sums (S, dP) stay in the accumulator registers and enter
+// the next products as the A operand, split into the pair there: p and ds
+// never pass through shared or device memory. A streamed tile is taken in
+// two halves of 32 columns, so that one half's products run while the other
+// half's exps and splits do. The owned rows' operand of S and dP is held in
+// registers too (halving those products' shared-memory reads): by pass (a)
+// up to the 96 bucket, by pass (b) up to the 80 bucket, which there also
+// has both halves' logits in flight at once.
+//   (a) S = Q K^T and dP = G V^T (m64n32k16), p = 2^(S scale log2(e) -
+//       (m log2(e) + log2(s))): one FMA and one ex2 a logit, exp(S scale -
+//       m) / s up to fp32 rounding, zero past n; sweep 1 sums dp p per row
+//       (the quad's lanes meet by shuffles), sweep 2 forms ds and dq +=
+//       ds_hi K + ds_lo K.
+//   (b) S^T = K Q^T, dP^T = V G^T, then P^T and dS^T once a streamed half,
+//       feeding both dv += P^T_hi G + P^T_lo G and dk += dS^T_hi Q +
+//       dS^T_lo Q (m64nHDk16, hd / 2 + hd / 2 fp32 sums a thread). The
+//       producers stage each query's m log2(e) + log2(s) and delta.
 // Products of q k^T's size: (a) S and dP twice, dq as a pair: 6; (b) S^T
-// twice, dP^T, dk and dv as pairs: 7; 13 against the bound's 5. Each logit
-// also costs an exp and a division four times (twice in each pass), on the
-// CUDA cores and special function units beside the tensor cores: at hd 48
-// they weigh as much as the products.
+// and dP^T once, dk and dv as pairs: 6; 12 against the bound's 5 (the
+// pairs' lo halves add 3, delta's sweep 2, the recomputed S^T 2). Each logit
+// costs three exps (two in (a), one in (b)) and no division. The loads
+// could be TMA copies for the model's layouts, but not at hd 20 or 33 (rows
+// of 40 and 66 bytes), and the 8-column tiles need a tensor map whose
+// strides are out of order: one producer warpgroup of cp.async serves every
+// layout on one path.
+//
+// bf16 at n >= 2 and hd 129 to 256 (the buckets 192, 256): warp-level
+// products, mma.sync.m16n8k16 (mma_common.cuh), because m64n192 and m64n256
+// sums of both dk and dv do not fit a thread's registers beside S^T and
+// dP^T. q, k, v and g are staged as padded bf16 rows (stride hd rounded up
+// to 16, plus 8 elements: ldmatrix without bank conflicts) by cp.async, the
+// next streamed tile in flight while this one multiplies.
+//   (a) 4 warps own 64 query rows, 16 each, and take the 64-key tiles 32
+//       keys at a time: S and dP, p = exp(S scale - m) / s (the quotient
+//       correctly rounded), sweep 1 delta, sweep 2 dq += ds_hi K + ds_lo K
+//       (K by ldmatrix.trans).
+//   (b) 8 warps own 64 key rows: warps 0-3 sum dk of 16 keys each, warps 4-7
+//       dv of the same keys, so that each warp's sum stays in registers;
+//       both kinds compute S^T, the dk warps also dP^T and dS^T.
+// Products: 13 against the bound's 5; the exp and division four times a
+// logit.
 //
 // fp32, and bf16 at n = 1 (CUDA cores): fp32 on the tensor cores would be
 // TF32, off the 1e-5 gate, so fp32 keeps the first port's kernels: 32 rows
@@ -82,11 +113,572 @@
 #include "cosine_attention_common.cuh"
 #include "cosine_attention_tc.cuh"
 #include "mma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// bf16: the products on the tensor cores
+// bf16 up to hd 128: warpgroup products
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kGroups = 2;              // consumer warpgroups a block
+constexpr int kOwn = 64 * kGroups;      // rows a block owns: queries in (a), keys in (b)
+constexpr int kTile = 64;               // streamed rows a stage: keys in (a), queries in (b)
+constexpr int kConsumers = 128 * kGroups;
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+// registers a thread: the launch gives each of the 384 threads 168; the
+// producers give back 112 each, which lifts the consumers to 224
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// stages of the ring: as many as shared memory holds beside the owned rows
+template <int HDP>
+constexpr int kStages = HDP <= 96 ? 5 : 4;
+// logit columns a product step: half a streamed tile, so that one half's
+// products run while the other half's p is taken
+constexpr int kHalf = kTile / 2;
+// The owned rows' A fragments held in registers for S and dP (S^T and
+// dP^T), halving their shared-memory reads: pass (a) up to the 96 bucket,
+// pass (b) up to the 80 bucket, which there also has both halves' logits in
+// flight at once (at 96, ptxas serializes its products for registers)
+template <int HDP>
+constexpr bool kRegsA = HDP <= 96;
+template <int HDP>
+constexpr bool kRegsB = HDP <= 80;
+
+// The producer warpgroup's copy of rows [row0, row0 + R) of channels [col,
+// col + hd) of an (n, width) slab into a tile of R rows of HDP columns
+// (wgmma_common.cuh's layout), zeros past hd and at rows >= n. vec: 16-byte
+// cp.async copies (hd, width and col multiples of 8, the slab 16-byte
+// aligned), which the caller commits and waits for; the 8 lanes of a
+// quarter warp take 8 rows of one column block (no bank conflicts); else
+// element copies.
+template <int R, int HDP>
+__device__ __forceinline__ void load_tile(const bf16* __restrict__ slab, int n, int row0,
+                                          long long width, int col, int hd, bf16* dst, bool vec) {
+  const int t = threadIdx.x % 128;
+  const bf16* base = slab + (size_t)row0 * width + col;
+  const int rows = n - row0;  // of the tile's rows, those that exist
+  if (vec) {
+    constexpr int kSegs = HDP / 8;
+    for (int idx = t; idx < R * kSegs; idx += 128) {
+      const int rest = idx / 8, c = rest % kSegs;
+      const int r = (rest / kSegs) * 8 + idx % 8;
+      const bool ok = r < rows && c * 8 < hd;
+      mma::cp_async_16(dst + (c * R + r) * 8, ok ? base + (size_t)r * width + c * 8 : slab, ok);
+    }
+  } else {
+    for (int idx = t; idx < R * HDP; idx += 128) {
+      const int r = idx / HDP, c = idx % HDP;
+      dst[((c / 8) * R + r) * 8 + c % 8] =
+          (r < rows && c < hd) ? base[(size_t)r * width + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// A producer's signal that everything it copied before its last commit but
+// InFlight has landed: wait, fence to the async proxy, arrive (a barrier
+// counts the 128 producers)
+template <int InFlight>
+__device__ __forceinline__ void publish(uint64_t* bar) {
+  mma::cp_async_wait<InFlight>();
+  wgmma::fence_proxy_async();
+  wgmma::mbar_arrive(bar);
+}
+
+// a consumer warp done with a stage (a barrier counts the 8 consumer warps)
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) wgmma::mbar_arrive(bar);
+}
+
+template <int Stages>
+__device__ __forceinline__ void init_barriers(uint64_t* own, uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    wgmma::mbar_init(own, 128);
+#pragma unroll
+    for (int s = 0; s < Stages; ++s) {
+      wgmma::mbar_init(full + s, 128);
+      wgmma::mbar_init(empty + s, kConsumers / 32);
+    }
+    wgmma::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// hi and lo A fragments (k16 step kc) of a warpgroup's 64 x C fp32 sums
+// in the accumulator layout, each value split into its bf16 pair
+template <int K>
+__device__ __forceinline__ void split_a(const float (&t)[K], int kc, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = t[8 * kc + 2 * i], x1 = t[8 * kc + 2 * i + 1];
+    hi[i] = mma::pack_bf16(x0, x1);
+    lo[i] = mma::pack_bf16(__fsub_rn(x0, mma::bf16_lo(hi[i])), __fsub_rn(x1, mma::bf16_hi(hi[i])));
+  }
+}
+
+// The logits' products: d = A B^T over the bucket's k16 steps, A the 64
+// owned rows (fragments a in registers, or the tile at ad K-major), B the
+// step's rows of a streamed tile (bd, K-major)
+template <int N, int HDP, int RA, bool InRegs>
+__device__ __forceinline__ void logits(float (&d)[N / 2], const uint32_t (&a)[HDP / 16][4],
+                                       uint64_t ad, uint64_t bd) {
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const uint64_t b = wgmma::advance(bd, kk * 2 * kTile * 16);
+    if constexpr (InRegs)
+      wgmma::Mma<N>::template rs<0>(d, a[kk], b, kk > 0);
+    else
+      wgmma::Mma<N>::ss(d, wgmma::advance(ad, kk * 2 * RA * 16), b, kk > 0);
+  }
+}
+
+// A thread's m64nHDP sums, rounded to bf16, to rows row0 and row0 + 8 of a
+// head's slab out (row stride C), channels < hd, rows < n
+template <int HDP>
+__device__ __forceinline__ void store_acc(const float (&acc)[HDP / 2], bf16* __restrict__ out,
+                                          int row0, int n, int C, int hd) {
+  const int c0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half, c = 8 * j + c0;
+      if (row >= n || c >= hd) continue;
+      const float x0 = acc[4 * j + 2 * half], x1 = acc[4 * j + 2 * half + 1];
+      bf16* o = out + (size_t)row * C + c;
+      if (hd % 2 == 0) {
+        *reinterpret_cast<uint32_t*>(o) = mma::pack_bf16(x0, x1);
+      } else {
+        o[0] = __float2bfloat16_rn(x0);
+        if (c + 1 < hd) o[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+template <int HDP, bool WithStats>
+constexpr size_t smem_bytes() {
+  constexpr int kRing = kStages<HDP>;
+  return sizeof(bf16) * (size_t)HDP * (2 * kOwn + 2 * kRing * kTile) +
+         (WithStats ? sizeof(float) * 2 * kRing * kTile : 0) + sizeof(uint64_t) * (1 + 2 * kRing);
+}
+
+// Pass (a): dq, and delta for pass (b). HDP: hd rounded up to a bucket (a
+// multiple of 16) that fixes the k16 steps and the width of dq's product.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ gout,
+                           const float* __restrict__ stats, bf16* __restrict__ dq,
+                           float* __restrict__ delta_out, int b_total, int n, int heads, int hd,
+                           long long sb, long long sn, float scale, int vec) {
+  constexpr int kRing = kStages<HDP>;
+  constexpr bool kRegs = kRegsA<HDP>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kOwn rows]
+  bf16* g_s = q_s + kOwn * HDP;                   // [kOwn rows]
+  bf16* k_s = g_s + kOwn * HDP;                   // [kRing][kTile rows]
+  bf16* v_s = k_s + kRing * kTile * HDP;          // [kRing][kTile rows]
+  uint64_t* own = reinterpret_cast<uint64_t*>(v_s + kRing * kTile * HDP);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + kRing;
+
+  const int n_qt = (n + kOwn - 1) / kOwn;
+  const int bh = blockIdx.x / n_qt;
+  const int h = bh % heads;
+  const int b = bh / heads;
+  const int C = heads * hd;
+  const int col = h * hd;  // the head's first channel in a row
+  const int q0 = (blockIdx.x % n_qt) * kOwn;
+  const int tiles = (n + kTile - 1) / kTile;
+  init_barriers<kRing>(own, full, empty);
+
+  if (threadIdx.x >= kConsumers) {
+    // the producers: the block's query and cotangent rows, then the key and
+    // value tiles of both sweeps through the ring
+    wgmma::regs_dec<kProducerRegs>();
+    const bf16* kb = k + (size_t)b * sb;
+    const bf16* vb = v + (size_t)b * sb;
+    load_tile<kOwn, HDP>(q + (size_t)b * sb, n, q0, sn, col, hd, q_s, vec);
+    load_tile<kOwn, HDP>(gout + (size_t)b * n * C, n, q0, C, col, hd, g_s, vec);
+    mma::cp_async_commit();
+    for (int it = 0; it < 2 * tiles; ++it) {
+      const int s = it % kRing;
+      if (it >= kRing) wgmma::mbar_wait(empty + s, (it / kRing - 1) & 1);
+      const int k0 = (it % tiles) * kTile;
+      load_tile<kTile, HDP>(kb, n, k0, sn, col, hd, k_s + s * kTile * HDP, vec);
+      load_tile<kTile, HDP>(vb, n, k0, sn, col, hd, v_s + s * kTile * HDP, vec);
+      mma::cp_async_commit();
+      publish<1>(it == 0 ? own : full + (it - 1) % kRing);  // the stage before this one
+    }
+    publish<0>(full + (2 * tiles - 1) % kRing);
+  } else {
+    // the consumers: warpgroup w owns query rows q0 + 64 w ..; this thread's
+    // accumulator rows are r0 and r0 + 8
+    wgmma::regs_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int wr = w * 64 + (threadIdx.x % 128) / 32 * 16;  // the warp's first row in the block
+    const int r0 = q0 + wr + lane / 4;
+    const float c1 = __fmul_rn(scale, kLog2e);
+    float bias[2];  // m log2(e) + log2(s); +inf past n, so that p = 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      const size_t at = (size_t)bh * n + row;  // m at stats[at], s a (b, heads, n) block further
+      bias[r] = row < n ? __fmaf_rn(stats[at], kLog2e, log2f(stats[at + (size_t)b_total * heads * n]))
+                        : INFINITY;
+    }
+    const uint64_t qd = wgmma::tile_desc<kOwn>(q_s + w * 64 * 8);
+    const uint64_t gd = wgmma::tile_desc<kOwn>(g_s + w * 64 * 8);
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    float dsum[2] = {0.f, 0.f};  // sweep 1: this lane's part of rowsum(dp * p)
+    float delta[2];              // sweep 2: the rows' delta
+    wgmma::mbar_wait(own, 0);
+    uint32_t qa[HDP / 16][4], ga[HDP / 16][4];  // the rows of Q and G as A fragments
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        wgmma::load_a<kOwn>(qa[kk], q_s, wr, kk);
+        wgmma::load_a<kOwn>(ga[kk], g_s, wr, kk);
+      }
+    }
+
+    // the key tile's S = Q K^T and dP = G V^T, in two halves of 32 keys, both
+    // in flight (one commit group each); the second half's products run while
+    // the first half's p is taken
+    auto start_logits = [&](const bf16* ks, const bf16* vs, float (&sc)[2][kHalf / 2],
+                            float (&dp)[2][kHalf / 2]) {
+      wgmma::fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        logits<kHalf, HDP, kOwn, kRegs>(sc[h], qa, qd, wgmma::tile_desc<kTile>(ks + h * kHalf * 8));
+        logits<kHalf, HDP, kOwn, kRegs>(dp[h], ga, gd, wgmma::tile_desc<kTile>(vs + h * kHalf * 8));
+        wgmma::commit();
+      }
+    };
+    // p of logit i of a half; prob_masked also zeroes the keys past n, of
+    // which only the last tile has any (`left`: the half's keys before n)
+    auto prob = [&](float l, int i) {
+      return wgmma::exp2_approx(__fmaf_rn(l, c1, -bias[(i / 2) % 2]));
+    };
+    auto prob_masked = [&](float l, int i, int left) {
+      return 8 * (i / 4) + 2 * (lane % 4) + i % 2 < left ? prob(l, i) : 0.f;
+    };
+
+    // sweep 1 over the key tiles: delta = rowsum(dp p)
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kRing;
+      wgmma::mbar_wait(full + s, (it / kRing) & 1);
+      float sc[2][kHalf / 2], dp[2][kHalf / 2];
+      start_logits(k_s + s * kTile * HDP, v_s + s * kTile * HDP, sc, dp);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 0)
+          wgmma::wait<1>();
+        else
+          wgmma::wait<0>();
+        wgmma::fence_operand(sc[h]);
+        wgmma::fence_operand(dp[h]);
+        const int left = n - (it * kTile + h * kHalf);
+        if (left >= kHalf) {
+#pragma unroll
+          for (int i = 0; i < kHalf / 2; ++i) dsum[(i / 2) % 2] += dp[h][i] * prob(sc[h][i], i);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kHalf / 2; ++i)
+            dsum[(i / 2) % 2] += dp[h][i] * prob_masked(sc[h][i], i, left);
+        }
+      }
+      release(empty + s);
+    }
+    // the quad's four lanes hold a row's keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], off);
+      delta[r] = dsum[r];
+      const int row = r0 + 8 * r;
+      if (lane % 4 == 0 && row < n) delta_out[(size_t)bh * n + row] = delta[r];
+    }
+
+    // sweep 2: ds = (dp - delta) p scale, dq += ds_hi K + ds_lo K (K read
+    // MN-major); the first half's dq products run while the second half's ds
+    // is taken
+    for (int it = tiles; it < 2 * tiles; ++it) {
+      const int s = it % kRing;
+      wgmma::mbar_wait(full + s, (it / kRing) & 1);
+      const bf16* ks = k_s + s * kTile * HDP;
+      float sc[2][kHalf / 2], dp[2][kHalf / 2];
+      start_logits(ks, v_s + s * kTile * HDP, sc, dp);
+      uint32_t hi[2][kHalf / 16][4], lo[2][kHalf / 16][4];  // ds of each half, A fragments
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // this half's logits; the other half's logits or the first half's dq may run
+        wgmma::wait<1>();
+        wgmma::fence_operand(sc[h]);
+        wgmma::fence_operand(dp[h]);
+        const int left = n - ((it - tiles) * kTile + h * kHalf);
+        auto ds = [&](int i, float p) {
+          return __fmul_rn(__fmul_rn(__fsub_rn(dp[h][i], delta[(i / 2) % 2]), p), scale);
+        };
+        if (left >= kHalf) {
+#pragma unroll
+          for (int i = 0; i < kHalf / 2; ++i) sc[h][i] = ds(i, prob(sc[h][i], i));
+        } else {
+#pragma unroll
+          for (int i = 0; i < kHalf / 2; ++i) sc[h][i] = ds(i, prob_masked(sc[h][i], i, left));
+        }
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc) split_a(sc[h], kc, hi[h][kc], lo[h][kc]);
+        const uint64_t kt = wgmma::tile_desc_t<kTile>(ks + h * kHalf * 8);
+        wgmma::fence();
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc) {
+          wgmma::Mma<HDP>::template rs<1>(acc, hi[h][kc], wgmma::advance(kt, kc * 256), 1);
+          wgmma::Mma<HDP>::template rs<1>(acc, lo[h][kc], wgmma::advance(kt, kc * 256), 1);
+        }
+        wgmma::commit();
+      }
+      wgmma::wait<0>();
+      wgmma::fence_operand(acc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc) {
+          wgmma::fence_operand(hi[h][kc]);
+          wgmma::fence_operand(lo[h][kc]);
+        }
+      }
+      release(empty + s);
+    }
+    store_acc<HDP>(acc, dq + (size_t)b * n * C + col, r0, n, C, hd);
+  }
+}
+
+// Pass (b): dk and dv from m, s and delta.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ gout,
+                            const float* __restrict__ stats, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int b_total, int n,
+                            int heads, int hd, long long sb, long long sn, float scale, int vec) {
+  constexpr int kRing = kStages<HDP>;
+  constexpr bool kRegs = kRegsB<HDP>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kOwn rows]
+  bf16* v_s = k_s + kOwn * HDP;                   // [kOwn rows]
+  bf16* q_s = v_s + kOwn * HDP;                   // [kRing][kTile rows]
+  bf16* g_s = q_s + kRing * kTile * HDP;          // [kRing][kTile rows]
+  // [kRing][2][kTile]: each query's m log2(e) + log2(s), then its delta
+  float* st_s = reinterpret_cast<float*>(g_s + kRing * kTile * HDP);
+  uint64_t* own = reinterpret_cast<uint64_t*>(st_s + kRing * 2 * kTile);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + kRing;
+
+  const int n_kt = (n + kOwn - 1) / kOwn;
+  const int bh = blockIdx.x / n_kt;
+  const int h = bh % heads;
+  const int b = bh / heads;
+  const int C = heads * hd;
+  const int col = h * hd;
+  const int k0 = (blockIdx.x % n_kt) * kOwn;
+  const int tiles = (n + kTile - 1) / kTile;
+  init_barriers<kRing>(own, full, empty);
+
+  if (threadIdx.x >= kConsumers) {
+    // the producers: the block's key and value rows, then the query tiles
+    // with their cotangent rows and statistics through the ring
+    wgmma::regs_dec<kProducerRegs>();
+    const bf16* qb = q + (size_t)b * sb;
+    const bf16* gb = gout + (size_t)b * n * C;
+    const float* m_g = stats + (size_t)bh * n;
+    const float* s_g = stats + (size_t)b_total * heads * n + (size_t)bh * n;
+    const float* dl_g = delta + (size_t)bh * n;
+    load_tile<kOwn, HDP>(k + (size_t)b * sb, n, k0, sn, col, hd, k_s, vec);
+    load_tile<kOwn, HDP>(v + (size_t)b * sb, n, k0, sn, col, hd, v_s, vec);
+    mma::cp_async_commit();
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kRing;
+      if (it >= kRing) wgmma::mbar_wait(empty + s, (it / kRing - 1) & 1);
+      const int q0 = it * kTile;
+      load_tile<kTile, HDP>(qb, n, q0, sn, col, hd, q_s + s * kTile * HDP, vec);
+      load_tile<kTile, HDP>(gb, n, q0, C, col, hd, g_s + s * kTile * HDP, vec);
+      mma::cp_async_commit();
+      const int r = threadIdx.x % 128;
+      if (r < kTile) {
+        const int row = q0 + r;
+        const bool in = row < n;  // past n: p = 0
+        st_s[s * 2 * kTile + r] = in ? __fmaf_rn(m_g[row], kLog2e, log2f(s_g[row])) : INFINITY;
+        st_s[s * 2 * kTile + kTile + r] = in ? dl_g[row] : 0.f;
+      }
+      publish<1>(it == 0 ? own : full + (it - 1) % kRing);
+    }
+    publish<0>(full + (tiles - 1) % kRing);
+  } else {
+    // the consumers: warpgroup w owns key rows k0 + 64 w ..; this thread's
+    // accumulator rows are r0 and r0 + 8
+    wgmma::regs_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int wr = w * 64 + (threadIdx.x % 128) / 32 * 16;
+    const int r0 = k0 + wr + lane / 4;
+    const float c1 = __fmul_rn(scale, kLog2e);
+    const uint64_t kd = wgmma::tile_desc<kOwn>(k_s + w * 64 * 8);
+    const uint64_t vd = wgmma::tile_desc<kOwn>(v_s + w * 64 * 8);
+    float dk_acc[HDP / 2], dv_acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    wgmma::mbar_wait(own, 0);
+    uint32_t ka[HDP / 16][4], va[HDP / 16][4];  // the rows of K and V as A fragments
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        wgmma::load_a<kOwn>(ka[kk], k_s, wr, kk);
+        wgmma::load_a<kOwn>(va[kk], v_s, wr, kk);
+      }
+    }
+
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kRing;
+      wgmma::mbar_wait(full + s, (it / kRing) & 1);
+      const bf16* qs = q_s + s * kTile * HDP;
+      const bf16* gs = g_s + s * kTile * HDP;
+      const float* sts = st_s + s * 2 * kTile;
+      // the tile in two halves of 32 queries: S^T = K Q^T and dP^T = V G^T of
+      // a half (of both at once where the registers hold them), then P^T and
+      // dS^T once, then dv += P^T_hi G + P^T_lo G and dk += dS^T_hi Q +
+      // dS^T_lo Q, while the next half's logits are taken
+      float st[2][kHalf / 2], dpt[2][kHalf / 2];
+      uint32_t ph[2][kHalf / 16][4], pl[2][kHalf / 16][4], dh[2][kHalf / 16][4],
+          dl[2][kHalf / 16][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 0 || !kRegs) {
+          wgmma::fence();
+#pragma unroll
+          for (int g = h; g < (kRegs ? 2 : h + 1); ++g) {
+            const uint64_t qd = wgmma::tile_desc<kTile>(qs + g * kHalf * 8);
+            const uint64_t gd = wgmma::tile_desc<kTile>(gs + g * kHalf * 8);
+            logits<kHalf, HDP, kOwn, kRegs>(st[g], ka, kd, qd);
+            logits<kHalf, HDP, kOwn, kRegs>(dpt[g], va, vd, gd);
+            wgmma::commit();
+          }
+        }
+        if constexpr (kRegs) {
+          wgmma::wait<1>();  // this half's logits; the other's, or the first half's sums, may run
+        } else {
+          wgmma::wait<0>();
+          if (h == 1) {  // the first half's sums are done
+#pragma unroll
+            for (int kc = 0; kc < kHalf / 16; ++kc) {
+              wgmma::fence_operand(ph[0][kc]);
+              wgmma::fence_operand(pl[0][kc]);
+              wgmma::fence_operand(dh[0][kc]);
+              wgmma::fence_operand(dl[0][kc]);
+            }
+          }
+        }
+        wgmma::fence_operand(st[h]);
+        wgmma::fence_operand(dpt[h]);
+        // P^T and dS^T = (dP^T - delta) P^T scale, once for both sums; this
+        // thread's columns come in pairs, 8 j + 2 (lane % 4) and one more
+        float2 qbias[kHalf / 8], qdelta[kHalf / 8];
+#pragma unroll
+        for (int j = 0; j < kHalf / 8; ++j) {
+          const int qi = h * kHalf + 8 * j + 2 * (lane % 4);
+          qbias[j] = *reinterpret_cast<const float2*>(sts + qi);
+          qdelta[j] = *reinterpret_cast<const float2*>(sts + kTile + qi);
+        }
+#pragma unroll
+        for (int i = 0; i < kHalf / 2; ++i) {
+          const float2 bq = qbias[i / 4], dd = qdelta[i / 4];
+          const float p = wgmma::exp2_approx(__fmaf_rn(st[h][i], c1, -(i % 2 ? bq.y : bq.x)));
+          st[h][i] = p;
+          dpt[h][i] = __fmul_rn(__fmul_rn(__fsub_rn(dpt[h][i], i % 2 ? dd.y : dd.x), p), scale);
+        }
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc) {
+          split_a(st[h], kc, ph[h][kc], pl[h][kc]);
+          split_a(dpt[h], kc, dh[h][kc], dl[h][kc]);
+        }
+        // G and Q read MN-major
+        const uint64_t gt = wgmma::tile_desc_t<kTile>(gs + h * kHalf * 8);
+        const uint64_t qt = wgmma::tile_desc_t<kTile>(qs + h * kHalf * 8);
+        wgmma::fence();
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc) {
+          wgmma::Mma<HDP>::template rs<1>(dv_acc, ph[h][kc], wgmma::advance(gt, kc * 256), 1);
+          wgmma::Mma<HDP>::template rs<1>(dv_acc, pl[h][kc], wgmma::advance(gt, kc * 256), 1);
+          wgmma::Mma<HDP>::template rs<1>(dk_acc, dh[h][kc], wgmma::advance(qt, kc * 256), 1);
+          wgmma::Mma<HDP>::template rs<1>(dk_acc, dl[h][kc], wgmma::advance(qt, kc * 256), 1);
+        }
+        wgmma::commit();
+      }
+      wgmma::wait<0>();
+      wgmma::fence_operand(dk_acc);
+      wgmma::fence_operand(dv_acc);
+#pragma unroll
+      for (int h = kRegs ? 0 : 1; h < 2; ++h) {
+#pragma unroll
+        for (int kc = 0; kc < kHalf / 16; ++kc) {
+          wgmma::fence_operand(ph[h][kc]);
+          wgmma::fence_operand(pl[h][kc]);
+          wgmma::fence_operand(dh[h][kc]);
+          wgmma::fence_operand(dl[h][kc]);
+        }
+      }
+      release(empty + s);
+    }
+    const size_t out0 = (size_t)b * n * C + col;
+    store_acc<HDP>(dk_acc, dk + out0, r0, n, C, hd);
+    store_acc<HDP>(dv_acc, dv + out0, r0, n, C, hd);
+  }
+}
+
+template <int HDP>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* g, const float* stats,
+                   float* delta, void* dq, void* dk, void* dv, int b, int n, int heads, int hd,
+                   long long sb, long long sn, float scale, bool vec, cudaStream_t stream) {
+  constexpr size_t smem_a = smem_bytes<HDP, false>();
+  constexpr size_t smem_b = smem_bytes<HDP, true>();
+  auto dq_kernel = flash_bwd_dq_wg_kernel<HDP>;
+  auto dkv_kernel = flash_bwd_dkv_wg_kernel<HDP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)b * heads * ((n + kOwn - 1) / kOwn);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const bf16* q_t = static_cast<const bf16*>(q);
+  const bf16* k_t = static_cast<const bf16*>(k);
+  const bf16* v_t = static_cast<const bf16*>(v);
+  const bf16* g_t = static_cast<const bf16*>(g);
+  dq_kernel<<<(unsigned)blocks, kThreads, smem_a, stream>>>(
+      q_t, k_t, v_t, g_t, stats, static_cast<bf16*>(dq), delta, b, n, heads, hd, sb, sn, scale,
+      vec ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<(unsigned)blocks, kThreads, smem_b, stream>>>(
+      q_t, k_t, v_t, g_t, stats, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), b, n,
+      heads, hd, sb, sn, scale, vec ? 1 : 0);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// bf16 from hd 129 to 256: warp-level products
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -124,14 +716,7 @@ __device__ __forceinline__ void split_a(const float (&t)[kSTiles][4], int kc, ui
 
 // acc (16 x HDP) += (hi + lo) B, B the 16 x HDP [k][n] tile whose lane
 // address (bk_row, bk_col applied) is b, by ldmatrix.trans. The sums are
-// carried across the whole sweep in the mma accumulators, unlike
-// gemm_tc.cuh's, whose sums past 1e-3 at C 768 forced a correctly rounded
-// add per k16 step. Here that add halves the drift from the plain version
-// (relative L2 2.25e-4 to 1.0e-4 at n 4096, hd 48; 1.27e-4 to 1.0e-4 at
-// n 1024, hd 96), which is already within a quarter of the 1e-3 gate, for
-// 8 to 10% more time, 255 registers and spills from hd 128 up, and half the
-// blocks per SM of pass (b) at hd 64 (experiments/torch_flash_bwd_sweep.py,
-// variant step_add).
+// carried across the whole sweep in the mma accumulators.
 template <int HDP>
 __device__ __forceinline__ void mma_pair(float (&acc)[HDP / 8][4], const uint32_t (&hi)[4],
                                          const uint32_t (&lo)[4], const bf16* b) {
@@ -181,7 +766,9 @@ __device__ __forceinline__ void store_rows16(const float (&acc)[HDP / 8][4], bf1
 }
 
 // Pass (a): dq, and delta for pass (b). HDP: hd rounded up to a bucket (a
-// multiple of 16) that fixes the k16 steps and the n8 tiles of dq.
+// multiple of 16) that fixes the k16 steps and the n8 tiles of dq. S is
+// computed with the forward's instructions in the forward's order
+// (flash_attention_fwd.cu).
 template <int HDP>
 __global__ void __launch_bounds__(kThreadsA)
     flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -192,7 +779,6 @@ __global__ void __launch_bounds__(kThreadsA)
   constexpr int kRow = HDP + 8;        // shared-memory row stride
   constexpr int kKSteps = HDP / 16;    // k16 steps of S and dP
   constexpr int kOTiles = HDP / 8;     // n8 tiles of dq
-  constexpr bool kRegs = HDP <= 128;   // Q and G fragments in registers (else from shared memory)
   static_assert(HDP % 16 == 0, "hd bucket");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -237,7 +823,6 @@ __global__ void __launch_bounds__(kThreadsA)
   const int a_off = (warp * 16 + mma::a_row(lane)) * kRow + mma::a_col(lane);
   const int bn_off = mma::bn_row(lane) * kRow + mma::bn_col(lane);
   const int bk_off = mma::bk_row(lane) * kRow + mma::bk_col(lane);
-  uint32_t qf[kRegs ? kKSteps : 1][4], gf[kRegs ? kKSteps : 1][4];
   float dsum[2] = {0.f, 0.f};   // sweep 1: this lane's part of rowsum(dp * p)
   float delta[2] = {0.f, 0.f};  // sweep 2: the rows' delta
   float acc[kOTiles][4];
@@ -261,13 +846,6 @@ __global__ void __launch_bounds__(kThreadsA)
       stage_rows(vb, n, next0, kTile, sn, col, hd, HDP, v_s + (stage ^ 1) * kTile * kRow, kRow,
                  vec);
       mma::cp_async_commit();
-    }
-    if (kRegs && it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < (kRegs ? kKSteps : 1); ++kk) {
-        mma::ldmatrix_x4(qf[kk], q_s + a_off + kk * 16);
-        mma::ldmatrix_x4(gf[kk], g_s + a_off + kk * 16);
-      }
     }
     if (it == tiles) {  // sweep 1 is done: the quad's four lanes hold a row's keys
 #pragma unroll
@@ -294,16 +872,8 @@ __global__ void __launch_bounds__(kThreadsA)
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
         uint32_t aq[4], ag[4];
-        if (kRegs) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            aq[i] = qf[kRegs ? kk : 0][i];
-            ag[i] = gf[kRegs ? kk : 0][i];
-          }
-        } else {
-          mma::ldmatrix_x4(aq, q_s + a_off + kk * 16);
-          mma::ldmatrix_x4(ag, g_s + a_off + kk * 16);
-        }
+        mma::ldmatrix_x4(aq, q_s + a_off + kk * 16);
+        mma::ldmatrix_x4(ag, g_s + a_off + kk * 16);
 #pragma unroll
         for (int j2 = 0; j2 < kSTiles / 2; ++j2) {
           uint32_t bk[4], bv[4];
@@ -358,7 +928,6 @@ __global__ void __launch_bounds__(kThreadsB)
   constexpr int kRow = HDP + 8;
   constexpr int kKSteps = HDP / 16;
   constexpr int kOTiles = HDP / 8;
-  constexpr bool kRegs = HDP <= 128;  // K and V fragments in registers
   static_assert(HDP % 16 == 0, "hd bucket");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -409,7 +978,6 @@ __global__ void __launch_bounds__(kThreadsB)
   const int a_off = (kw * 16 + mma::a_row(lane)) * kRow + mma::a_col(lane);
   const int bn_off = mma::bn_row(lane) * kRow + mma::bn_col(lane);
   const int bk_off = mma::bk_row(lane) * kRow + mma::bk_col(lane);
-  uint32_t kf[kRegs ? kKSteps : 1][4], vf[kRegs ? kKSteps : 1][4];
   float acc[kOTiles][4];  // dk (warps 0-3) or dv (4-7) of the warp's keys
 #pragma unroll
   for (int j = 0; j < kOTiles; ++j) {
@@ -431,13 +999,6 @@ __global__ void __launch_bounds__(kThreadsB)
       stage_stats(next0, st_s + (stage ^ 1) * 4 * kTile);
       mma::cp_async_commit();
     }
-    if (kRegs && it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < (kRegs ? kKSteps : 1); ++kk) {
-        mma::ldmatrix_x4(kf[kk], k_s + a_off + kk * 16);
-        if (is_dk) mma::ldmatrix_x4(vf[kk], v_s + a_off + kk * 16);
-      }
-    }
     const bf16* qs = q_s + stage * kTile * kRow;
     const bf16* gs = g_s + stage * kTile * kRow;
     const float* sts = st_s + stage * 4 * kTile;
@@ -455,12 +1016,7 @@ __global__ void __launch_bounds__(kThreadsB)
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
         uint32_t ak[4];
-        if (kRegs) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) ak[i] = kf[kRegs ? kk : 0][i];
-        } else {
-          mma::ldmatrix_x4(ak, k_s + a_off + kk * 16);
-        }
+        mma::ldmatrix_x4(ak, k_s + a_off + kk * 16);
 #pragma unroll
         for (int j2 = 0; j2 < kSTiles / 2; ++j2) {
           uint32_t bq[4];
@@ -470,12 +1026,7 @@ __global__ void __launch_bounds__(kThreadsB)
         }
         if (is_dk) {
           uint32_t av[4];
-          if (kRegs) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) av[i] = vf[kRegs ? kk : 0][i];
-          } else {
-            mma::ldmatrix_x4(av, v_s + a_off + kk * 16);
-          }
+          mma::ldmatrix_x4(av, v_s + a_off + kk * 16);
 #pragma unroll
           for (int j2 = 0; j2 < kSTiles / 2; ++j2) {
             uint32_t bg[4];
@@ -545,27 +1096,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g, c
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, const void* g, const float* stats,
-                     float* delta, void* dq, void* dk, void* dv, int b, int n, int heads, int hd,
-                     long long sb, long long sn, float scale, cudaStream_t stream) {
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const bool vec = hd % 8 == 0 && sn % 8 == 0 && sb % 8 == 0 && aligned(q) && aligned(k) &&
-                   aligned(v) && aligned(g);
-#define TINYEDM_FLASH_BWD_LAUNCH(HDP)                                                        \
-  return launch<HDP>(q, k, v, g, stats, delta, dq, dk, dv, b, n, heads, hd, sb, sn, scale, vec, \
-                     stream)
-  if (hd <= 32) TINYEDM_FLASH_BWD_LAUNCH(32);
-  if (hd <= 48) TINYEDM_FLASH_BWD_LAUNCH(48);
-  if (hd <= 64) TINYEDM_FLASH_BWD_LAUNCH(64);
-  if (hd <= 80) TINYEDM_FLASH_BWD_LAUNCH(80);  // DiT-XL/2's 72, as in the forward
-  if (hd <= 96) TINYEDM_FLASH_BWD_LAUNCH(96);
-  if (hd <= 128) TINYEDM_FLASH_BWD_LAUNCH(128);
-  if (hd <= 192) TINYEDM_FLASH_BWD_LAUNCH(192);
-  TINYEDM_FLASH_BWD_LAUNCH(256);
-#undef TINYEDM_FLASH_BWD_LAUNCH
-}
-
 }  // namespace tc
+
 
 // ---------------------------------------------------------------------------
 // fp32, and bf16 at n = 1: the products on the CUDA cores (the first port's kernels)
@@ -887,6 +1419,28 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace simt
 
+// bf16 at n >= 2: the bucket of hd picks the kernels; vec: 16-byte copies
+cudaError_t dispatch_tensor_cores(const void* q, const void* k, const void* v, const void* g,
+                                  const float* stats, float* delta, void* dq, void* dk, void* dv,
+                                  int b, int n, int heads, int hd, long long sb, long long sn,
+                                  float scale, cudaStream_t stream) {
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = hd % 8 == 0 && sn % 8 == 0 && sb % 8 == 0 && aligned(q) && aligned(k) &&
+                   aligned(v) && aligned(g);
+#define TINYEDM_FLASH_BWD_LAUNCH(KERNELS, HDP)                                               \
+  return KERNELS::launch<HDP>(q, k, v, g, stats, delta, dq, dk, dv, b, n, heads, hd, sb, sn, \
+                              scale, vec, stream)
+  if (hd <= 32) TINYEDM_FLASH_BWD_LAUNCH(wg, 32);
+  if (hd <= 48) TINYEDM_FLASH_BWD_LAUNCH(wg, 48);
+  if (hd <= 64) TINYEDM_FLASH_BWD_LAUNCH(wg, 64);
+  if (hd <= 80) TINYEDM_FLASH_BWD_LAUNCH(wg, 80);  // DiT-XL/2's 72, as in the forward
+  if (hd <= 96) TINYEDM_FLASH_BWD_LAUNCH(wg, 96);
+  if (hd <= 128) TINYEDM_FLASH_BWD_LAUNCH(wg, 128);
+  if (hd <= 192) TINYEDM_FLASH_BWD_LAUNCH(tc, 192);
+  TINYEDM_FLASH_BWD_LAUNCH(tc, 256);
+#undef TINYEDM_FLASH_BWD_LAUNCH
+}
+
 }  // namespace
 
 // q, k, v: (b, n, heads, hd) with the layout flash_attention_fwd takes (unit
@@ -907,7 +1461,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   const float* st = static_cast<const float*>(stats);
   float* dl = static_cast<float*>(delta);
   if (is_bf16 && n > 1 && !cuda_cores)
-    return (int)tc::dispatch(q, k, v, g, st, dl, dq, dk, dv, b, n, heads, hd, sb, sn, scale, s);
+    return (int)dispatch_tensor_cores(q, k, v, g, st, dl, dq, dk, dv, b, n, heads, hd, sb, sn,
+                                      scale, s);
   if (is_bf16)
     return (int)simt::dispatch<__nv_bfloat16>(q, k, v, g, st, dl, dq, dk, dv, b, n, heads, hd, sb,
                                               sn, scale, s);

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -93,6 +94,18 @@ def build(name: str, ptxas_verbose: bool = False) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def ptxas_registers(log: str) -> dict[str, int]:
+    """The registers a thread of each kernel entry in a ptxas ``-v``
+    report (``ptxas_log[name]``), by mangled entry name."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = m.group(1)
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            regs[entry] = int(m.group(1))
+    return regs
 
 
 def load_library(name: str) -> ctypes.CDLL:
