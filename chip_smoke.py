@@ -18,14 +18,12 @@ with a non-zero exit code:
    n = 256 and of 192 at n = 64), bf16 (max abs <= 8e-3) and fp32 (atol =
    rtol = 1e-5), plus odd shapes (hd 20 to 256, among them 144 and 192 at
    n = 33 and 65); times of the kernel, the plain version and one PyTorch
-   library call, beside the card's bound; as earlier_ms, the bf16 CUDA-core
-   kernel that the tensor-core one replaced, checked against the plain
-   version and timed in the same run. bf16 runs the products on the tensor
-   cores (mma.sync), fp32 on the CUDA cores;
+   library call, beside the card's bound. bf16 runs the products on the
+   tensor cores (mma.sync), fp32 on the CUDA cores;
 4. fused backward kernel vs plain: the same for the backward kernel at the
    training paths' shapes (CIFAR-10 batch 256, the ImageNet-512 microbatch of
    32), bf16 (relative L2 <= 1e-3) and fp32 (relative L2 <= 1e-5), plus odd
-   shapes, with earlier_ms as in phase 3; the forward kernel against its
+   shapes; the forward kernel against its
    plain version again at these shapes, with phase 3's limits;
 5. flash kernels vs plain: the flash forward and backward kernels (the
    use_pallas_attention route) against flash_attention_plain and its
@@ -35,10 +33,7 @@ with a non-zero exit code:
    version holds (b, heads, n, n) fp32), with phase 3's and 4's limits, plus
    odd shapes (n = 1 to 2000, hd = 20 to 256; the views of one (b, n, 3,
    heads, hd) tensor and, for the odd shapes, contiguous tensors too); times
-   beside SDPA's and the bound; at the two ImageNet-512 widths, as
-   earlier_ms, the bf16 CUDA-core forward and backward that the tensor-core
-   ones replaced, checked against the plain versions and timed in the same
-   run. bf16 at n >= 2 runs the products on the tensor cores (mma.sync):
+   beside SDPA's and the bound. bf16 at n >= 2 runs the products on the tensor cores (mma.sync):
    the forward's q k^T and PV, the backward's S, dP, dq, dk and dv (p and
    ds as hi + lo bf16 pairs); fp32, and bf16 at n = 1, on the CUDA cores;
 6. flash layer check: CosineAttention(use_pallas=True) in bf16 at (32, 384,
@@ -80,10 +75,7 @@ with a non-zero exit code:
     backward relative L2 <= 1e-5), plus odd shapes (n = 1, 49, 50, 300;
     heads 1 and 3; C = 192 and 768 at head dim 192, C = 20 and 288); times beside
     the bound, the plain versions and the split route (cuBLAS GEMMs around
-    the fused kernels of phases 3-4); for both directions, as earlier_ms,
-    their bf16 GEMMs on the CUDA cores (the GEMM the tensor-core one
-    replaced), checked against the plain version within the same gates and
-    timed in the same run. bf16 runs everything on mma.sync: the attention
+    the fused kernels of phases 3-4). bf16 runs everything on mma.sync: the attention
     cores (phases 3-4's kernels), the forward's two GEMMs (qkv, and out with
     the residual) and the backward's five (qkv, dy, dx, dWout, dWqkv), on
     64-row tiles where a block's range of k is at most 256, else 128-row
@@ -109,9 +101,8 @@ with a non-zero exit code:
     each; times beside the bound (the kernel's own operations: the 16
     component products and the fp32 transform adds; the direct conv's count
     beside it), the plain version and F.conv2d; ms is the op (the wrapper's
-    U transform, then the kernel), kernel_ms the kernel alone, earlier_ms the
-    op on the CUDA-core kernel that the tensor-core kernel replaced, checked
-    against the plain version and timed in the same run. bf16 runs the
+    U transform, then the kernel), kernel_ms the kernel alone (its device
+    time in a profile of the op). bf16 runs the
     component products on the tensor cores (mma.sync), fp32 on the CUDA
     cores;
 18. MNIST (class-conditional, 28x28x1, 87.19 M parameters, attention at
@@ -360,7 +351,7 @@ with a non-zero exit code:
     kernel's samples lie within WN_SOLVE_LIMIT relative L2 of the
     composite's, the control's beyond it; both solves' seconds;
     a CIFAR-10 train step at 256 launching it 0 times;
-42. the flash kernels at DiT-XL/2's attention (configs.DIT_XL2_512: a
+42. the flash kernels at DiT-XL/2's attention (the dit_xl2_512 recipe: a
     microbatch of 32, 1024 tokens, 16 heads of 72, the q, k, v views of one
     qkv tensor), bf16: the forward and backward against the plain versions
     (phase 5's limits), two backward calls on the same inputs bit for bit
@@ -718,8 +709,8 @@ def _entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, librar
 
 def _fwd_shape(tag: str, config: str, b: int, n: int, hd: int, heads: int, replaces: str) -> dict:
     """The forward kernel against its plain version at one path's shape, bf16
-    and fp32, timed beside the plain version, SDPA, the bound and (bf16) the
-    CUDA-core kernel; returns the bf16 entry of the kernel line."""
+    and fp32, timed beside the plain version, SDPA and the bound; returns the
+    bf16 entry of the kernel line."""
     import torch
     import torch.nn.functional as F
 
@@ -743,21 +734,15 @@ def _fwd_shape(tag: str, config: str, b: int, n: int, hd: int, heads: int, repla
         nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
         flops = 4 * b * heads * n * n * hd
         bound_ms, bound_by = _bound(nbytes, flops, name)
-        earlier, was = None, ""
-        if dtype == torch.bfloat16:  # the CUDA-core kernel that the tensor cores replaced
-            cc_err = _check(fa._fwd(qkv, heads, cuda_cores=True), ref, name,
-                            f"CUDA-core {config} n={n} hd={hd} {name}")
-            earlier = time_ms(lambda: fa._fwd(qkv, heads, cuda_cores=True), iters=5, reps=3)
-            was = f" (CUDA-core kernel {earlier:.4f} ms, max_abs {cc_err:.3g})"
         print(f"[{tag}] cosine_attention_fwd {config} b={b} n={n} C={c} "
-              f"heads={heads} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms{was}, plain "
+              f"heads={heads} {name}: max_abs {err:.3g} | kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
         if dtype == torch.bfloat16:  # the main path's type
             entry = _entry(
                 f"cosine_attention_fwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
                 "cosine_attention_fwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
-                earlier_ms=earlier, config=config, n=n)
+                config=config, n=n)
     return entry
 
 
@@ -840,16 +825,8 @@ def _bwd_shape(tag: str, config: str, b: int, n: int, hd: int, heads: int, repla
         nbytes = 8 * b * n * c * qkv.element_size()
         flops = 10 * b * heads * n * n * hd
         bound_ms, bound_by = _bound(nbytes, flops, name)
-        earlier, was = None, ""
-        if dtype == torch.bfloat16:  # the CUDA-core kernels that the tensor cores replaced
-            ref = fa.cosine_attention_qkv_bwd_plain(qkv, g, o, heads)
-            _, cc_rel = _check_bwd(fa._bwd(qkv, g, o, heads, cuda_cores=True), ref, name,
-                                   f"CUDA-core bwd {config} n={n} {name}")
-            del ref
-            earlier = time_ms(lambda: fa._bwd(qkv, g, o, heads, cuda_cores=True), iters=3, reps=3)
-            was = f" (CUDA-core kernels {earlier:.4f} ms, rel_l2 {cc_rel:.3g})"
         print(f"[{tag}] cosine_attention_bwd {config} b={b} n={n} C={c} "
-              f"heads={heads} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms{was}, "
+              f"heads={heads} {name}: max_abs {err:.3g} rel_l2 {rel:.3g} | kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa bwd {library_ms:.4f} ms ({both_ms:.4f} - "
               f"{sdpa_fwd_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP); forward kernel vs plain max_abs {fwd_err:.3g}", flush=True)
@@ -862,7 +839,7 @@ def _bwd_shape(tag: str, config: str, b: int, n: int, hd: int, heads: int, repla
             entry = _entry(
                 f"cosine_attention_bwd[{config} n={n} hd={hd}" + (f" heads={heads}]" if heads != HEADS else "]"),
                 "cosine_attention_bwd.cu", replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms,
-                earlier_ms=earlier, config=config, n=n)
+                config=config, n=n)
     return entry
 
 
@@ -955,21 +932,9 @@ def phase_flash_kernels() -> list[dict]:
             io = b * n * HEADS * hd * q.element_size()
             fwd_bound, fwd_by = _bound(4 * io, 4 * b * HEADS * n * n * hd, name)
             bwd_bound, bwd_by = _bound(7 * io, 10 * b * HEADS * n * n * hd, name)
-            earlier, was, bwd_was = {}, "", ""
-            if (n, hd) in ((1024, 96), (4096, 48)):  # the CUDA-core kernels that the tensor cores replaced
-                cc_err = _check(fl._flash_fwd(q, k, v, cuda_cores=True)[0], fl.flash_attention_plain(q, k, v),
-                                name, f"flash fwd CUDA-core b={b} n={n} hd={hd}")
-                earlier["fwd"] = time_ms(lambda: fl._flash_fwd(q, k, v, cuda_cores=True), iters=1, reps=3)
-                was = f" (CUDA-core kernel: {earlier['fwd']:.4f} ms, max_abs {cc_err:.3g})"
-                cc_rel = max(_check_bwd(d, r, name, f"flash bwd CUDA-core b={b} n={n} hd={hd} {label}")[1]
-                             for d, r, label in zip(fl._flash_bwd(q, k, v, g, stats, cuda_cores=True),
-                                                    fl.flash_attention_bwd_plain(q, k, v, g), ("dq", "dk", "dv")))
-                earlier["bwd"] = time_ms(lambda: fl._flash_bwd(q, k, v, g, stats, cuda_cores=True),
-                                         iters=1, reps=3)
-                bwd_was = f" (CUDA-core kernels: {earlier['bwd']:.4f} ms, rel_l2 {cc_rel:.3g})"
             print(f"[5 flash vs plain] b={b} n={n} heads={HEADS} hd={hd} {name}: forward kernel "
-                  f"{fwd_ms:.4f} ms{was}, plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound "
-                  f"{fwd_bound:.4f} ms ({fwd_by}); backward kernel {bwd_ms:.4f} ms{bwd_was}, plain "
+                  f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound "
+                  f"{fwd_bound:.4f} ms ({fwd_by}); backward kernel {bwd_ms:.4f} ms, plain "
                   f"{bwd_plain:.4f} ms, sdpa bwd {bwd_sdpa:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by})",
                   flush=True)
             if (n, hd) in ((1024, 96), (4096, 48)):  # the ImageNet-512 widths
@@ -977,10 +942,9 @@ def phase_flash_kernels() -> list[dict]:
                     ("fwd", fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_sdpa),
                     ("bwd", bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_by, bwd_sdpa),
                 ):
-                    extra = {"earlier_ms": earlier[d]}
                     entries.append(_entry(
                         f"flash_attention_{d}[b={b} n={n} hd={hd}]", f"flash_attention_{d}.cu",
-                        FLASH_REPLACES[d], err, ms, plain_ms, bound_ms, bound_by, lib_ms, n=n, **extra))
+                        FLASH_REPLACES[d], err, ms, plain_ms, bound_ms, bound_by, lib_ms, n=n))
             del q, k, v, g, out, stats
             torch.cuda.empty_cache()
     for b, n, heads, hd in FLASH_ODD:
@@ -1032,10 +996,9 @@ def _dit_step_calls(b: int) -> dict:
     return calls
 
 
-def _flash_bwd_passes(fn, calls: int = 5) -> tuple[float, float]:
-    """Device ms a call of the flash backward's two passes, pass (a)
-    (``flash_bwd_dq_*``) and pass (b) (``flash_bwd_dkv_*``), from a profile
-    of ``calls`` calls of ``fn``."""
+def _kernel_ms(fn, keys: tuple[str, ...], calls: int = 5) -> list[float]:
+    """Device ms a call of ``fn`` in the kernels whose names hold each of
+    ``keys``, from a profile of ``calls`` calls of ``fn``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1046,13 +1009,13 @@ def _flash_bwd_passes(fn, calls: int = 5) -> tuple[float, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    ns = {"dq": 0, "dkv": 0}
+    ns = [0] * len(keys)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CPU:
-            for key in ns:
-                if f"flash_bwd_{key}_" in e.name():
-                    ns[key] += e.duration_ns()
-    return ns["dq"] / 1e6 / calls, ns["dkv"] / 1e6 / calls
+            for i, key in enumerate(keys):
+                if key in e.name():
+                    ns[i] += e.duration_ns()
+    return [t / 1e6 / calls for t in ns]
 
 
 def phase_flash_dit() -> tuple[list[dict], dict]:
@@ -1078,7 +1041,8 @@ def phase_flash_dit() -> tuple[list[dict], dict]:
     del twice
     fwd_ms = time_ms(lambda: fl.flash_attention_fwd_cuda(q, k, v), iters=3, reps=3)
     bwd_ms = time_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats), iters=3, reps=3)
-    pass_a, pass_b = _flash_bwd_passes(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats))
+    pass_a, pass_b = _kernel_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats),
+                                ("flash_bwd_dq_", "flash_bwd_dkv_"))
     fwd_plain = time_ms(lambda: fl.flash_attention_plain(q, k, v), iters=1, reps=3)
     bwd_plain = time_ms(lambda: fl.flash_attention_bwd_plain(q, k, v, g), iters=1, reps=3)
     qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
@@ -2604,14 +2568,6 @@ def phase_block_kernels() -> list[dict]:
                 nbytes = (2 * b * n * c + 4 * c * c) * itemsize
                 flops = b * n * c * 4 * c * 2 + 4 * b * n * n * c + 4 * b * n * c
                 err = fwd_err
-                # the CUDA-core GEMMs that the tensor-core GEMM replaced
-                _, cc_rel, cc_ulps = _check_block_fwd(fa._block_fwd(x, wq, wo, HEADS, cuda_cores=True),
-                                                      fa.attention_block_plain(x, wq, wo, HEADS), name,
-                                                      f"CUDA-core GEMMs b={b} n={n} {name}")
-                extra = {"earlier_ms": time_ms(lambda: fa._block_fwd(x, wq, wo, HEADS, cuda_cores=True),
-                                               iters=3, reps=3)}
-                was = (f" (CUDA-core GEMMs {extra['earlier_ms']:.4f} ms, rel_l2 {cc_rel:.3g}, "
-                       f"{cc_ulps:.3g} ulps)")
             else:
                 _, qkv, y = split_fwd()
                 ms = time_ms(lambda: fa.attention_block_bwd_cuda(x, wq, wo, g, HEADS), iters=3, reps=3)
@@ -2625,22 +2581,14 @@ def phase_block_kernels() -> list[dict]:
                 flops = 2 * 11 * b * n * c * c + 12 * b * n * n * c
                 err = bwd_err
                 del qkv, y
-                # the CUDA-core GEMMs that the tensor-core GEMM replaced
-                cc_rel = max(_check_bwd(d, r, name, f"block bwd CUDA-core GEMMs b={b} n={n} {label}")[1]
-                             for d, r, label in zip(fa._block_bwd(x, wq, wo, g, HEADS, cuda_cores=True),
-                                                    fa.attention_block_bwd_plain(x, wq, wo, g, HEADS),
-                                                    ("dx", "dwqkv", "dwout")))
-                extra = {"earlier_ms": time_ms(lambda: fa._block_bwd(x, wq, wo, g, HEADS, cuda_cores=True),
-                                               iters=3, reps=3)}
-                was = f" (CUDA-core GEMMs {extra['earlier_ms']:.4f} ms, rel_l2 {cc_rel:.3g})"
             bound_ms, bound_by = _bound(nbytes, flops, name)
-            print(f"[13 block vs plain] attention_block_{direction} b={b} n={n} {name}: kernel {ms:.4f} ms{was}, "
+            print(f"[13 block vs plain] attention_block_{direction} b={b} n={n} {name}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, split route (cuBLAS + fused kernels) {split_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
             entries.append(_entry(
                 f"attention_block_{direction}[cifar10 b={b} n={n}]", f"attention_block_{direction}.cu",
                 BLOCK_REPLACES[direction], err, ms, plain_ms, bound_ms, bound_by, None,
-                split_ms=split_ms, n=n, **extra))
+                split_ms=split_ms, n=n))
             del x, wq, wo, g
             torch.cuda.empty_cache()
     worst = (0.0, 0.0)  # the bf16 forward's largest relative L2 and ulps
@@ -2769,15 +2717,9 @@ def phase_winograd() -> list[dict]:
                 print(f"[17 winograd] b={b} {side}x{side} {ci}->{co} {name}: max_abs to plain {err:.3g}; "
                       f"matches plain and F.conv2d within 2e-5", flush=True)
                 continue
-            # the op (U transform, then the kernel), the kernel alone, and the
-            # op on the CUDA-core kernel that the tensor-core kernel replaced
-            u = wg._transformed(w, dtype)
-            cc_rel = rel_l2(wg._launch(x, u, cuda_cores=True), wg.winograd_conv3x3_plain(x, w))
-            if not cc_rel <= 1e-3:
-                fail(f"winograd CUDA-core b={b} {side}x{side} {ci}->{co}: rel L2 {cc_rel} to plain (<= 1e-3)")
+            # the op (U transform, then the kernel) and the kernel alone
             ms = time_ms(lambda: wg.winograd_conv3x3_cuda(x, w), iters=10, reps=3)
-            kernel_ms = time_ms(lambda: wg._launch(x, u), iters=10, reps=3)
-            earlier_ms = time_ms(lambda: wg._launch(x, wg._transformed(w, dtype), cuda_cores=True), iters=3, reps=3)
+            kernel_ms = _kernel_ms(lambda: wg.winograd_conv3x3_cuda(x, w), ("winograd_fwd",), calls=10)[0]
             plain_ms = time_ms(lambda: wg.winograd_conv3x3_plain(x, w), iters=3, reps=3)
             library_ms = time_ms(lambda: _direct_conv(x, w), iters=10, reps=3)
             tiles = b * (side // 2) ** 2
@@ -2788,17 +2730,16 @@ def phase_winograd() -> list[dict]:
             direct_flops = 2 * b * side * side * 9 * ci * co  # the direct conv's, as winograd.py:184
             direct_ms, _ = _bound(nbytes, direct_flops, name)
             print(f"[17 winograd] b={b} {side}x{side} {ci}->{co} {name}: max_abs to plain {err:.3g} | op (U "
-                  f"transform and kernel) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms; on the CUDA-core kernel "
-                  f"{earlier_ms:.4f} ms (rel L2 to plain {cc_rel:.3g}); plain {plain_ms:.4f} ms, F.conv2d "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"transform and kernel) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms; plain {plain_ms:.4f} ms, "
+                  f"F.conv2d {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of products, "
                   f"{adds / 1e9:.3f} G fp32 transform adds); the direct conv's {direct_flops / 1e9:.2f} GFLOP "
                   f"would bound it at {direct_ms:.4f} ms", flush=True)
             entries.append(_entry(
                 f"winograd_fwd[b={b} {side}x{side} {ci}->{co}]", "winograd_fwd.cu", WINO_REPLACES, err, ms,
                 plain_ms, bound_ms, bound_by, library_ms, key=("winograd", side, side, ci, co),
-                bound_ms_direct_conv=direct_ms, kernel_ms=kernel_ms, earlier_ms=earlier_ms))
-            del x, w, u
+                bound_ms_direct_conv=direct_ms, kernel_ms=kernel_ms))
+            del x, w
     worst = {}
     for b, h, w_, ci, co in WINO_ODD:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3960,21 +3901,21 @@ def _audit_in_rank() -> dict:
     from tinyedm_tpu_torch.ops import fused_attention as fa
 
     shapes = set()
-    real_fwd, real_bwd = fa._fwd, fa._bwd
+    real_fwd, real_bwd = fa.cosine_attention_qkv_cuda, fa.cosine_attention_qkv_bwd_cuda
 
-    def fwd(qkv, num_heads, *args, **kw):
+    def fwd(qkv, num_heads):
         shapes.add(("fwd", qkv.shape[1], num_heads))
-        return real_fwd(qkv, num_heads, *args, **kw)
+        return real_fwd(qkv, num_heads)
 
-    def bwd(qkv, g, o, num_heads, *args, **kw):
+    def bwd(qkv, g, o, num_heads):
         shapes.add(("bwd", qkv.shape[1], num_heads))
-        return real_bwd(qkv, g, o, num_heads, *args, **kw)
+        return real_bwd(qkv, g, o, num_heads)
 
-    fa._fwd, fa._bwd = fwd, bwd
+    fa.cosine_attention_qkv_cuda, fa.cosine_attention_qkv_bwd_cuda = fwd, bwd
     try:
         result = collective_audit.audit(**AUDIT_ARGS)
     finally:
-        fa._fwd, fa._bwd = real_fwd, real_bwd
+        fa.cosine_attention_qkv_cuda, fa.cosine_attention_qkv_bwd_cuda = real_fwd, real_bwd
     return {**result, "shapes": shapes}
 
 

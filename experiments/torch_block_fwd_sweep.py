@@ -17,9 +17,7 @@ libraries go to ``tinyedm_tpu_torch/build/block_fwd_sweep/``):
 - ``B``: qkv kept on chip, ``experiments/torch_block_fwd_onchip.cuh``: one
   block per (sample, head) computes its q, k and v into shared memory and
   runs the attention core there; the out GEMM as in A. Where it does not
-  fit (hd > 64, n > 256) B runs A;
-- ``cuda_cores``: A's library with its private switch, bf16's GEMMs on the
-  CUDA-core GEMM that the tensor-core one replaced.
+  fit (hd > 64, n > 256) B runs A.
 
 Each runs at ``chip_smoke.py``'s forward shapes (CIFAR-10 b 128, n 256 and
 64, C 256, 4 heads) and, for the numerics, at C 768 (b 2, n 64; 4 heads of
@@ -66,18 +64,17 @@ GRID_RULE = """int device = 0, sms = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if ((long long)((M + kBM<4> - 1) / kBM<4>) * ((N + kBN - 1) / kBN) * splits < 2LL * sms)"""
 QKV_AND_CORE = """  cudaError_t err = gemm_tc::product<T, false, false, gemm::kRound>(
-      cc, x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c, 1, qkv, nullptr, 0.f, 0.f, stream);
+      x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c, 1, qkv, nullptr, 0.f, 0.f, stream);
   if (err != cudaSuccess) return err;
   err = cosine_attention::attention_fwd<T>(qkv, y, b, n, heads, hd, scale, stream);
   if (err != cudaSuccess) return err;
 """
 ONCHIP_OR_A = """  cudaError_t err = cudaErrorNotSupported;
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (!cc) err = block_fwd_onchip::launch(x, wqkv, y, b, n, heads, hd, scale, stream);
-  }
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    err = block_fwd_onchip::launch(x, wqkv, y, b, n, heads, hd, scale, stream);
   if (err == cudaErrorNotSupported) {
     err = gemm_tc::product<T, false, false, gemm::kRound>(
-        cc, x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c, 1, qkv, nullptr, 0.f, 0.f, stream);
+        x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c, 1, qkv, nullptr, 0.f, 0.f, stream);
     if (err != cudaSuccess) return err;
     err = cosine_attention::attention_fwd<T>(qkv, y, b, n, heads, hd, scale, stream);
   }
@@ -128,14 +125,14 @@ def build(variant: str) -> dict[str, ctypes.CDLL]:
         (d / name).write_text(text.replace(old, new))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs = {"fwd": _nvcc_build(d, "attention_block_fwd")}
-    libs["fwd"].attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32] * 3 + [ptr]
+    libs["fwd"].attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 3 + [ptr]
     if variant in TILINGS:
         libs["bwd"] = _nvcc_build(d, "attention_block_bwd")
-        libs["bwd"].attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [f32] * 3 + [ptr]
+        libs["bwd"].attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32] * 3 + [ptr]
     return libs
 
 
-def run_fwd(dll, x, wq, wo, heads: int, cuda_cores: bool):
+def run_fwd(dll, x, wq, wo, heads: int):
     """The library's block forward with scratch held here."""
     b, n, c = x.shape
     hd = c // heads
@@ -143,7 +140,7 @@ def run_fwd(dll, x, wq, wo, heads: int, cuda_cores: bool):
     y, out = torch.empty_like(x), torch.empty_like(x)
     t, s, _ = fa._residual_constants(x.dtype)
     err = dll.attention_block_fwd(
-        *(v.data_ptr() for v in (x, wq, wo, qkv, y, out)), b, n, heads, hd, 1, int(cuda_cores),
+        *(v.data_ptr() for v in (x, wq, wo, qkv, y, out)), b, n, heads, hd, 1,
         float(np.float32(1 / math.sqrt(hd))), t, s, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"attention_block_fwd: error {err}")
@@ -163,7 +160,6 @@ def main() -> int:
     print(cs.phase_environment(), flush=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # nvcc runs outside the GIL
         libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
-    routes = [(v, libs[v]["fwd"], False) for v in VARIANTS] + [("cuda_cores", libs["A"]["fwd"], True)]
     shapes = [(128, 256, cs.HEADS, cs.BLOCK_C, 0), (128, 64, cs.HEADS, cs.BLOCK_C, 0)]
     shapes += [(2, 64, heads, 768, seed) for heads in (4, 12) for seed in range(3)]
     for b, n, heads, c, seed in shapes:
@@ -171,9 +167,9 @@ def main() -> int:
         ref = fa.attention_block_plain(x, wq, wo, heads)
         print(f"forward b={b} n={n} heads={heads} C={c} seed={seed}", flush=True)
         times = {}
-        for label, dll, cc in routes + routes[::-1]:
+        for label in list(VARIANTS) + list(VARIANTS)[::-1]:
             def call():
-                return run_fwd(dll, x, wq, wo, heads, cc)
+                return run_fwd(libs[label]["fwd"], x, wq, wo, heads)
 
             if label not in times:
                 out = call()
@@ -203,7 +199,7 @@ def main() -> int:
         order = list(TILINGS)
         for label in order + order[::-1]:
             def call():
-                return run_bwd(libs[label]["bwd"], x, wq, wo, g, cs.HEADS, splits, False)
+                return run_bwd(libs[label]["bwd"], x, wq, wo, g, cs.HEADS, splits)
 
             if label not in times:
                 *grads, _ = call()

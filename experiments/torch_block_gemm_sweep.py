@@ -16,8 +16,7 @@ copies and their libraries go to ``tinyedm_tpu_torch/build/block_sweep/``):
 - ``one_block``: registers not capped at 128 a thread, so that one block
   takes an SM.
 
-Each variant, and the CUDA-core GEMM behind the ``cuda_cores`` switch, runs
-at ``chip_smoke.py``'s backward shapes (CIFAR-10 b 256, n 256 and 64,
+Each variant runs at ``chip_smoke.py``'s backward shapes (CIFAR-10 b 256, n 256 and 64,
 C 256) and at C 768 (b 2, n 64, three seeds), and prints: the share of the
 recomputed qkv's bf16 values that differ from the fp64 product rounded to
 bf16 (and, beside it, the share for the plain version's fp32 product), the
@@ -25,7 +24,7 @@ relative L2 of dx, dWqkv and dWout to the plain version, and at the
 CIFAR-10 shapes the device time per call (torch.profiler, 10 calls) in
 turns: all variants, then all again in reverse order. ``--splits`` adds the
 base variant with other counts of the weight gradients' split reduction
-(the wrapper's, as ``fused_attention._block_bwd`` counts them: one per 1024
+(the wrapper's, as ``fused_attention.attention_block_bwd_cuda`` counts them: one per 1024
 rows, at most 64).
 
 Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -88,11 +87,11 @@ def build(variant: str) -> ctypes.CDLL:
                    check=True)
     dll = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dll.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [f32] * 3 + [ptr]
+    dll.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32] * 3 + [ptr]
     return dll
 
 
-def run(dll, x, wq, wo, g, heads: int, splits: int, cuda_cores: bool):
+def run(dll, x, wq, wo, g, heads: int, splits: int):
     """The library's block backward with scratch held here: -> (dx, dWqkv,
     dWout, the recomputed qkv)."""
     b, n, c = x.shape
@@ -108,7 +107,7 @@ def run(dll, x, wq, wo, g, heads: int, splits: int, cuda_cores: bool):
     ts = fa._residual_constants(x.dtype)[2]
     err = dll.attention_block_bwd(
         *(t.data_ptr() for t in (x, wq, wo, g, dx, dwqkv, dwout, qkv, y, dy, dqkv, stats, partials)),
-        splits, b, n, heads, hd, 1, int(cuda_cores), float(np.float32(1 / math.sqrt(hd))),
+        splits, b, n, heads, hd, 1, float(np.float32(1 / math.sqrt(hd))),
         float(np.float32(math.sqrt(hd))), ts, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"attention_block_bwd: error {err}")
@@ -144,9 +143,9 @@ def main() -> int:
     print(cs.phase_environment(), flush=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # nvcc runs outside the GIL
         libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
-    # (label, library, cuda_cores, splits or None for the wrapper's)
-    routes = [(v, libs[v], False, None) for v in VARIANTS] + [("cuda_cores", libs["base"], True, None)]
-    routes += [(f"base splits={s}", libs["base"], False, int(s)) for s in args.splits.split(",") if s]
+    # (label, library, splits or None for the wrapper's)
+    routes = [(v, libs[v], None) for v in VARIANTS]
+    routes += [(f"base splits={s}", libs["base"], int(s)) for s in args.splits.split(",") if s]
     shapes = [(256, 256, cs.HEADS, cs.BLOCK_C, 0), (256, 64, cs.HEADS, cs.BLOCK_C, 0)]
     shapes += [(2, 64, 4, 768, seed) for seed in range(3)]
     for b, n, heads, c, seed in shapes:
@@ -158,11 +157,11 @@ def main() -> int:
         print(f"b={b} n={n} heads={heads} C={c} seed={seed}: plain fp32 qkv flips {plain_flips:.3g}",
               flush=True)
         times = {}
-        for label, dll, cc, splits in routes + routes[::-1]:
+        for label, dll, splits in routes + routes[::-1]:
             splits = splits or wrapper_splits
 
             def call():
-                return run(dll, x, wq, wo, g, heads, splits, cc)
+                return run(dll, x, wq, wo, g, heads, splits)
 
             if label not in times:
                 *grads, qkv = call()
@@ -178,9 +177,8 @@ def main() -> int:
             for label, ts in times.items():
                 print(f"  {label}: device ms per call "
                       + " | ".join(f"{sum(t.values()):.4f}" for t in ts), flush=True)
-            for label in ("base", "cuda_cores"):
-                parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(times[label][0].items()))
-                print(f"  {label} by kernel: {parts}", flush=True)
+            parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(times["base"][0].items()))
+            print(f"  base by kernel: {parts}", flush=True)
         del x, wq, wo, g, refs, qkv64
         torch.cuda.empty_cache()
     return 0

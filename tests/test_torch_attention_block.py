@@ -217,12 +217,6 @@ def test_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.attention_block_bwd_cuda(torch.zeros((2, 16, 64)), torch.zeros((64, 192)),
                                     torch.zeros((64, 64)), torch.zeros((2, 16, 64)), 2)
-    with pytest.raises(ValueError, match="CUDA tensor"):  # nor do the private switches
-        fa._block_bwd(torch.zeros((2, 16, 64)), torch.zeros((64, 192)), torch.zeros((64, 64)),
-                      torch.zeros((2, 16, 64)), 2, cuda_cores=True)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        fa._block_fwd(torch.zeros((2, 16, 64)), torch.zeros((64, 192)), torch.zeros((64, 64)), 2,
-                      cuda_cores=True)
     with pytest.raises(ValueError, match="divisible"):
         fa.attention_block_cuda(torch.zeros((2, 16, 64)), torch.zeros((64, 192)),
                                 torch.zeros((64, 64)), 3)

@@ -136,17 +136,16 @@ def test_cuda_bwd_kernel_matches_plain(n, heads, dtype, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cuda_cores", [False, True], ids=["tensor_cores", "cuda_cores"])
 @pytest.mark.parametrize("n,hd", [(33, 144), (65, 144), (33, 192), (65, 192), (300, 256)])
-def test_cuda_bwd_kernel_ragged_head_dims(n, hd, cuda_cores):
+def test_cuda_bwd_kernel_ragged_head_dims(n, hd):
     """As the forward's case in test_torch_fused_attention.py: hd 144 and
-    192 at ragged n, several key chunks at n 300, bf16, both kernels."""
+    192 at ragged n, several key chunks at n 300, bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     tq, tg, _, _ = _inputs(n, 2, torch.bfloat16, hd=hd)
     tq, tg = tq.cuda(), tg.cuda()
     o = fa.cosine_attention_qkv_plain(tq, 2)
-    out = fa._bwd(tq, tg, o, 2, cuda_cores=cuda_cores)
+    out = fa.cosine_attention_qkv_bwd_cuda(tq, tg, o, 2)
     torch.cuda.synchronize()
     ref = fa.cosine_attention_qkv_bwd_plain(tq, tg, o, 2)
     assert rel_l2(out.float().cpu().numpy(), ref.float().cpu().numpy()) <= 1e-3

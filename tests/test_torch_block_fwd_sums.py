@@ -1,11 +1,9 @@
 """The arithmetic of the bf16 whole-block attention forward on the tensor
-cores (``csrc/attention_block_fwd.cu`` through ``csrc/gemm_tc.cuh``), and
-the private ``cuda_cores`` switch of its GEMMs.
+cores (``csrc/attention_block_fwd.cu`` through ``csrc/gemm_tc.cuh``).
 
 The tensor-core GEMM multiplies bf16 operands exactly, sums each k16 step's
 16 products from zero and adds that step's sum to the fp32 sums with one
-rounded fp32 add; the plain version and the CUDA-core GEMM sum in other
-orders. ``tc_matmul`` is that order of sums in plain PyTorch, and
+rounded fp32 add; the plain version sums in another order. ``tc_matmul`` is that order of sums in plain PyTorch, and
 ``block_fwd_tc`` the block forward with both GEMMs taken that way (qkv
 rounded to bf16, the plain attention core, out rounded, the ``mp_add``
 residual). On inputs drawn as ``chip_smoke.py`` draws them (standard normal
@@ -14,10 +12,6 @@ heads of 64, n 256 and 64) and at C 768, it is held within the forward gate
 of ``chip_smoke.py`` phase 13 (relative L2 1e-3 and three bf16 ulps of
 max(1, |ref|) per element) against the JAX block forward kernel in interpret
 mode (``_block_fwd_impl``) and against ``attention_block_plain``.
-
-The CUDA-core GEMMs behind the switch against the plain version need the
-card; there ``chip_smoke.py`` phase 13 checks and times them as
-``earlier_ms``.
 """
 
 from __future__ import annotations
@@ -89,17 +83,3 @@ def test_tensor_core_sums_within_forward_gate(b, n, heads, c, reference):
     else:
         ref = np.array(jnp.asarray(_block_fwd_impl(jx, jwq, jwo, heads, interpret=True)).astype(jnp.float32))
     _assert_within_gate(out.float().numpy(), ref)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,heads,c", SHAPES)
-def test_cuda_core_switch_matches_plain(b, n, heads, c):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    (x, wq, wo), _ = _inputs(b, n, c, seed=2)
-    x, wq, wo = (t.cuda() for t in (x, wq, wo))
-    before = fa.launch_counts["block_fwd", n]
-    out = fa._block_fwd(x, wq, wo, heads, cuda_cores=True)
-    torch.cuda.synchronize()
-    assert fa.launch_counts["block_fwd", n] == before + 1
-    _assert_within_gate(out.float().cpu().numpy(), fa.attention_block_plain(x, wq, wo, heads).float().cpu().numpy())

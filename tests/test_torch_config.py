@@ -10,7 +10,8 @@
   An unresolvable ``${x.y}`` raises ``ValueError`` in the port where the
   JAX registry raises ``KeyError``: the documented divergence.
 - ``instantiate`` of each recipe's ``model`` block gives an ``EDMSpec`` whose
-  optimizer and EMA configs equal ``configs.build_training``'s (exact);
+  optimizer and EMA configs equal ``configs.build_training``'s (exact), and
+  whose model is ``configs.model_from_config``'s;
   ``deinstantiate`` round-trips in the port, and the JAX ``instantiate``
   accepts the port's deinstantiated spec and builds the JAX spec of the YAML.
 """

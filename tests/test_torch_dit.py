@@ -219,8 +219,9 @@ def test_the_clis_train_and_sample_it(tmp_path, capsys, monkeypatch):
                    "--device", "cpu"])
     assert "EMA weights loaded." in capsys.readouterr().out
     assert len(list(samples.glob("*.png"))) == 3
-    tiny = {**configs.DIT_XL2_512, "embedding": {**configs.DIT_XL2_512["embedding"], "hidden_size": 48},
-            "denoiser": {**configs.DIT_XL2_512["denoiser"], "hidden_size": 48, "depth": 1, "num_heads": 4,
+    dit = configs.CONFIGS["dit_xl2_512"]
+    tiny = {**dit, "embedding": {**dit["embedding"], "hidden_size": 48},
+            "denoiser": {**dit["denoiser"], "hidden_size": 48, "depth": 1, "num_heads": 4,
                          "input_size": 8}}
     monkeypatch.setitem(configs.CONFIGS, "dit_tiny", tiny)
     generate.generate(str(tmp_path / "by_name"), 2, 8, 2, config="dit_tiny", num_classes=1000, num_steps=2,

@@ -147,11 +147,6 @@ def test_cuda_wrappers_never_fall_back():
         fl.flash_attention_fwd_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fl.flash_attention_bwd_cuda(q, q, q, q, torch.zeros((2, 1, 1, 1024)))
-    # nor do the private switches to the CUDA-core kernels
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        fl._flash_fwd(q, q, q, cuda_cores=True)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        fl._flash_bwd(q, q, q, q, torch.zeros((2, 1, 1, 1024)), cuda_cores=True)
     meta = torch.empty((1, 1024, 1, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         fl.flash_attention_fwd_cuda(meta, meta, meta)
@@ -210,14 +205,3 @@ def test_cuda_kernels_match_plain(shape, dtype, views):
         assert err <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
 
 
-@pytest.mark.cuda
-def test_cuda_core_forward_matches_plain():
-    """The bf16 CUDA-core forward, which ``chip_smoke.py`` times beside the
-    tensor-core one, computes the same function."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    (q, k, v), _ = _inputs((2, 1030, 2, 48), torch.bfloat16, seed=9)
-    q, k, v = (t.cuda() for t in (q, k, v))
-    out, _ = fl._flash_fwd(q, k, v, cuda_cores=True)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), fl.flash_attention_plain(q, k, v).float(), atol=8e-3, rtol=0)

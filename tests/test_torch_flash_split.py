@@ -1,6 +1,5 @@
 """The arithmetic of the bf16 tensor-core flash backward
-(``csrc/flash_attention_bwd.cu``), and the private ``cuda_cores`` switches of
-the two backward kernels moved onto the tensor cores with it.
+(``csrc/flash_attention_bwd.cu``).
 
 The kernel multiplies bf16 operands on the tensor cores with fp32 sums, but
 keeps p and ds in fp32: each enters the dq, dk and dv products as a hi + lo
@@ -15,10 +14,6 @@ relative L2, the bf16 gate of ``chip_smoke.py``, with p from exp2 and, as
 the 192 and 256 buckets take it, from exp and a division. The same
 arithmetic with p and ds rounded once to bf16 misses that gate on the same
 inputs: why the kernel splits them.
-
-The CUDA-core kernels behind the switches against their plain versions need
-the card; on the card ``chip_smoke.py`` phases 5 and 13 check and time them
-as ``earlier_ms``.
 """
 
 from __future__ import annotations
@@ -33,7 +28,6 @@ import torch
 from tests._torch_parity import rel_l2
 from tinyedm_tpu.ops.attention import _flash_bwd_impl
 from tinyedm_tpu_torch.ops import attention as fl
-from tinyedm_tpu_torch.ops import fused_attention as fa
 
 GATE = 1e-3  # chip_smoke.py's BWD_TOL for bf16
 HEAD_DIMS = [48, 96]  # the ImageNet-512 widths above its attention levels
@@ -129,51 +123,6 @@ def test_single_rounding_misses_the_gate(hd):
     single = _worst(split_pair_bwd(q, k, v, g, split=False), refs)
     pair = _worst(split_pair_bwd(q, k, v, g), refs)
     assert single > GATE > 5 * pair
-
-
-def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Relative L2 on the card's outputs; 0 for two zero tensors (dq and dk
-    at n = 1)."""
-    a, b = got.double().cpu(), want.double().cpu()
-    ref = float(b.norm())
-    return float((a - b).norm()) / ref if ref else float(a.norm())
-
-
-def _on_card(*tensors):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    return [t.cuda() for t in tensors]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 1030, 2, 48), (1, 1100, 3, 144), (2, 1, 1, 64)])
-def test_cuda_core_flash_backward_matches_plain(shape):
-    """The bf16 CUDA-core flash backward, which ``chip_smoke.py`` times
-    beside the tensor-core one, computes the same function."""
-    rng = np.random.default_rng(10)
-    q, k, v, g = _on_card(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-                            .to(torch.bfloat16) for _ in range(4)))
-    _, stats = fl.flash_attention_fwd_cuda(q, k, v)
-    grads = fl._flash_bwd(q, k, v, g, stats, cuda_cores=True)
-    torch.cuda.synchronize()
-    for got, want in zip(grads, fl.flash_attention_bwd_plain(q, k, v, g)):
-        assert _rel(got, want) <= GATE
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,heads,c", [(256, 4, 256), (49, 3, 96), (64, 4, 768)])
-def test_cuda_core_block_backward_matches_plain(n, heads, c):
-    """The block backward with its bf16 GEMMs on the CUDA cores (the
-    ``cuda_cores`` switch), against its plain version."""
-    rng = np.random.default_rng(11)
-    shapes = [(4, n, c), (c, 3 * c), (c, c), (4, n, c)]
-    scales = [1.0, c**-0.5, c**-0.5, 0.5]
-    x, wq, wo, g = _on_card(*(torch.from_numpy((rng.standard_normal(s) * f).astype(np.float32))
-                              .to(torch.bfloat16) for s, f in zip(shapes, scales)))
-    grads = fa._block_bwd(x, wq, wo, g, heads, cuda_cores=True)
-    torch.cuda.synchronize()
-    for got, want in zip(grads, fa.attention_block_bwd_plain(x, wq, wo, g, heads)):
-        assert _rel(got, want) <= GATE
 
 
 _PTXAS_LOG = """\

@@ -96,17 +96,15 @@ def test_cuda_kernel_matches_plain(n, heads, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cuda_cores", [False, True], ids=["tensor_cores", "cuda_cores"])
 @pytest.mark.parametrize("n,hd", [(33, 144), (65, 144), (33, 192), (65, 192), (300, 256)])
-def test_cuda_kernel_ragged_head_dims(n, hd, cuda_cores):
+def test_cuda_kernel_ragged_head_dims(n, hd):
     """The ImageNet-512 head dims (144, 192) at ragged token counts, and
-    several key chunks per block (n 300 at hd 256), bf16: the tensor-core
-    kernel and the CUDA-core one it replaced (chip_smoke.py times both)."""
+    several key chunks per block (n 300 at hd 256), bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     t, _ = _qkv(n, 2, torch.bfloat16, hd=hd)
     t = t.cuda()
-    out = fa._fwd(t, 2, cuda_cores=cuda_cores)
+    out = fa.cosine_attention_qkv_cuda(t, 2)
     torch.cuda.synchronize()
     ref = fa.cosine_attention_qkv_plain(t, 2)
     torch.testing.assert_close(out.float(), ref.float(), atol=8e-3, rtol=8e-3)

@@ -44,8 +44,8 @@ NUM_SAMPLES, BATCH, STEPS, SEED = 5, 4, 3, 7
 @pytest.fixture
 def smoke_fp32_weights(tmp_path, monkeypatch):
     cfg = {
-        "embedding": configs.SMOKE["embedding"],
-        "denoiser": {**configs.SMOKE["denoiser"], "dtype": "float32"},
+        "embedding": configs.CONFIGS["smoke"]["embedding"],
+        "denoiser": {**configs.CONFIGS["smoke"]["denoiser"], "dtype": "float32"},
     }
     monkeypatch.setitem(configs.CONFIGS, "smoke_fp32", cfg)
     jmodel, variables, port = small_models(10, torch.float32)
@@ -135,8 +135,8 @@ def test_encode_png_rgba_decodes_with_zlib():
 def latent_config(monkeypatch):
     """The smoke topology on 4-channel latents, fp32, 10 classes."""
     cfg = {
-        "embedding": configs.SMOKE["embedding"],
-        "denoiser": {**configs.SMOKE["denoiser"], "in_channels": 4, "out_channels": 4,
+        "embedding": configs.CONFIGS["smoke"]["embedding"],
+        "denoiser": {**configs.CONFIGS["smoke"]["denoiser"], "in_channels": 4, "out_channels": 4,
                      "dtype": "float32"},
     }
     monkeypatch.setitem(configs.CONFIGS, "smoke_latent", cfg)

@@ -221,8 +221,8 @@ def test_cli_rules_raise_where_jax_raises(rule, jax_cli, smoke_weights, tmp_path
     from tinyedm_tpu_torch import configs
 
     monkeypatch.setitem(configs.CONFIGS, "smoke_uncond", {
-        "embedding": {**configs.SMOKE["embedding"], "num_classes": None},
-        "denoiser": configs.SMOKE["denoiser"]})
+        "embedding": {**configs.CONFIGS["smoke"]["embedding"], "num_classes": None},
+        "denoiser": configs.CONFIGS["smoke"]["denoiser"]})
     conditional, jax_kwargs, flags, message = RAISING[rule]
     with pytest.raises(ValueError, match=message):
         jax_cli(conditional, tmp_path, **jax_kwargs)

@@ -1,8 +1,9 @@
 """The ImageNet-512 latent recipe in the port against the JAX package.
 
-- ``configs.IMAGENET512`` and ``IMAGENET512_TRAINING`` equal
-  ``experiments/conf/imagenet512.yaml``, the topology the JAX Denoiser's
-  defaults; the full-width model has 272,949,794 parameters (counted on the
+- ``configs.CONFIGS["imagenet512"]`` and ``TRAINING["imagenet512"]``, which
+  the port reads from ``experiments/conf/imagenet512.yaml``, equal the JAX
+  registry's reading of that file with the JAX Denoiser's default topology
+  written out; the full-width model has 272,949,794 parameters (counted on the
   meta device: drawing 1.1 GB of weights on the CPU is not needed).
 - A smoke-width model with the recipe's structure: 4-channel 32x32
   latents, one ``EncA`` and one ``DecA`` at 32x32 (n = 1024, so the
@@ -87,8 +88,7 @@ def test_constants_equal_yaml_and_jax_topology():
         skip_connections=list(jax_topology.default_skip_connections()),
     )
     emb = {k: v for k, v in model["embedding"].items() if k != "_target_"}
-    assert configs.IMAGENET512 == {"embedding": emb, "denoiser": den}
-    assert configs.CONFIGS["imagenet512"] is configs.IMAGENET512
+    assert configs.CONFIGS["imagenet512"] == {"embedding": emb, "denoiser": den}
     expected = {
         "seed": cfg["seed"],
         "batch_size": cfg["datamodule"]["batch_size"],
@@ -98,7 +98,7 @@ def test_constants_equal_yaml_and_jax_topology():
                                  "scheduler_interval", "use_ema", "ema_length", "ema_lengths",
                                  "every_n_steps")},
     }
-    assert configs.IMAGENET512_TRAINING == expected
+    assert configs.TRAINING["imagenet512"] == expected
 
 
 def test_full_width_parameter_count():

@@ -1,8 +1,9 @@
 """The MNIST and ImageNet-64 recipes in the port against the JAX package.
 
-- ``configs.MNIST``/``MNIST_TRAINING`` and ``configs.IMAGENET``/
-  ``IMAGENET_TRAINING`` equal ``experiments/conf/mnist.yaml`` and
-  ``imagenet.yaml`` (ImageNet-64's topology is the JAX Denoiser's default);
+- ``configs.CONFIGS`` and ``TRAINING`` of ``mnist`` and ``imagenet``, which
+  the port reads from ``experiments/conf/mnist.yaml`` and ``imagenet.yaml``,
+  equal the JAX registry's reading of those files (ImageNet-64's topology
+  the JAX Denoiser's default);
   parameter counts on the meta device, MNIST's against the JAX model's
   shapes (``jax.eval_shape``: nothing drawn); ``build_training`` takes both
   names (at smoke width).
@@ -67,27 +68,22 @@ def _yaml_blocks(name: str, default_topology: bool = False) -> tuple[dict, dict]
     return {"embedding": emb, "denoiser": den}, training
 
 
-@pytest.mark.parametrize("name,model_const,training_const,default_topology", [
-    ("mnist", "MNIST", "MNIST_TRAINING", False),
-    ("imagenet", "IMAGENET", "IMAGENET_TRAINING", True),
-])
-def test_constants_equal_yaml(name, model_const, training_const, default_topology):
+@pytest.mark.parametrize("name,default_topology", [("mnist", False), ("imagenet", True)])
+def test_constants_equal_yaml(name, default_topology):
     model, training = _yaml_blocks(name, default_topology)
-    assert getattr(configs, model_const) == model
-    assert configs.CONFIGS[name] is getattr(configs, model_const)
-    assert getattr(configs, training_const) == training
-    assert configs.TRAINING[name] is getattr(configs, training_const)
+    assert configs.CONFIGS[name] == model
+    assert configs.TRAINING[name] == training
 
 
 def test_imagenet_recipe_values():
     """The ImageNet-64 numbers the slice relies on: 176 per datamodule batch
     in 3 microbatches (176 is not a multiple of 3), lr 0.01 per step, one
     EMA profile, no uncertainty head, no flash route."""
-    t = configs.IMAGENET_TRAINING
+    t = configs.TRAINING["imagenet"]
     assert (t["batch_size"], t["accumulate_grad_batches"], t["lr"], t["scheduler_interval"]) == (
         176, 3, 0.01, "step")
     assert t["batch_size"] % t["accumulate_grad_batches"] != 0
-    assert "use_pallas_attention" not in configs.IMAGENET["denoiser"]
+    assert "use_pallas_attention" not in configs.CONFIGS["imagenet"]["denoiser"]
 
 
 def test_parameter_counts():
@@ -95,7 +91,7 @@ def test_parameter_counts():
         mnist = configs.model_from_config("mnist")
         imagenet = configs.model_from_config("imagenet")
         u = UncertaintyNet(192, 192)
-    cfg = configs.MNIST
+    cfg = configs.CONFIGS["mnist"]
     jmodel = JaxEDM(
         embedding=JaxEmbedding(**cfg["embedding"]),
         denoiser=JaxDenoiser(**{k: v for k, v in cfg["denoiser"].items() if k != "dtype"}),
@@ -114,7 +110,8 @@ def test_parameter_counts():
 
 @pytest.mark.parametrize("name,batch,accum,ema", [("mnist", 128, 1, None), ("imagenet", 176, 3, (0.13,))])
 def test_build_training_recipe(monkeypatch, name, batch, accum, ema):
-    small = {"embedding": configs.SMOKE["embedding"], "denoiser": configs.SMOKE["denoiser"]}
+    smoke = configs.CONFIGS["smoke"]
+    small = {"embedding": smoke["embedding"], "denoiser": smoke["denoiser"]}
     monkeypatch.setitem(configs.CONFIGS, name, small)
     model, diffuser, opt_cfg, ema_cfg, b, interval = configs.build_training(name, "cpu")
     t = configs.TRAINING[name]

@@ -28,7 +28,7 @@ from tinyedm_tpu.ops import mp as jmp
 from tinyedm_tpu.training import ema as jema
 from tinyedm_tpu.training.lr_schedule import edm_lr_multiplier as jax_lr_multiplier
 from tinyedm_tpu.training.state import force_weight_norm as jax_force_weight_norm
-from tinyedm_tpu_torch.configs import CIFAR10_TRAINING, build_training
+from tinyedm_tpu_torch.configs import TRAINING, build_training
 from tinyedm_tpu_torch.data.datamodules import SyntheticDataModule, to_device
 from tinyedm_tpu_torch.diffusion import loss
 from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
@@ -227,7 +227,7 @@ def test_training_recipe_equals_yaml():
         **{k: m[k] for k in ("use_uncertainty", "lr", "steady_steps", "rampup_steps",
                              "scheduler_interval", "use_ema", "ema_length", "every_n_steps")},
     }
-    assert CIFAR10_TRAINING == expected
+    assert TRAINING["cifar10"] == expected
     model, diffuser, opt_cfg, ema_cfg, batch, interval = build_training("cifar10", "cpu")
     assert interval == "epoch"  # the caller ticks the schedule per epoch
     assert (diffuser.P_mean, diffuser.P_std, batch) == (-1.2, 1.2, 256)

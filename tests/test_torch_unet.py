@@ -32,7 +32,7 @@ from tests._torch_parity import (
     small_models,
     torch_to_nhwc,
 )
-from tinyedm_tpu_torch.configs import CIFAR10, build_model
+from tinyedm_tpu_torch.configs import CONFIGS, build_model
 from tinyedm_tpu_torch.models.layers import CosineAttention
 from tinyedm_tpu_torch.ops import fused_attention as fa
 
@@ -137,7 +137,7 @@ def test_cifar10_attention_layers_per_forward():
         if isinstance(m, CosineAttention)
     ]
     assert len(hooks) == 11
-    assert CIFAR10["denoiser"]["encoder_out_channels"][0] == 256
+    assert CONFIGS["cifar10"]["denoiser"]["encoder_out_channels"][0] == 256
     before = dict(fa.launch_counts)
     with torch.no_grad():
         out = model(torch.zeros((1, 3, 32, 32)), torch.ones((1,)))

@@ -101,14 +101,13 @@ def test_wrapper_never_falls_back():
 
 
 def test_launch_rejects_mismatched_weights():
-    """The launch checks U against x before it touches the card."""
+    """The launch checks w against x before it touches the card."""
     x = torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16)
-    for u in (torch.zeros((16, 5, 4), dtype=torch.bfloat16), torch.zeros((4, 4, 4, 4), dtype=torch.bfloat16),
-              torch.zeros((16, 4, 4))):
-        with pytest.raises(ValueError, match="u must be"):
-            wg._launch(x, u)
+    for w in (torch.zeros((3, 3, 5, 4)), torch.zeros((4, 4, 4, 4)), torch.zeros((3, 3, 4))):
+        with pytest.raises(ValueError, match="w must be"):
+            wg.winograd_conv3x3_cuda(x, w)
     with pytest.raises(ValueError, match="CUDA"):
-        wg._launch(x, torch.zeros((16, 4, 4), dtype=torch.bfloat16))
+        wg.winograd_conv3x3_cuda(x, torch.zeros((3, 3, 4, 4), dtype=torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -136,11 +135,9 @@ def test_cuda_kernel_matches_plain(shape, co, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cuda_cores", [False, True], ids=["tensor_cores", "cuda_cores"])
-def test_cuda_kernel_offset_input(cuda_cores):
+def test_cuda_kernel_offset_input():
     """x a contiguous view one element into its storage (not 16-byte
-    aligned), on both bf16 kernels; the CUDA-core one is what
-    ``chip_smoke.py`` times beside the tensor-core one."""
+    aligned), bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     shape, co = (2, 8, 10, 32), 40
@@ -148,7 +145,7 @@ def test_cuda_kernel_offset_input(cuda_cores):
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
     xo = flat[1:].view(shape)
     xo.copy_(x)
-    out = wg._launch(xo, wg._transformed(w.cuda(), x.dtype), cuda_cores=cuda_cores)
+    out = wg.winograd_conv3x3_cuda(xo, w.cuda())
     torch.cuda.synchronize()
     ref = wg.winograd_conv3x3_plain(x, w)
     assert rel_l2(out.float().cpu().numpy(), ref.float().numpy()) <= 1e-3

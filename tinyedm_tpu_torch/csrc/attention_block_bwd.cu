@@ -40,10 +40,8 @@
 // In bf16 the attention core runs on the tensor cores (rows 3-4's kernels,
 // cosine_attention_bwd.cuh) and so do the five GEMMs (gemm_tc.cuh:
 // mma.sync.m16n8k16, operands staged by cp.async and read by ldmatrix,
-// tiles of 128 columns and 128 or 64 rows); cuda_cores runs bf16's GEMMs on
-// the CUDA-core GEMM that they replaced (gemm_common.cuh), for a same-run
-// comparison. fp32 keeps gemm_common.cuh (tensor cores in fp32 would be
-// TF32).
+// tiles of 128 columns and 128 or 64 rows). fp32 keeps gemm_common.cuh
+// (tensor cores in fp32 would be TF32).
 
 #include "cosine_attention_bwd.cuh"
 #include "cosine_attention_fwd.cuh"
@@ -63,7 +61,7 @@ struct Scratch {
 template <typename T>
 cudaError_t run(const void* x, const void* wqkv, const void* wout, const void* g, void* dx,
                 float* dwqkv, float* dwout, const Scratch& s, int splits, int b, int n, int heads,
-                int hd, float scale, float sqrt_hd, float ts, bool cc, cudaStream_t stream) {
+                int hd, float scale, float sqrt_hd, float ts, cudaStream_t stream) {
   const int c = heads * hd, m = b * n;
 #define CHECK(call)                          \
   do {                                       \
@@ -71,27 +69,26 @@ cudaError_t run(const void* x, const void* wqkv, const void* wout, const void* g
     if (e_ != cudaSuccess) return e_;        \
   } while (0)
   // recompute the forward's qkv and y
-  CHECK((gemm_tc::product<T, false, false, gemm::kRound>(cc, x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c,
-                                                         c, 1, s.qkv, nullptr, 0.f, 0.f, stream)));
+  CHECK((gemm_tc::product<T, false, false, gemm::kRound>(x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c,
+                                                         1, s.qkv, nullptr, 0.f, 0.f, stream)));
   CHECK(cosine_attention::attention_fwd<T>(s.qkv, s.y, b, n, heads, hd, scale, stream));
   // dy = T(gout Wout^T), gout = T(g ts) staged from g
-  CHECK((gemm_tc::product<T, false, true, gemm::kRound>(cc, g, c, ts, wout, c, 1.f, m, c, c, 1,
-                                                        s.dy, nullptr, 0.f, 0.f, stream)));
+  CHECK((gemm_tc::product<T, false, true, gemm::kRound>(g, c, ts, wout, c, 1.f, m, c, c, 1, s.dy,
+                                                        nullptr, 0.f, 0.f, stream)));
   CHECK(cosine_attention::attention_bwd<T>(s.qkv, s.dy, s.y, s.dqkv, s.stats, b, n, heads, hd,
                                            scale, sqrt_hd, stream));
   // dx = T(T(dqkv Wqkv^T) + gout)
-  CHECK((gemm_tc::product<T, false, true, gemm::kAddScaled>(cc, s.dqkv, 3 * c, 1.f, wqkv, 3 * c,
-                                                            1.f, m, c, 3 * c, 1, dx, g, ts, 0.f,
+  CHECK((gemm_tc::product<T, false, true, gemm::kAddScaled>(s.dqkv, 3 * c, 1.f, wqkv, 3 * c, 1.f,
+                                                            m, c, 3 * c, 1, dx, g, ts, 0.f,
                                                             stream)));
   // dWout = y^T gout and dWqkv = x^T dqkv, each over all m rows in `splits`
   // fp32 partials summed in order
-  CHECK((gemm_tc::product<T, true, false, gemm::kPartial>(cc, s.y, c, 1.f, g, c, ts, c, c, m,
-                                                          splits, s.partials, nullptr, 0.f, 0.f,
-                                                          stream)));
+  CHECK((gemm_tc::product<T, true, false, gemm::kPartial>(s.y, c, 1.f, g, c, ts, c, c, m, splits,
+                                                          s.partials, nullptr, 0.f, 0.f, stream)));
   CHECK(gemm::launch_reduce(s.partials, dwout, splits, (long long)c * c, stream));
-  CHECK((gemm_tc::product<T, true, false, gemm::kPartial>(cc, x, c, 1.f, s.dqkv, 3 * c, 1.f, c,
-                                                          3 * c, m, splits, s.partials, nullptr,
-                                                          0.f, 0.f, stream)));
+  CHECK((gemm_tc::product<T, true, false, gemm::kPartial>(x, c, 1.f, s.dqkv, 3 * c, 1.f, c, 3 * c,
+                                                          m, splits, s.partials, nullptr, 0.f,
+                                                          0.f, stream)));
   CHECK(gemm::launch_reduce(s.partials, dwqkv, splits, 3LL * c * c, stream));
 #undef CHECK
   return cudaSuccess;
@@ -104,16 +101,13 @@ cudaError_t run(const void* x, const void* wqkv, const void* wout, const void* g
 // fp32 outputs. Scratch as the note above says: qkv, dqkv (b, n, 3C) and y,
 // dy (b, n, C) in the type; stats fp32 2 * b * heads * n; partials fp32
 // splits * 3 * C * C. scale = fp32(1/sqrt(hd)), sqrt_hd = fp32(sqrt(hd)),
-// ts = the residual's t * s rounded to the type. cuda_cores runs bf16's
-// GEMMs on the CUDA cores (the GEMM the tensor-core one replaced). Launches
-// on `stream` without synchronizing; returns the first cudaError_t that is
-// not 0, or 0.
+// ts = the residual's t * s rounded to the type. Launches on `stream`
+// without synchronizing; returns the first cudaError_t that is not 0, or 0.
 extern "C" int attention_block_bwd(const void* x, const void* wqkv, const void* wout,
                                    const void* g, void* dx, void* dwqkv, void* dwout, void* qkv,
                                    void* y, void* dy, void* dqkv, void* stats, void* partials,
                                    int splits, int b, int n, int heads, int hd, int is_bf16,
-                                   int cuda_cores, float scale, float sqrt_hd, float ts,
-                                   void* stream) {
+                                   float scale, float sqrt_hd, float ts, void* stream) {
   if (b < 1 || n < 1 || heads < 1 || hd < 1 || hd > 256 || splits < 1 ||
       (long long)b * n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -123,7 +117,7 @@ extern "C" int attention_block_bwd(const void* x, const void* wqkv, const void* 
   float* dwo = static_cast<float*>(dwout);
   if (is_bf16)
     return (int)run<__nv_bfloat16>(x, wqkv, wout, g, dx, dwq, dwo, s, splits, b, n, heads, hd,
-                                   scale, sqrt_hd, ts, cuda_cores != 0, st);
+                                   scale, sqrt_hd, ts, st);
   return (int)run<float>(x, wqkv, wout, g, dx, dwq, dwo, s, splits, b, n, heads, hd, scale,
-                         sqrt_hd, ts, true, st);
+                         sqrt_hd, ts, st);
 }

@@ -31,10 +31,8 @@
 // In bf16 all three run on the tensor cores: the GEMMs on gemm_tc.cuh
 // (mma.sync.m16n8k16, 128 or 64-row tiles by grid size), each k16 step's
 // products summed from zero and added to the fp32 sums with one rounded
-// add; the core on rows 1-2's kernel. cuda_cores runs bf16's GEMMs on the
-// CUDA-core GEMM they replaced (gemm_common.cuh), for a same-run
-// comparison. fp32 keeps gemm_common.cuh (tensor cores in fp32 would be
-// TF32, which misses the 1e-5 gate).
+// add; the core on rows 1-2's kernel. fp32 keeps gemm_common.cuh (tensor
+// cores in fp32 would be TF32, which misses the 1e-5 gate).
 
 #include "cosine_attention_fwd.cuh"
 #include "gemm_tc.cuh"
@@ -43,16 +41,16 @@ namespace {
 
 template <typename T>
 cudaError_t run(const void* x, const void* wqkv, const void* wout, void* qkv, void* y, void* out,
-                int b, int n, int heads, int hd, float scale, float t, float s, bool cc,
+                int b, int n, int heads, int hd, float scale, float t, float s,
                 cudaStream_t stream) {
   const int c = heads * hd, m = b * n;
   cudaError_t err = gemm_tc::product<T, false, false, gemm::kRound>(
-      cc, x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c, 1, qkv, nullptr, 0.f, 0.f, stream);
+      x, c, 1.f, wqkv, 3 * c, 1.f, m, 3 * c, c, 1, qkv, nullptr, 0.f, 0.f, stream);
   if (err != cudaSuccess) return err;
   err = cosine_attention::attention_fwd<T>(qkv, y, b, n, heads, hd, scale, stream);
   if (err != cudaSuccess) return err;
-  return gemm_tc::product<T, false, false, gemm::kResidual>(cc, y, c, 1.f, wout, c, 1.f, m, c, c,
-                                                           1, out, x, t, s, stream);
+  return gemm_tc::product<T, false, false, gemm::kResidual>(y, c, 1.f, wout, c, 1.f, m, c, c, 1,
+                                                           out, x, t, s, stream);
 }
 
 }  // namespace
@@ -60,19 +58,16 @@ cudaError_t run(const void* x, const void* wqkv, const void* wout, void* qkv, vo
 // x, out: (b, n, C) contiguous; wqkv (C, 3C), wout (C, C) contiguous; qkv
 // (b, n, 3C) and y (b, n, C) contiguous scratch; all of one type: bf16 when
 // is_bf16, else fp32. C = heads * hd. scale = fp32(1/sqrt(hd)); t and s the
-// residual's factors rounded to the type. cuda_cores runs bf16's GEMMs on
-// the CUDA cores (the GEMM the tensor-core one replaced). Launches three
-// kernels on `stream` without synchronizing; returns the first cudaError_t
-// that is not 0, or 0.
+// residual's factors rounded to the type. Launches three kernels on
+// `stream` without synchronizing; returns the first cudaError_t that is not
+// 0, or 0.
 extern "C" int attention_block_fwd(const void* x, const void* wqkv, const void* wout, void* qkv,
                                    void* y, void* out, int b, int n, int heads, int hd,
-                                   int is_bf16, int cuda_cores, float scale, float t, float s,
-                                   void* stream) {
+                                   int is_bf16, float scale, float t, float s, void* stream) {
   if (b < 1 || n < 1 || heads < 1 || hd < 1 || hd > 256 || (long long)b * n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)run<__nv_bfloat16>(x, wqkv, wout, qkv, y, out, b, n, heads, hd, scale, t, s,
-                                   cuda_cores != 0, st);
-  return (int)run<float>(x, wqkv, wout, qkv, y, out, b, n, heads, hd, scale, t, s, true, st);
+    return (int)run<__nv_bfloat16>(x, wqkv, wout, qkv, y, out, b, n, heads, hd, scale, t, s, st);
+  return (int)run<float>(x, wqkv, wout, qkv, y, out, b, n, heads, hd, scale, t, s, st);
 }

@@ -69,27 +69,25 @@
 //
 // fp32 (CUDA cores, bwd_detail): the first port's two passes, 32 own rows
 // and 64 streamed rows per block, fp32 tiles in shared memory, E and g v^T
-// recomputed in (b) in (a)'s order. TF32 would miss the 1e-5 gate. bf16
-// takes them too behind cuda_cores, for a same-run comparison.
+// recomputed in (b) in (a)'s order. TF32 would miss the 1e-5 gate.
 
 #include "cosine_attention_bwd.cuh"
 
 // qkv, dqkv: (b, n, 3 * heads * hd) contiguous; g, o: (b, n, heads * hd)
 // contiguous; all of one type: bf16 when is_bf16 (tensor cores), else fp32
-// (CUDA cores). cuda_cores runs bf16 too on the CUDA-core kernels, the ones
-// the tensor-core kernels replaced, for a same-run comparison. stats: fp32
+// (CUDA cores). stats: fp32
 // scratch of 2 * b * heads * n (rc, then delta). scale = fp32(1/sqrt(hd)),
 // sqrt_hd = fp32(sqrt(hd)). Launches both passes on `stream` without
 // synchronizing; returns the cudaError_t of the launches (0 on success).
 extern "C" int cosine_attention_bwd(const void* qkv, const void* g, const void* o, void* dqkv,
                                     void* stats, int b, int n, int heads, int hd, int is_bf16,
-                                    int cuda_cores, float scale, float sqrt_hd, void* stream) {
+                                    float scale, float sqrt_hd, void* stream) {
   if (b < 1 || n < 1 || heads < 1 || hd < 1 || hd > 256) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   using cosine_attention::attention_bwd;
   if (is_bf16)
     return (int)attention_bwd<__nv_bfloat16>(qkv, g, o, dqkv, st, b, n, heads, hd, scale, sqrt_hd,
-                                             s, cuda_cores != 0);
+                                             s);
   return (int)attention_bwd<float>(qkv, g, o, dqkv, st, b, n, heads, hd, scale, sqrt_hd, s);
 }

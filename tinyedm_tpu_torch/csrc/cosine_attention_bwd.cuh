@@ -2,7 +2,7 @@
 // cosine_attention_bwd.cu (its notes describe the two passes) and the
 // whole-block attention backward (attention_block_bwd.cu), whose attention
 // core it is: bwd_tc, bf16 on the tensor cores; bwd_detail, the CUDA-core
-// kernels (fp32, and bf16 behind cuda_cores).
+// kernels for fp32.
 #pragma once
 
 #include <type_traits>
@@ -444,7 +444,7 @@ inline cudaError_t dispatch(const void* qkv, const void* g, const void* o, void*
 }  // namespace bwd_tc
 
 // ---------------------------------------------------------------------------
-// fp32 (and bf16 behind cuda_cores): the products on the CUDA cores
+// fp32: the products on the CUDA cores
 namespace bwd_detail {
 
 constexpr int kOwn = 32;     // rows a block owns: queries in (a), keys in (b)
@@ -773,21 +773,23 @@ cudaError_t launch(const void* qkv, const void* g, const void* o, void* dqkv, fl
 
 // Launches both passes of the backward on `stream` (qkv, dqkv (b, n, 3C); g, o
 // (b, n, C); one type T; stats: fp32 scratch of 2 * b * heads * n): bf16 on
-// the tensor cores unless cuda_cores, fp32 on the CUDA cores.
+// the tensor cores, fp32 on the CUDA cores.
 template <typename T>
 cudaError_t attention_bwd(const void* qkv, const void* g, const void* o, void* dqkv, float* stats,
                           int b, int n, int heads, int hd, float scale, float sqrt_hd,
-                          cudaStream_t stream, bool cuda_cores = false) {
+                          cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (!cuda_cores)
-      return bwd_tc::dispatch(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
+    return bwd_tc::dispatch(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
+  } else {
+    using bwd_detail::launch;
+    if (hd <= 32)
+      return launch<T, 32>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
+    if (hd <= 64)
+      return launch<T, 64>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
+    if (hd <= 128)
+      return launch<T, 128>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
+    return launch<T, 256>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
   }
-  using bwd_detail::launch;
-  if (hd <= 32) return launch<T, 32>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
-  if (hd <= 64) return launch<T, 64>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
-  if (hd <= 128)
-    return launch<T, 128>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
-  return launch<T, 256>(qkv, g, o, dqkv, stats, b, n, heads, hd, scale, sqrt_hd, stream);
 }
 
 }  // namespace cosine_attention

@@ -54,23 +54,20 @@
 // fp32 (CUDA cores, fwd_detail): tensor cores in fp32 would be TF32, about
 // three decimal digits, off the 1e-5 gate against the plain version; fp32
 // keeps the first port's kernel: 32 query rows per block, key/value tiles
-// of 64 rows normalized as they arrive, products in fp32. bf16 takes it
-// too behind cuda_cores, for a same-run comparison.
+// of 64 rows normalized as they arrive, products in fp32.
 
 #include "cosine_attention_fwd.cuh"
 
 // qkv: (b, n, 3 * heads * hd) contiguous; out: (b, n, heads * hd) contiguous,
 // both of one type: bf16 when is_bf16 (tensor cores), else fp32 (CUDA
-// cores). cuda_cores runs bf16 too on the CUDA-core kernel, the one the
-// tensor-core kernel replaced, for a same-run comparison of the two. scale =
-// fp32(1/sqrt(hd)). Launches on `stream` without synchronizing; returns the
+// cores). scale = fp32(1/sqrt(hd)). Launches on `stream` without synchronizing; returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int cosine_attention_fwd(const void* qkv, void* out, int b, int n, int heads, int hd,
-                                    int is_bf16, int cuda_cores, float scale, void* stream) {
+                                    int is_bf16, float scale, void* stream) {
   if (b < 1 || n < 1 || heads < 1 || hd < 1 || hd > 256) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using cosine_attention::attention_fwd;
   if (is_bf16)
-    return (int)attention_fwd<__nv_bfloat16>(qkv, out, b, n, heads, hd, scale, s, cuda_cores != 0);
+    return (int)attention_fwd<__nv_bfloat16>(qkv, out, b, n, heads, hd, scale, s);
   return (int)attention_fwd<float>(qkv, out, b, n, heads, hd, scale, s);
 }

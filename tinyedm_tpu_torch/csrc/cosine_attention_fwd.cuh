@@ -2,7 +2,7 @@
 // cosine_attention_fwd.cu (its notes describe the kernels) and the
 // whole-block attention (attention_block_{fwd,bwd}.cu), whose attention core
 // it is: fwd_tc, bf16 on the tensor cores; fwd_detail, the CUDA-core kernel
-// (fp32, and bf16 behind cuda_cores).
+// for fp32.
 #pragma once
 
 #include <type_traits>
@@ -219,7 +219,7 @@ inline cudaError_t dispatch(const void* qkv, void* out, int b, int n, int heads,
 }  // namespace fwd_tc
 
 // ---------------------------------------------------------------------------
-// fp32 (and bf16 behind cuda_cores): the products on the CUDA cores
+// fp32: the products on the CUDA cores
 namespace fwd_detail {
 
 constexpr int kRowsQ = 32;  // query rows per block
@@ -352,17 +352,18 @@ cudaError_t launch(const void* qkv, void* out, int b, int n, int heads, int hd, 
 }  // namespace fwd_detail
 
 // Launches the forward on `stream` (qkv (b, n, 3C), out (b, n, C), one type
-// T): bf16 on the tensor cores unless cuda_cores, fp32 on the CUDA cores.
+// T): bf16 on the tensor cores, fp32 on the CUDA cores.
 template <typename T>
 cudaError_t attention_fwd(const void* qkv, void* out, int b, int n, int heads, int hd, float scale,
-                          cudaStream_t stream, bool cuda_cores = false) {
+                          cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (!cuda_cores) return fwd_tc::dispatch(qkv, out, b, n, heads, hd, scale, stream);
+    return fwd_tc::dispatch(qkv, out, b, n, heads, hd, scale, stream);
+  } else {
+    if (hd <= 32) return fwd_detail::launch<T, 32>(qkv, out, b, n, heads, hd, scale, stream);
+    if (hd <= 64) return fwd_detail::launch<T, 64>(qkv, out, b, n, heads, hd, scale, stream);
+    if (hd <= 128) return fwd_detail::launch<T, 128>(qkv, out, b, n, heads, hd, scale, stream);
+    return fwd_detail::launch<T, 256>(qkv, out, b, n, heads, hd, scale, stream);
   }
-  if (hd <= 32) return fwd_detail::launch<T, 32>(qkv, out, b, n, heads, hd, scale, stream);
-  if (hd <= 64) return fwd_detail::launch<T, 64>(qkv, out, b, n, heads, hd, scale, stream);
-  if (hd <= 128) return fwd_detail::launch<T, 128>(qkv, out, b, n, heads, hd, scale, stream);
-  return fwd_detail::launch<T, 256>(qkv, out, b, n, heads, hd, scale, stream);
 }
 
 }  // namespace cosine_attention

@@ -1448,19 +1448,18 @@ cudaError_t dispatch_tensor_cores(const void* q, const void* k, const void* v, c
 // stride sb); g, dq, dk, dv: (b, n, heads, hd) contiguous; all of one type,
 // bf16 when is_bf16 (tensor cores at n >= 2), else fp32 (CUDA cores).
 // stats: the forward's fp32 (2, b, heads, n); delta: fp32 scratch of
-// b * heads * n. scale = fp32(1/sqrt(hd)). cuda_cores runs bf16 on the
-// CUDA-core kernels, the ones the tensor-core kernels replaced, for a
-// same-run comparison of the two. Launches both passes on `stream` without
-// synchronizing; returns the cudaError_t of the launches (0 on success).
+// b * heads * n. scale = fp32(1/sqrt(hd)). Launches both passes on `stream`
+// without synchronizing; returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                    const void* stats, void* delta, void* dq, void* dk, void* dv,
                                    int b, int n, int heads, int hd, long long sb, long long sn,
-                                   int is_bf16, int cuda_cores, float scale, void* stream) {
+                                   int is_bf16, float scale, void* stream) {
   if (b < 1 || n < 1 || heads < 1 || hd < 1 || hd > 256) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* st = static_cast<const float*>(stats);
   float* dl = static_cast<float*>(delta);
-  if (is_bf16 && n > 1 && !cuda_cores)
+  if (is_bf16 && n > 1)
     return (int)dispatch_tensor_cores(q, k, v, g, st, dl, dq, dk, dv, b, n, heads, hd, sb, sn,
                                       scale, s);
   if (is_bf16)

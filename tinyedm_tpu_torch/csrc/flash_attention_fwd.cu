@@ -547,14 +547,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, flo
 // heads, and the shared token stride sn and sample stride sb (in elements):
 // contiguous tensors, or the q, k, v views of one (b, n, 3, heads, hd)
 // tensor. out: (b, n, heads, hd) contiguous; stats: fp32 (2, b, heads, n),
-// the row max then the row sum. scale = fp32(1/sqrt(hd)). cuda_cores runs
-// bf16 too on the CUDA-core kernel, the one the tensor-core kernel replaced,
-// for a same-run comparison of the two. Launches on `stream` without
-// synchronizing; returns the cudaError_t of the launch (0 on success).
+// the row max then the row sum. scale = fp32(1/sqrt(hd)). Launches on
+// `stream` without synchronizing; returns the cudaError_t of the launch (0
+// on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* stats, int b, int n, int heads, int hd, long long sb,
-                                   long long sn, int is_bf16, int cuda_cores, float scale,
-                                   void* stream) {
+                                   long long sn, int is_bf16, float scale, void* stream) {
   if (b < 1 || n < 1 || heads < 1 || hd < 1 || hd > 256) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
@@ -562,7 +560,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   // tokens): the gradients of q and k vanish, which the backward kernel
   // computes exactly only from a row max summed in its own order, the CUDA
   // cores' (tensor-core sums round otherwise); so bf16 too takes that kernel.
-  if (is_bf16 && n > 1 && !cuda_cores)
+  if (is_bf16 && n > 1)
     return (int)tc::dispatch(q, k, v, out, st, b, n, heads, hd, sb, sn, scale, s);
   if (is_bf16)
     return (int)simt::dispatch<__nv_bfloat16>(q, k, v, out, st, b, n, heads, hd, sb, sn, scale, s);

@@ -21,10 +21,9 @@
 //
 // What bounds it on an H100: the CUDA cores (67 TFLOP/s fp32 FMA) and shared
 // memory reads: each k step of a 64x64 tile reads 8 values per thread for
-// 16 FMAs. fp32 runs here (tensor cores in fp32 would be TF32); so do the
-// block forward's and backward's bf16 GEMMs behind their cuda_cores
-// switches. In bf16 both block kernels run their GEMMs on the tensor cores,
-// gemm_tc.cuh, which shares the epilogues and the split reduction below.
+// 16 FMAs. fp32 runs here (tensor cores in fp32 would be TF32). In bf16
+// both block kernels run their GEMMs on the tensor cores, gemm_tc.cuh,
+// which shares the epilogues and the split reduction below.
 #pragma once
 
 #include <algorithm>

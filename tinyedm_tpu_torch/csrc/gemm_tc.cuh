@@ -355,21 +355,18 @@ cudaError_t launch(const void* a, long long lda, float scale_a, const void* b, l
                                                  e1, pairs, stream);
 }
 
-// gemm::launch's product for the block kernels: in bf16 on the tensor cores
-// unless cuda_cores, which runs it on the CUDA-core GEMM that this one
-// replaced (a same-run comparison); fp32 always on the CUDA cores (tensor
-// cores in fp32 would be TF32).
+// gemm::launch's product for the block kernels: bf16 on the tensor cores,
+// fp32 on the CUDA cores (tensor cores in fp32 would be TF32).
 template <typename T, bool kTransA, bool kTransB, int kEpi>
-cudaError_t product(bool cuda_cores, const void* a, long long lda, float scale_a, const void* b,
-                    long long ldb, float scale_b, int M, int N, int K, int splits, void* out,
-                    const void* extra, float e0, float e1, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, bf16>) {
-    if (!cuda_cores)
-      return launch<kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K, splits,
-                                            out, extra, e0, e1, stream);
-  }
-  return gemm::launch<T, kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K, splits,
-                                                 out, extra, e0, e1, stream);
+cudaError_t product(const void* a, long long lda, float scale_a, const void* b, long long ldb,
+                    float scale_b, int M, int N, int K, int splits, void* out, const void* extra,
+                    float e0, float e1, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return launch<kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K, splits, out,
+                                          extra, e0, e1, stream);
+  else
+    return gemm::launch<T, kTransA, kTransB, kEpi>(a, lda, scale_a, b, ldb, scale_b, M, N, K,
+                                                   splits, out, extra, e0, e1, stream);
 }
 
 }  // namespace gemm_tc

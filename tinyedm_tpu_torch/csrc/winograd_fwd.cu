@@ -51,9 +51,7 @@
 // fp32 (CUDA cores): tensor cores in fp32 would be TF32, about three decimal
 // digits, off the 2e-5 gate against the plain version and the direct conv;
 // fp32 keeps the first port's kernel: blocks of 16 tiles x 64 channels, V
-// and U staged as fp32 in shared memory, the products on gemm::mac_tile. Its
-// bf16 instance is what the tensor-core kernel replaced; chip_smoke.py times
-// it beside the new one (winograd_fwd's cuda_cores).
+// and U staged as fp32 in shared memory, the products on gemm::mac_tile.
 
 #include "gemm_common.cuh"
 #include "mma_common.cuh"
@@ -357,8 +355,7 @@ cudaError_t launch(const void* x, const void* u, void* y, int batch, int h, int 
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// fp32 (and bf16 on request): the component products on the CUDA cores (the first
-// port's kernel)
+// fp32: the component products on the CUDA cores (the first port's kernel)
 namespace simt {
 
 constexpr int kTiles = 16;  // output tiles per block
@@ -490,16 +487,13 @@ cudaError_t launch(const void* x, const void* u, void* y, int batch, int h, int 
 // x: (batch, h, w, ci) contiguous, h and w even; u: (16, ci, co) contiguous,
 // the transformed weights G w G^T rounded to the type; y: (batch, h, w, co)
 // contiguous; all of one type: bf16 when is_bf16 (tensor cores), else fp32
-// (CUDA cores). cuda_cores runs bf16 too on the CUDA-core kernel, the one the
-// tensor-core kernel replaced, for a same-run comparison of the two.
-// Launches on `stream` without synchronizing; returns the launch's
-// cudaError_t (0 on success).
+// (CUDA cores). Launches on `stream` without synchronizing; returns the
+// launch's cudaError_t (0 on success).
 extern "C" int winograd_fwd(const void* x, const void* u, void* y, int batch, int h, int w, int ci,
-                            int co, int is_bf16, int cuda_cores, void* stream) {
+                            int co, int is_bf16, void* stream) {
   if (batch < 1 || h < 2 || w < 2 || h % 2 || w % 2 || ci < 1 || co < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && !cuda_cores) return (int)tc::launch(x, u, y, batch, h, w, ci, co, s);
-  if (is_bf16) return (int)simt::launch<__nv_bfloat16>(x, u, y, batch, h, w, ci, co, s);
+  if (is_bf16) return (int)tc::launch(x, u, y, batch, h, w, ci, co, s);
   return (int)simt::launch<float>(x, u, y, batch, h, w, ci, co, s);
 }

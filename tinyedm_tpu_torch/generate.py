@@ -6,7 +6,7 @@ apply (``--output_dir --num_samples --image_size --num_classes --num_channels
 --solver --S_churn --S_noise --S_min --S_max --guidance_scale
 --guidance_sigma_min --guidance_sigma_max --ckpt_path --load_ema --ckpt_step --ema_index
 --guide_ckpt_path --guide_ckpt_step --guide_ema_index``), plus ``--config``
-(a name in ``tinyedm_tpu_torch/configs.py``), ``--weights`` (a file from
+(a name in ``experiments/conf/``), ``--weights`` (a file from
 ``utils.interop.save_weights``; without it, or a checkpoint, the weights are
 a seeded init), ``--guide_weights`` (autoguidance's guide model from such a
 file) and ``--device`` (the card unless ``cpu`` is asked for).
@@ -340,7 +340,7 @@ def generate(
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="Sample images with Heun, DPM-Solver++(2M) or churn")
-    parser.add_argument("--config", type=str, default=None, help="a configs.py name (default cifar10)")
+    parser.add_argument("--config", type=str, default=None, help="a name in experiments/conf/ (default cifar10)")
     parser.add_argument("--weights", type=str, default=None,
                         help="weights from save_weights (default: seeded init)")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")

@@ -107,13 +107,13 @@ def _library(name: str) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "flash_attention_fwd":
         lib.flash_attention_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i32, i32, ctypes.c_float, ptr,
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i32, ctypes.c_float, ptr,
         ]
         lib.flash_attention_fwd.restype = i32
     else:
         lib.flash_attention_bwd.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i64, i64, i32, i32, ctypes.c_float, ptr,
+            i32, i32, i32, i32, i64, i64, i32, ctypes.c_float, ptr,
         ]
         lib.flash_attention_bwd.restype = i32
     return lib
@@ -148,14 +148,6 @@ def flash_attention_fwd_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on ``torch.cuda.current_stream()``:
     (o (b, n, heads, hd) contiguous, fp32 row statistics (2, b, heads, n))."""
-    return _flash_fwd(q, k, v)
-
-
-def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               cuda_cores: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """``flash_attention_fwd_cuda``; ``cuda_cores`` runs bf16 on the
-    CUDA-core kernel that the tensor-core kernel replaced (chip_smoke.py
-    times the two in one run)."""
     q, k, v, sb, sn = _kernel_layout(q, k, v)
     b, n, heads, hd = q.shape
     lib = _library("flash_attention_fwd")
@@ -165,7 +157,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            b, n, heads, hd, sb, sn, int(q.dtype == torch.bfloat16), int(cuda_cores), _scale(hd), stream,
+            b, n, heads, hd, sb, sn, int(q.dtype == torch.bfloat16), _scale(hd), stream,
         )
     raise_on_error(lib, err, "flash_attention_fwd")
     launch_counts["flash_fwd", n] += 1
@@ -178,13 +170,6 @@ def flash_attention_bwd_cuda(
     """Launch the backward kernel's two passes on
     ``torch.cuda.current_stream()``, with the forward's row statistics:
     (dq, dk, dv), each (b, n, heads, hd) contiguous."""
-    return _flash_bwd(q, k, v, g, stats)
-
-
-def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-               stats: torch.Tensor, cuda_cores: bool = False
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``flash_attention_bwd_cuda``; ``cuda_cores`` as in ``_flash_fwd``."""
     q, k, v, sb, sn = _kernel_layout(q, k, v)
     b, n, heads, hd = q.shape
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
@@ -202,8 +187,7 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tenso
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), stats.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, n, heads, hd, sb, sn, int(q.dtype == torch.bfloat16), int(cuda_cores), _scale(hd),
-            stream,
+            b, n, heads, hd, sb, sn, int(q.dtype == torch.bfloat16), _scale(hd), stream,
         )
     raise_on_error(lib, err, "flash_attention_bwd")
     launch_counts["flash_bwd", n] += 1

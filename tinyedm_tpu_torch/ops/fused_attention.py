@@ -162,16 +162,16 @@ def _library(name: str) -> ctypes.CDLL:
     lib = load_library(name)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "attention_block_fwd":
-        lib.attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32] * 3 + [ptr]
+        lib.attention_block_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 3 + [ptr]
         lib.attention_block_fwd.restype = i32
     elif name == "attention_block_bwd":
-        lib.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 7 + [f32] * 3 + [ptr]
+        lib.attention_block_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32] * 3 + [ptr]
         lib.attention_block_bwd.restype = i32
     elif name == "cosine_attention_fwd":
-        lib.cosine_attention_fwd.argtypes = [ptr] * 2 + [i32] * 6 + [f32, ptr]
+        lib.cosine_attention_fwd.argtypes = [ptr] * 2 + [i32] * 5 + [f32, ptr]
         lib.cosine_attention_fwd.restype = i32
     else:
-        lib.cosine_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32] * 2 + [ptr]
+        lib.cosine_attention_bwd.argtypes = [ptr] * 5 + [i32] * 5 + [f32] * 2 + [ptr]
         lib.cosine_attention_bwd.restype = i32
     return lib
 
@@ -191,13 +191,6 @@ def _check_launchable(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int,
 
 def cosine_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Launch the forward kernel on ``torch.cuda.current_stream()``."""
-    return _fwd(qkv, num_heads)
-
-
-def _fwd(qkv: torch.Tensor, num_heads: int, cuda_cores: bool = False) -> torch.Tensor:
-    """``cosine_attention_qkv_cuda``; ``cuda_cores`` runs bf16 on the
-    CUDA-core kernel that the tensor-core kernel replaced (chip_smoke.py
-    times the two in one run)."""
     b, n, c, hd = _check_launchable(qkv, num_heads)
     lib = _library("cosine_attention_fwd")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
@@ -206,7 +199,7 @@ def _fwd(qkv: torch.Tensor, num_heads: int, cuda_cores: bool = False) -> torch.T
     with torch.cuda.device(qkv.device):
         err = lib.cosine_attention_fwd(
             qkv.data_ptr(), out.data_ptr(), b, n, num_heads, hd,
-            int(qkv.dtype == torch.bfloat16), int(cuda_cores), scale, stream,
+            int(qkv.dtype == torch.bfloat16), scale, stream,
         )
     raise_on_error(lib, err, "cosine_attention_fwd")
     launch_counts["fwd", n] += 1
@@ -217,12 +210,6 @@ def cosine_attention_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, o: torch.T
                                   num_heads: int) -> torch.Tensor:
     """Launch the backward kernel's two passes on ``torch.cuda.current_stream()``.
     ``g`` may arrive non-contiguous (the out-projection's transpose)."""
-    return _bwd(qkv, g, o, num_heads)
-
-
-def _bwd(qkv: torch.Tensor, g: torch.Tensor, o: torch.Tensor, num_heads: int,
-         cuda_cores: bool = False) -> torch.Tensor:
-    """``cosine_attention_qkv_bwd_cuda``; ``cuda_cores`` as in ``_fwd``."""
     b, n, c, hd = _check_launchable(qkv, num_heads)
     for name, t in (("g", g), ("o", o)):
         if t.device != qkv.device or t.dtype != qkv.dtype or tuple(t.shape) != (b, n, c):
@@ -240,8 +227,7 @@ def _bwd(qkv: torch.Tensor, g: torch.Tensor, o: torch.Tensor, num_heads: int,
     with torch.cuda.device(qkv.device):
         err = lib.cosine_attention_bwd(
             qkv.data_ptr(), g.data_ptr(), o.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            b, n, num_heads, hd, int(qkv.dtype == torch.bfloat16), int(cuda_cores), scale, sqrt_hd,
-            stream,
+            b, n, num_heads, hd, int(qkv.dtype == torch.bfloat16), scale, sqrt_hd, stream,
         )
     raise_on_error(lib, err, "cosine_attention_bwd")
     launch_counts["bwd", n] += 1
@@ -412,14 +398,6 @@ def _check_block(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
 def attention_block_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
                          num_heads: int) -> torch.Tensor:
     """Launch the block forward's three kernels on the current stream."""
-    return _block_fwd(x, wqkv, wout, num_heads)
-
-
-def _block_fwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, num_heads: int,
-               cuda_cores: bool = False) -> torch.Tensor:
-    """``attention_block_cuda``; ``cuda_cores`` runs bf16's GEMMs on the
-    CUDA-core GEMM that the tensor-core GEMM replaced (chip_smoke.py times
-    the two in one run)."""
     b, n, c, hd = _check_block(x, wqkv, wout, num_heads)
     x, wqkv, wout = x.contiguous(), wqkv.contiguous(), wout.contiguous()
     lib = _library("attention_block_fwd")
@@ -432,8 +410,8 @@ def _block_fwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, num_head
     with torch.cuda.device(x.device):
         err = lib.attention_block_fwd(
             x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), qkv.data_ptr(), y.data_ptr(),
-            out.data_ptr(), b, n, num_heads, hd, int(x.dtype == torch.bfloat16), int(cuda_cores),
-            scale, t, s, stream,
+            out.data_ptr(), b, n, num_heads, hd, int(x.dtype == torch.bfloat16), scale, t, s,
+            stream,
         )
     raise_on_error(lib, err, "attention_block_fwd")
     launch_counts["block_fwd", n] += 1
@@ -444,14 +422,6 @@ def attention_block_bwd_cuda(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Te
                              g: torch.Tensor, num_heads: int):
     """Launch the block backward's kernels on the current stream: -> (dx,
     dwqkv fp32, dwout fp32)."""
-    return _block_bwd(x, wqkv, wout, g, num_heads)
-
-
-def _block_bwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, g: torch.Tensor,
-               num_heads: int, cuda_cores: bool = False):
-    """``attention_block_bwd_cuda``; ``cuda_cores`` runs bf16's GEMMs on the
-    CUDA-core GEMM that the tensor-core GEMM replaced (chip_smoke.py times
-    the two in one run)."""
     b, n, c, hd = _check_block(x, wqkv, wout, num_heads)
     if g.device != x.device or g.dtype != x.dtype or g.shape != x.shape:
         raise ValueError(f"g must be {tuple(x.shape)} {x.dtype} on {x.device}, "
@@ -478,8 +448,8 @@ def _block_bwd(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor, g: torch
         err = lib.attention_block_bwd(
             *(t.data_ptr() for t in (x, wqkv, wout, g, dx, dwqkv, dwout, qkv, y, dy, dqkv,
                                      stats, partials)),
-            splits, b, n, num_heads, hd, int(x.dtype == torch.bfloat16), int(cuda_cores), scale,
-            sqrt_hd, ts, stream,
+            splits, b, n, num_heads, hd, int(x.dtype == torch.bfloat16), scale, sqrt_hd, ts,
+            stream,
         )
     raise_on_error(lib, err, "attention_block_bwd")
     launch_counts["block_bwd", n] += 1

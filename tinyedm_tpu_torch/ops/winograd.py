@@ -110,45 +110,28 @@ def winograd_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("winograd_fwd")
-    lib.winograd_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.winograd_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.winograd_fwd.restype = ctypes.c_int
     return lib
 
 
-def _transformed(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """U as the kernel reads it: (16, Ci, Co), rounded to ``dtype``, contiguous."""
-    ci, co = w.shape[2:]
-    return transform_weights(w).to(dtype).reshape(16, ci, co).contiguous()
-
-
 def winograd_conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on ``torch.cuda.current_stream()``; U is transformed
-    here, in plain PyTorch, as the JAX package does outside its kernel."""
-    _check(x, w)
+    here, in plain PyTorch, as the JAX package does outside its kernel:
+    (16, Ci, Co), rounded to x's dtype, contiguous."""
+    b, h, wd, ci, co = _check(x, w)
     if not x.is_cuda or w.device != x.device:
         raise ValueError(f"the CUDA kernel needs x and w on one CUDA device, got {x.device}, {w.device}")
     if x.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes bf16 or fp32, got {x.dtype}")
-    return _launch(x.contiguous(), _transformed(w, x.dtype))
-
-
-def _launch(x: torch.Tensor, u: torch.Tensor, cuda_cores: bool = False) -> torch.Tensor:
-    """The kernel alone on x (B, H, W, Ci) and U (16, Ci, Co) from
-    ``_transformed``. ``cuda_cores`` runs bf16 on the CUDA-core kernel that
-    the tensor-core kernel replaced (chip_smoke.py times the two in one run)."""
-    b, h, wd, ci = x.shape
-    if u.ndim != 3 or tuple(u.shape[:2]) != (16, ci) or u.dtype != x.dtype or u.device != x.device:
-        raise ValueError(f"u must be (16, {ci}, Co) {x.dtype} on {x.device}, "
-                         f"got {tuple(u.shape)} {u.dtype} on {u.device}")
-    if not (x.is_cuda and x.is_contiguous() and u.is_contiguous()) or x.dtype not in _DTYPES:
-        raise ValueError("the CUDA kernel needs contiguous bf16 or fp32 x and u on a CUDA device")
-    co = u.shape[-1]
+    x = x.contiguous()
+    u = transform_weights(w).to(x.dtype).reshape(16, ci, co).contiguous()
     lib = _library()
     y = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.winograd_fwd(x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, wd, ci, co,
-                               int(x.dtype == torch.bfloat16), int(cuda_cores), stream)
+                               int(x.dtype == torch.bfloat16), stream)
     raise_on_error(lib, err, "winograd_fwd")
     launch_counts["winograd", h, wd, ci, co] += 1
     return y

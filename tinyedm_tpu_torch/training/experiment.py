@@ -1,12 +1,16 @@
 """EDMSpec: the experiment description that a config's ``model`` block names.
 
 Counterpart of ``tinyedm_tpu/training/experiment.py``, with the same fields,
-defaults and checks. The config's ``embedding`` and ``denoiser`` arrive as
-``ModuleSpec``s (the registry does not build a module, which would own its
-weights); ``build_model`` builds them into the port's ``EDM``, with the same
-constructors as ``configs.model_from_config``, parameters allocated but not
-drawn. ``build_optimizer_config`` and ``build_ema_config`` give the port's
-``OptimizerConfig`` and ``EMAConfig``.
+defaults and checks. A recipe lives in one place, its YAML file in
+``experiments/conf/``; the training CLI instantiates its ``model`` block into
+an ``EDMSpec``, and ``configs.py`` reads the same files. The config's
+``embedding`` and ``denoiser`` arrive as ``ModuleSpec``s (the registry does
+not build a module, which would own its weights); ``build_edm`` builds them
+into the port's ``EDM``, parameters allocated but not drawn, for both
+``EDMSpec.build_model`` and ``configs.model_from_config``.
+``build_optimizer_config`` and ``build_ema_config`` give the port's
+``OptimizerConfig`` and ``EMAConfig``, for the CLI and
+``configs.build_training`` alike.
 """
 
 from __future__ import annotations
@@ -15,11 +19,33 @@ import dataclasses
 import inspect
 from typing import Optional
 
+import torch
+
 from tinyedm_tpu_torch.config.registry import ModuleSpec
 from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
 from tinyedm_tpu_torch.models.edm import EDM
 from tinyedm_tpu_torch.training.ema import EMAConfig
 from tinyedm_tpu_torch.training.train_step import OptimizerConfig
+
+
+def build_edm(embedding: ModuleSpec, denoiser: ModuleSpec, *, use_uncertainty: bool = False,
+              fused: Optional[str] = None, dtype: Optional[torch.dtype] = None,
+              knobs: Optional[dict] = None, name: str = "recipe's") -> EDM:
+    """The EDM of an embedding and a denoiser spec, parameters allocated but
+    not drawn. ``fused`` picks the denoiser's attention route and ``dtype``
+    its compute dtype (None: the spec's own); ``knobs`` adds Denoiser
+    keywords (``remat``, ``remat_policy``, ``mod_fp32``, ``scan_blocks``).
+    A denoiser without a ``fused`` parameter, the DiT's, has one attention
+    route and no U-Net knobs: it takes no ``fused``, and knobs raise, naming
+    the recipe ``name``."""
+    overrides = {} if dtype is None else {"dtype": dtype}
+    if "fused" in inspect.signature(denoiser.cls).parameters:
+        overrides.update(knobs or {})
+        if fused is not None:
+            overrides["fused"] = fused
+    elif knobs:
+        raise ValueError(f"the {name} DiT takes no U-Net knobs, got {sorted(knobs)}")
+    return EDM(embedding.build(), denoiser.build(**overrides), use_uncertainty=use_uncertainty)
 
 
 @dataclasses.dataclass
@@ -82,9 +108,7 @@ class EDMSpec:
         Pallas attention kernel, and the port's fused CUDA kernels are
         already the default route (``fused="auto"``)."""
         del inference_fast
-        routes = "fused" in inspect.signature(self.denoiser.cls).parameters
-        denoiser = self.denoiser.build(**({"fused": fused} if fused is not None and routes else {}))
-        return EDM(self.embedding.build(), denoiser, use_uncertainty=self.use_uncertainty)
+        return build_edm(self.embedding, self.denoiser, use_uncertainty=self.use_uncertainty, fused=fused)
 
     def build_optimizer_config(self) -> OptimizerConfig:
         return OptimizerConfig(
