@@ -51,7 +51,9 @@ with a non-zero exit code:
 9. CIFAR-10 training: the recipe's train step at full width (batch 256,
    bf16, dropout 0.13, seeded synthetic images, the recipe's steady lr):
    warm-up steps, then timed steps (ms/step, samples/s, peak memory), with
-   exactly 11 forward and 11 backward kernel calls per step, finite losses,
+   exactly 11 forward and 11 backward kernel calls per step, one
+   weight_norm_cast launch each way a weight-normed layer a microbatch (115
+   each way a step), finite losses,
    the EMA equal to the params after step 0 and unit per-output RMS of every
    WN weight; then one step's gradients of the WN weights fused against
    fused="off" from the same state (relative L2 <= 2e-2);
@@ -65,7 +67,8 @@ with a non-zero exit code:
 12. ImageNet-512 training: the recipe's step (batch 128 in 4 microbatches
     of 32, uncertainty loss, two EMA profiles, per-step lr count in the
     steady range), as phase 9, with 60 forward and 60 backward fused calls
-    per step and finite uncertainty;
+    per step, 4 x 197 weight_norm_cast launches each way a step and finite
+    uncertainty;
 13. block kernels vs plain: the whole-block attention forward and backward
     kernels (CosineAttention(fused="block")) against their plain versions
     at the CIFAR-10 attention widths (C 256, 4 heads of 64, n = 256 and 64;
@@ -335,22 +338,30 @@ with a non-zero exit code:
     gathers and closing barrier, rows 1-4 launched 11 + 11 a step and 7 x 11
     a solve at 2 heads a rank; the train step's report (summary, payload,
     ring wire bytes, one row per collective), the sampler's totals;
-41. weight_norm_cast (csrc/weight_norm.cu), the effective weights of a
-    no-gradient forward: the kernel against its plain version (the autograd
-    composite's ops) at every weight shape of the CIFAR-10 and ImageNet-512
-    models, bf16 outputs at most one bf16 ulp apart and equal in at least
-    99.9% of their elements, fp32 within 2^-20 relative, plus rows of 20,000
-    values and more and a weight at an odd element offset; the device times
-    of the kernel and of the plain version's kernels at five layer shapes
-    (a profile over enough copies of the weight to pass the L2 cache), the
-    host-bound times of back-to-back calls beside them, and the bound (bytes);
+41. weight_norm_cast (csrc/weight_norm.cu), the effective weights of every
+    forward, and its backward kernel: the kernel against its plain version
+    (the autograd composite's ops) at every weight shape of the CIFAR-10 and
+    ImageNet-512 models, bf16 outputs at most one bf16 ulp apart and equal
+    in at least 99.9% of their elements, fp32 within 2^-20 relative, plus
+    rows of 20,000 values and more and a weight at an odd element offset;
+    the backward kernel against the plain backward (autograd's gradient
+    through the composite) at the same shapes from bf16 and fp32
+    gradients, fp32 within 2^-20 of the largest value of its row, plus odd
+    rows (45, 257, 769) and views at an odd element offset; the device
+    times of each kernel and of the composite's kernels at five layer
+    shapes (a profile over enough copies of the weight to pass the L2
+    cache, read only where it holds the timed kernel, or the composite's
+    reduction, for each call: up to five profiles, else the phase fails;
+    the backwards through autograd, from a gradient in the layer's dtype),
+    the host-bound times of back-to-back calls beside them, and the bound
+    (bytes);
     a Heun-2 solve (3 forwards) of each model at its sampling batch, cuDNN
     deterministic, through the kernel's route (one launch a weight-normed
     layer a forward), the composite's and a control's (a kernel whose bf16
     cast truncates): each route twice gives the same samples, and the
     kernel's samples lie within WN_SOLVE_LIMIT relative L2 of the
     composite's, the control's beyond it; both solves' seconds;
-    a CIFAR-10 train step at 256 launching it 0 times;
+    two CIFAR-10 train steps at 256 launching each kernel 2 x 115 times;
 42. the flash kernels at DiT-XL/2's attention (the dit_xl2_512 recipe: a
     microbatch of 32, 1024 tokens, 16 heads of 72, the q, k, v views of one
     qkv tensor), bf16: the forward and backward against the plain versions
@@ -479,6 +490,8 @@ WG_LAUNCH_REGS = 65536 // 384 // 8 * 8  # a thread's registers in a block of thr
 # roundings downstream carry that to every sample); a control whose bf16
 # cast truncates, 0.0156 and 0.0194. The limit lies between them, near
 # their geometric mean.
+# The backward kernel's limit: 2^-20 of its row's largest value (the two
+# fp32 sums in another order than the composite's).
 WN_TIMED = [("cifar10", (256, 256, 3, 3)), ("cifar10", (768, 256, 1, 1)), ("imagenet512", (768, 768, 3, 3)),
             ("imagenet512", (768, 1536, 3, 3)), ("imagenet512", (768, 1000))]
 WN_SOLVE_LIMIT = 0.0115
@@ -1167,7 +1180,7 @@ def _clear_counts() -> None:
 
     fa.launch_counts.clear()
     fl.launch_counts.clear()
-    mp.weight_norm_cast.launches = 0
+    mp.weight_norm_cast.launches = mp.weight_norm_cast.bwd_launches = 0
 
 
 def _wn_layers_run(model) -> int:
@@ -1332,7 +1345,9 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
 
     from tinyedm_tpu_torch.configs import build_training, model_from_config
     from tinyedm_tpu_torch.data.datamodules import SyntheticDataModule, to_device
+    from tinyedm_tpu_torch.models.layers import _WeightNormed
     from tinyedm_tpu_torch.ops import fused_attention as fa
+    from tinyedm_tpu_torch.ops import mp
     from tinyedm_tpu_torch.training.state import weight_normed_names
     from tinyedm_tpu_torch.training.train_step import (
         init_train_state,
@@ -1378,11 +1393,17 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts, flash = dict(fa.launch_counts), _flash_calls()
+    wn = (mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches)
     peak = torch.cuda.max_memory_allocated()
     kinds = ("fwd", "bwd") if fused == "auto" else (f"{fused}_fwd", f"{fused}_bwd")
     expected = {(d, n): a * c * steps for n, c in p["calls"].items() for d in kinds}
     if counts != expected or flash:
         fail(f"{steps} train steps made {counts} and flash {flash}, expected {expected} and none")
+    # every weight-normed layer runs in a training forward, the uncertainty head's too
+    wn_layers = sum(isinstance(m, _WeightNormed) for m in model.modules())
+    if wn != (a * wn_layers * steps,) * 2:
+        fail(f"{steps} train steps launched weight_norm_cast {wn[0]} times forward and {wn[1]} backward, expected "
+             f"{a * wn_layers * steps} each way ({a} x {wn_layers} a step)")
     losses = torch.stack([m["train_loss"] for m in metrics_seen]).float().cpu()
     if not torch.isfinite(losses).all():
         fail(f"non-finite train loss: {losses.tolist()}")
@@ -1398,7 +1419,8 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
         if not torch.allclose(rms, torch.ones_like(rms), atol=1e-3):
             fail(f"{k}: per-output RMS {rms.min().item()}..{rms.max().item()} after the step, not 1")
     ms = 1e3 * seconds / p["timed"]
-    result = dict(counts=counts, ms=ms, samples_per_s=batch / ms * 1e3, peak_gib=peak / 2**30)
+    result = dict(counts=counts, ms=ms, samples_per_s=batch / ms * 1e3, peak_gib=peak / 2**30, wn_launches=wn,
+                  wn_per_step=wn[0] // steps)
     other = ""
     if beside:
         other = (f"; the fused=\"auto\" route in this run (phase 9): {beside['ms']:.3f} ms/step, "
@@ -1407,7 +1429,8 @@ def phase_train(tag: str, config: str, fused: str = "auto", beside: dict | None 
           f"{label_dropout}, {len(state.ema)} EMA "
           f"profile(s), lr schedule count {count(0)} ({interval}): {p['warmup']} warm-up steps in "
           f"{time.perf_counter() - t_warm - seconds:.3f} s, {p['timed']} timed steps {ms:.3f} ms/step, "
-          f"{batch / ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB; calls {_fmt(counts)}, flash 0; "
+          f"{batch / ms * 1e3:.2f} samples/s, peak {peak / 2**30:.3f} GiB; calls {_fmt(counts)}, flash 0, "
+          f"weight_norm_cast {wn[0] // steps} forward and {wn[1] // steps} backward a step; "
           f"losses {losses[0]:.4f} .. {losses[-1]:.4f}{uncertainty}{other}", flush=True)
 
     # one step's gradients, fused against fused="off", from the same state
@@ -4272,16 +4295,56 @@ def _wn_check(w, scale: float, dtype, what: str) -> tuple[float, int]:
     return gap, unequal
 
 
-def _wn_times(fn, w) -> tuple[float, float]:
-    """(device ms, host ms) a call of ``fn(w_i)``, cycling over copies of
-    ``w`` that together pass the 50 MB L2 cache (in a forward each weight
-    comes from memory): the device time of its kernels in a profile, and
-    the CUDA-event time of back-to-back calls, which the host's dispatch
-    bounds where the kernels are short."""
+def _wn_bwd_check(w, g, scale: float, what: str) -> float:
+    """The backward kernel's worst gap against the plain backward, as a
+    share of the largest plain value of its row; fails beyond 2^-20."""
+    import torch
+
+    from tinyedm_tpu_torch.ops import mp
+
+    before = mp.weight_norm_cast.bwd_launches
+    out = mp.weight_norm_cast_bwd(w, g, scale)
+    torch.cuda.synchronize()
+    if mp.weight_norm_cast.bwd_launches != before + 1:
+        fail(f"{what}: weight_norm_cast_bwd did not launch its kernel once")
+    ref = mp.weight_norm_cast_bwd_plain(w, g, scale).reshape(w.shape[0], -1)
+    diff = (out.reshape(ref.shape) - ref).abs().amax(dim=1)
+    gap = float((diff / ref.abs().amax(dim=1).clamp_min(1e-30)).max())
+    if not gap <= 2.0**-20:
+        fail(f"{what}: backward kernel vs plain gap {gap} of its row's largest value > 2^-20")
+    return gap
+
+
+def _wn_profiled_ms(run, calls: int, key: str, what: str) -> float:
+    """Device ms a call from a profile of ``run()``, which makes ``calls``
+    calls: the time of every device event, read only from a profile that
+    holds the same positive number of events named ``key`` for each call
+    and a device time above 0. The profiler can lose a window's events, so
+    it profiles up to five times before the phase fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    seen = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.profiler.kineto_results.events() if e.device_type() != DeviceType.CPU]
+        named, device_ns = sum(key in e.name() for e in events), sum(e.duration_ns() for e in events)
+        if named > 0 and named % calls == 0 and device_ns > 0:
+            return device_ns / 1e6 / calls
+        seen.append((named, device_ns))
+    fail(f"{what}: no profile held {key} for each of its {calls} calls (events named, device ns: {seen})")
+
+
+def _wn_times(fn, w, key: str, what: str) -> tuple[float, float]:
+    """(device ms, host ms) a call of ``fn(w_i)``, cycling over copies of
+    ``w`` that together pass the 50 MB L2 cache (in a forward each weight
+    comes from memory): the device time of its kernels in a profile that
+    holds its kernel ``key`` for each call (``_wn_profiled_ms``), and the
+    CUDA-event time of back-to-back calls, which the host's dispatch bounds
+    where the kernels are short."""
     copies = [w.clone() for _ in range(max(2, math.ceil(128e6 / (w.numel() * 4))))]
     state = {"i": 0}
 
@@ -4290,13 +4353,39 @@ def _wn_times(fn, w) -> tuple[float, float]:
         state["i"] += 1
 
     host_ms = time_ms(call, iters=len(copies), reps=3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def each():
         for c in copies:
             fn(c)
-        torch.cuda.synchronize()
-    device_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                    if e.device_type() != DeviceType.CPU)
-    return device_ns / 1e6 / len(copies), host_ms
+
+    return _wn_profiled_ms(each, len(copies), key, what), host_ms
+
+
+def _wn_bwd_times(fn, w, g, key: str, what: str) -> tuple[float, float]:
+    """(device ms, host ms) of the backward of ``fn(w_i)`` through autograd
+    from ``g``, cycling over copies of ``w`` and ``g`` that together pass
+    the L2 cache, as ``_wn_times``: the graphs are built first, each
+    backward keeps its graph."""
+    import torch
+
+    n = max(2, math.ceil(128e6 / (w.numel() * (4 + g.element_size()))))
+    copies = [w.clone().requires_grad_(True) for _ in range(n)]
+    cotangents = [g.clone() for _ in range(n)]
+    outs = [fn(c) for c in copies]
+    state = {"i": 0}
+
+    def call():
+        i = state["i"] % n
+        torch.autograd.grad(outs[i], copies[i], cotangents[i], retain_graph=True)
+        state["i"] += 1
+
+    host_ms = time_ms(call, iters=n, reps=3)
+
+    def each():
+        for _ in range(n):  # each copy once
+            call()
+
+    return _wn_profiled_ms(each, n, key, what), host_ms
 
 
 def _wn_truncating(w, scale: float, dtype):
@@ -4314,7 +4403,7 @@ def _wn_truncating(w, scale: float, dtype):
 
 def phase_weight_norm() -> list[dict]:
     """Phase 41 (the module docstring). Returns the kernel line's entries;
-    main() fills in their launches from phases 8 and 11."""
+    main() fills in their launches from phases 8, 9, 11 and 12."""
     import torch
 
     from tinyedm_tpu_torch.configs import build_training
@@ -4340,6 +4429,16 @@ def phase_weight_norm() -> list[dict]:
               f"{worst32:.3g} (<= 2^-20)", flush=True)
         if unequal > 1e-3 * total:
             fail(f"{config}: {unequal} of {total} bf16 elements differ from the plain version")
+        worst_bwd = {}
+        for shape, _ in shapes:
+            w = torch.randn(shape, generator=g, device="cuda") * 1.7
+            for gdtype in (torch.bfloat16, torch.float32):
+                cot = torch.randn(shape, generator=g, device="cuda").to(gdtype)
+                gap = _wn_bwd_check(w, cot, 1.0 / math.sqrt(math.prod(shape[1:])), f"{config} {shape} g {gdtype}")
+                worst_bwd[gdtype] = max(worst_bwd.get(gdtype, 0.0), gap)
+        print(f"[{tag}] {config}: backward kernel vs plain at the {len(shapes)} shapes, worst gap of a row's largest "
+              f"value {worst_bwd[torch.bfloat16]:.3g} from bf16 gradients, {worst_bwd[torch.float32]:.3g} from "
+              f"fp32 (<= 2^-20)", flush=True)
     for shape in [(4, 20000), (2, 3000, 3, 3), (7, 45), (3, 1)]:
         w = torch.randn(shape, generator=g, device="cuda")
         flat = torch.empty(w.numel() + 1, device="cuda")
@@ -4348,8 +4447,20 @@ def phase_weight_norm() -> list[dict]:
         for dtype in (torch.bfloat16, torch.float32):
             _wn_check(w, 0.37, dtype, f"{shape} {dtype}")
             _wn_check(view, 0.37, dtype, f"{shape} {dtype} at an odd element offset")
-    print(f"[{tag}] rows of 20,000 and 27,000 (beyond the models' longest), 45 and 1, aligned and at an odd element "
-          f"offset: ok", flush=True)
+    for shape in [(4, 20000), (2, 3000, 3, 3), (7, 45), (6, 257, 1, 1), (4, 769), (3, 1)]:
+        w = torch.randn(shape, generator=g, device="cuda")
+        flat = torch.empty(w.numel() + 1, device="cuda")
+        view = flat[1:].view(shape)
+        view.copy_(w)
+        for gdtype in (torch.bfloat16, torch.float32):
+            cot = torch.randn(shape, generator=g, device="cuda").to(gdtype)
+            gflat = torch.empty(cot.numel() + 1, dtype=gdtype, device="cuda")
+            gview = gflat[1:].view(shape)
+            gview.copy_(cot)
+            _wn_bwd_check(w, cot, 0.37, f"backward {shape} g {gdtype}")
+            _wn_bwd_check(view, gview, 0.37, f"backward {shape} g {gdtype} at an odd element offset")
+    print(f"[{tag}] rows of 20,000 and 27,000 (beyond the models' longest), 769, 257, 45 (backward) and 1, aligned and "
+          f"at an odd element offset: ok", flush=True)
 
     entries = []
     for config, shape in WN_TIMED:
@@ -4357,8 +4468,10 @@ def phase_weight_norm() -> list[dict]:
         w = torch.randn(shape, generator=g, device="cuda")
         scale = 1.0 / math.sqrt(math.prod(shape[1:]))
         gap, _ = _wn_check(w, scale, dtype, f"timed {shape}")
-        ms, call_ms = _wn_times(lambda x: mp.weight_norm_cast(x, scale, dtype), w)
-        plain_ms, plain_call_ms = _wn_times(lambda x: mp.weight_norm_cast_plain(x, scale, dtype), w)
+        what = f"timed {shape}"
+        ms, call_ms = _wn_times(lambda x: mp.weight_norm_cast(x, scale, dtype), w, "weight_norm_cast_kernel", what)
+        plain_ms, plain_call_ms = _wn_times(lambda x: mp.weight_norm_cast_plain(x, scale, dtype), w,
+                                            "reduce_kernel", f"{what} composite")
         nbytes = w.numel() * (4 + torch.finfo(dtype).bits // 8)
         bound_ms, bound_by = _bound(nbytes, 0, "float32")
         name = str(dtype).split(".")[-1]
@@ -4368,6 +4481,21 @@ def phase_weight_norm() -> list[dict]:
         entries.append(_entry(f"weight_norm_cast[{config} {'x'.join(map(str, shape))} {name}]", "weight_norm.cu",
                               "none (XLA fused the composite under jit)", gap, ms, plain_ms, bound_ms, bound_by,
                               None, call_ms=call_ms, plain_call_ms=plain_call_ms, config=config))
+        # the backward from a gradient in the layer's dtype, each route through autograd
+        cot = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        gap = _wn_bwd_check(w, cot, scale, f"timed backward {shape}")
+        ms, call_ms = _wn_bwd_times(lambda x: mp._WeightNormCast.apply(x, scale, dtype), w, cot,
+                                    "weight_norm_cast_bwd_kernel", f"{what} backward")
+        plain_ms, plain_call_ms = _wn_bwd_times(lambda x: mp.weight_norm_cast_plain(x, scale, dtype), w, cot,
+                                                "reduce_kernel", f"{what} composite backward")
+        nbytes = w.numel() * (8 + cot.element_size())
+        bound_ms, bound_by = _bound(nbytes, 0, "float32")
+        print(f"[{tag}] weight_norm_cast_bwd {config} {'x'.join(map(str, shape))} from {name}: kernel {ms:.4f} ms on "
+              f"the card ({call_ms:.4f} ms a backward back to back), composite {plain_ms:.4f} ms "
+              f"({plain_call_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB)", flush=True)
+        entries.append(_entry(f"weight_norm_cast_bwd[{config} {'x'.join(map(str, shape))} {name}]", "weight_norm.cu",
+                              "none (XLA fused the composite's gradient under jit)", gap, ms, plain_ms, bound_ms,
+                              bound_by, None, call_ms=call_ms, plain_call_ms=plain_call_ms, config=config))
 
     # the kernel's route, the composite's and the control's, cuDNN
     # deterministic: the same route twice gives the same samples, so the
@@ -4440,15 +4568,17 @@ def phase_weight_norm() -> list[dict]:
     state = init_train_state(model, opt_cfg, ema_cfg)
     step = make_train_step(model, diffuser, opt_cfg, ema_cfg)
     images = torch.randn((batch, 3, 32, 32), generator=g, device="cuda")
-    before = mp.weight_norm_cast.launches
+    before = mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches
     for _ in range(2):
         state, metrics = step(state, (images, None), g, PATHS["cifar10"]["sched"])
     torch.cuda.synchronize()
-    launches = mp.weight_norm_cast.launches - before
-    print(f"[{tag}] cifar10 train step at {batch}: {launches} weight_norm_cast launches in 2 steps (expected 0), "
-          f"loss {float(metrics['train_loss']):.4g}", flush=True)
-    if launches or not math.isfinite(float(metrics["train_loss"])):
-        fail(f"cifar10 train steps launched weight_norm_cast {launches} times or lost a finite loss")
+    launches = mp.weight_norm_cast.launches - before[0], mp.weight_norm_cast.bwd_launches - before[1]
+    expected = 2 * sum(isinstance(m, layers._WeightNormed) for m in model.modules())
+    print(f"[{tag}] cifar10 train step at {batch}: {launches[0]} weight_norm_cast launches forward and {launches[1]} "
+          f"backward in 2 steps (expected {expected} each way), loss {float(metrics['train_loss']):.4g}", flush=True)
+    if launches != (expected, expected) or not math.isfinite(float(metrics["train_loss"])):
+        fail(f"cifar10 train steps launched weight_norm_cast {launches} times (forward, backward) or lost a finite "
+             f"loss")
     del model, state, step
     torch.cuda.empty_cache()
     return entries
@@ -4656,11 +4786,18 @@ def main() -> int:
         e["launches_per_train_step"] = e["launches"] // block_steps
         e["path"] = "cifar10 training run, fused=\"block\""
     # weight_norm_cast: launches of one heun-32 sampling batch of its config
+    # and per train step; the backward's, of the config's training run
     for e in wn_entries:
-        run = heun[e.pop("config")]
-        e["launches"] = run["wn_launches"]
-        e["launches_per_forward"] = run["wn_launches"] / run["forwards"]
-        e["path"] = run["what"]
+        config = e.pop("config")
+        fwd, bwd = train_results[config]["wn_launches"]
+        if e["name"].startswith("weight_norm_cast_bwd"):
+            e["launches"], e["path"] = bwd, f"{config} training run"
+        else:
+            run = heun[config]
+            e["launches"] = run["wn_launches"]
+            e["launches_per_forward"] = run["wn_launches"] / run["forwards"]
+            e["path"] = run["what"]
+        e["launches_per_train_step"] = train_results[config]["wn_per_step"]
     entries = (fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries + vl_entries
                + wn_entries + dit_entries)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s", flush=True)

@@ -1,11 +1,13 @@
 """Run the workflow phases of chip_smoke.py alone on the card.
 
-    python experiments/torch_smoke_phases.py [24] [25] [26] [28] [29] [30] [32] [33] [34] [36] [37] [38] [39] [41]
+    python experiments/torch_smoke_phases.py [9] [12] [24] [25] [26] [28] [29] [30] [32] [33] [34] [36] [37] [38] [39] [41]
 
 Phases 1 (environment) and 2 (the kernels' build), the bare train steps
 that phases 24, 25, 26, 34 and 39 are read against (12: ImageNet-512, 23:
 ImageNet-64, 9: CIFAR-10; only when one of them is named), then the phases
-named (all by default): 24, the CIFAR-10 run loop through the CLI; 25,
+named (all but 9 and 12 by default): 9 and 12, those bare train steps alone
+(CIFAR-10 and ImageNet-512, with their kernels' launches); 24, the CIFAR-10
+run loop through the CLI; 25,
 ImageNet-64 through the CLI at 3 x 176; 26, ImageNet-512 through the CLI on
 a latpack store with its decoded previews (31), followed by 27, post-hoc
 EMA over its checkpoints and sampling from it; 28, FID on CIFAR-10; 29, the
@@ -18,8 +20,8 @@ train --multihost under torch.distributed.run and generate on two ranks
 collective-audit CLI's function (run in 36 (a)'s ranks); 37, the reference
 API on the card; 38, validate_learning's two runs and rows 2 and 4 at its
 shapes; 39, the soak at the CIFAR-10 recipe, stopped and resumed; 41,
-weight_norm_cast against its plain version, its times and its launches in
-Heun-2 solves and a CIFAR-10 train step. Each
+weight_norm_cast and its backward against their plain versions, their times,
+and the launches in Heun-2 solves and CIFAR-10 train steps. Each
 phase prints its lines and gates as in chip_smoke.py, and its seconds.
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -62,7 +64,9 @@ def main(phases: list[str]) -> None:
         vae_files = cs.write_vae_files(Path(vae_tmp))
         for name in phases:
             t = time.perf_counter()
-            if name == "24":
+            if name in ("9", "12"):
+                print(cs.phase_train(name, {"9": "cifar10", "12": "imagenet512"}[name]))
+            elif name == "24":
                 print(cs.phase_run_loop(smi, bare["34"]))
             elif name == "25":
                 print(cs.phase_imagenet64_cli(smi, bare["25"]))
@@ -101,7 +105,7 @@ def main(phases: list[str]) -> None:
             elif name == "41":
                 print(cs.phase_weight_norm())
             else:
-                raise SystemExit(f"unknown phase {name} (24, 25, 26, 28, 29, 30, 32, 33, 34, 36, 37, 38, 39 or 41)")
+                raise SystemExit(f"unknown phase {name} (9, 12, 24, 25, 26, 28, 29, 30, 32, 33, 34, 36, 37, 38, 39 or 41)")
             torch.cuda.empty_cache()
             print(f"[phases] phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,18 +1,25 @@
-"""``weight_norm_cast`` (ops/mp.py, csrc/weight_norm.cu) and the layers'
-routing to it (models/layers.py::_WeightNormed.compute_weight).
+"""``weight_norm_cast`` and its backward (ops/mp.py, csrc/weight_norm.cu)
+and the layers' routing to them (models/layers.py::_WeightNormed.compute_weight).
 
 CPU: the plain version is the composite the layers ran before, bit for bit;
-with no gradient wanted ``WNConv``, ``WNLinear`` and ``CosineAttention``
-give exactly the composite's output and call the wrapper once a layer; with
-a gradient wanted they never call it and their gradients are the
-composite's. ``cuda`` cases (skip without a card; this file imports no JAX,
-so on the card ``python -m pytest --noconftest -m cuda
-tests/test_torch_weight_norm.py`` runs them): the kernel against the plain
-version at every weight shape of the CIFAR-10 and ImageNet-512 models, bf16
-outputs at most one bf16 ulp apart and equal in at least 99.9% of elements
-(the two differ only in the order of the fp32 sum of squares), fp32 outputs
-within 2^-20 relative; odd layouts; one launch a layer in a no-gradient
-forward and none in a forward that wants gradients.
+the plain backward is autograd's gradient through the composite, bit for
+bit, and ``_WeightNormCast`` on CPU tensors (its plain forward and backward)
+gives the composite's output and gradients; with no gradient wanted
+``WNConv``, ``WNLinear`` and ``CosineAttention`` give exactly the
+composite's output and call the wrapper once a layer; with a gradient
+wanted they take the Function once a layer, never the wrapper, launch no
+kernel on the CPU, and their outputs and gradients are the composite's. ``cuda`` cases (skip without a card; this
+file imports no JAX, so on the card ``python -m pytest --noconftest -m cuda
+tests/test_torch_weight_norm.py`` runs them): the forward kernel against the
+plain version at every weight shape of the CIFAR-10 and ImageNet-512
+models, bf16 outputs at most one bf16 ulp apart and equal in at least 99.9%
+of elements (the two differ only in the order of the fp32 sum of squares),
+fp32 outputs within 2^-20 relative; the backward kernel against the plain
+backward at the same shapes from bf16 and fp32 gradients, fp32 within 2^-20
+of its row's largest value (the two sums in another order); odd layouts;
+one launch a layer in a no-gradient forward, one each way in a forward and
+backward that want gradients, and 4 x 197 (ImageNet-512) and 115
+(CIFAR-10) each way in a train step.
 """
 
 from __future__ import annotations
@@ -66,6 +73,62 @@ def test_cuda_wrapper_refuses_before_the_card():
         mp.weight_norm_cast_cuda(torch.zeros(4, 8, 3), 1.0, torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA device"):
         mp.weight_norm_cast(torch.zeros(4, 8, device="meta"), 1.0, torch.bfloat16)
+
+
+def test_cuda_bwd_wrapper_refuses_before_the_card():
+    w, g = torch.zeros(4, 8), torch.zeros(4, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mp.weight_norm_cast_bwd_cuda(w, g, 1.0)
+    with pytest.raises(ValueError, match="2D or 4D"):
+        mp.weight_norm_cast_bwd_cuda(torch.zeros(4, 8, 3), torch.zeros(4, 8, 3), 1.0)
+    with pytest.raises(ValueError, match="of its shape"):
+        mp.weight_norm_cast_bwd_cuda(w, torch.zeros(4, 9), 1.0)
+    meta = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        mp.weight_norm_cast_bwd(meta, meta, 1.0)
+    with pytest.raises(ValueError, match="CUDA device"):  # the Function off the CPU: the kernels or a raise
+        mp._WeightNormCast.apply(meta.requires_grad_(True), 1.0, torch.bfloat16)
+
+
+def _cotangent(shape, dtype, seed):
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("ndim", [2, 4])
+def test_bwd_plain_matches_autograd_through_composite(ndim, k, dtype):
+    """The plain backward is the gradient autograd takes through
+    ``weight_norm_cast_plain`` (the cast's, the scale's and
+    ``_PixelNorm``'s nodes), bit for bit, from a gradient in ``dtype``."""
+    w = _weight(_shape(ndim, k), seed=k + ndim).requires_grad_(True)
+    scale = 1.0 / math.sqrt(k)
+    g = _cotangent(w.shape, dtype, seed=k)
+    (ref,) = torch.autograd.grad(mp.weight_norm_cast_plain(w, scale, dtype), w, g)
+    before = mp.weight_norm_cast.bwd_launches
+    out = mp.weight_norm_cast_bwd(w.detach(), g, scale)
+    assert mp.weight_norm_cast.bwd_launches == before
+    assert out.dtype == torch.float32 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
+@pytest.mark.parametrize("k", [45, 2304])
+@pytest.mark.parametrize("ndim", [2, 4])
+def test_function_plain_gives_composite_gradients(ndim, k, dtype):
+    """``_WeightNormCast`` on a CPU tensor runs its plain forward and
+    backward: the composite's output and gradient, bit for bit, with no
+    kernel launch counted."""
+    w = _weight(_shape(ndim, k), seed=7 * k + ndim).requires_grad_(True)
+    scale = 1.0 / math.sqrt(k)
+    g = _cotangent(w.shape, dtype, seed=k + 1)
+    before = mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches
+    out = mp._WeightNormCast.apply(w, scale, dtype)
+    (grad,) = torch.autograd.grad(out, w, g)
+    assert (mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches) == before
+    ref = mp.weight_norm_cast_plain(w, scale, dtype)
+    (ref_grad,) = torch.autograd.grad(ref, w, g)
+    assert out.dtype == dtype and torch.equal(out, ref.detach())
+    assert torch.equal(grad, ref_grad)
 
 
 def _layer(kind: str, dtype: torch.dtype) -> tuple[torch.nn.Module, torch.Tensor, int]:
@@ -145,6 +208,35 @@ def test_grad_wanted_keeps_the_composite(kind, dtype, monkeypatch):
         patch.setattr(layers._WeightNormed, "compute_weight", _composite)
         ref = grads()
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+class _Counted:
+    """Counts the calls of ``fn`` and passes them on."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_grad_wanted_takes_the_function_and_no_kernel_on_the_cpu(kind, monkeypatch):
+    """A layer that wants a gradient takes ``_WeightNormCast`` once a layer
+    forward and its backward once a layer; on the CPU neither launches a
+    kernel, and every weight gets its gradient."""
+    m, x, n_layers = _layer(kind, torch.bfloat16)
+    apply, bwd = _Counted(mp._WeightNormCast.apply), _Counted(mp.weight_norm_cast_bwd)
+    monkeypatch.setattr(mp._WeightNormCast, "apply", apply)
+    monkeypatch.setattr(mp, "weight_norm_cast_bwd", bwd)
+    before = mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches
+    out = m(x)
+    assert apply.calls == n_layers and bwd.calls == 0
+    out.float().sum().backward()
+    assert apply.calls == bwd.calls == n_layers
+    assert (mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches) == before
+    assert all(p.grad is not None for p in m.parameters() if p.requires_grad)
 
 
 def test_frozen_weight_takes_the_wrapper(monkeypatch):
@@ -253,18 +345,122 @@ def test_cuda_kernel_odd_layouts(shape, offset):
         check_against_plain(out, mp.weight_norm_cast_plain(w, 0.37, dtype))
 
 
+def check_bwd_against_plain(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Raises unless the backward kernel's fp32 gradient lies within 2^-20
+    of its row's largest plain value; returns the worst such gap."""
+    assert out.dtype == ref.dtype == torch.float32 and out.shape == ref.shape
+    rows = ref.shape[0]
+    diff, ref2 = (out - ref).reshape(rows, -1).abs(), ref.reshape(rows, -1).abs()
+    worst = float((diff.amax(dim=1) / ref2.amax(dim=1).clamp_min(1e-30)).max())
+    assert worst <= 2.0**-20, worst
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["cifar10", "imagenet512"])
+def test_cuda_bwd_kernel_matches_plain_at_layer_shapes(config):
+    """Every weight shape of the model, from a bf16 and an fp32 gradient."""
+    _needs_card()
+    for i, (shape, _) in enumerate(layer_shapes(config)):
+        w = _weight(shape, seed=i, device="cuda")
+        scale = 1.0 / math.sqrt(math.prod(shape[1:]))
+        for dtype in DTYPES:
+            g = _cotangent(shape, dtype, seed=100 + i).cuda()
+            before = mp.weight_norm_cast.bwd_launches
+            out = mp.weight_norm_cast_bwd(w, g, scale)
+            torch.cuda.synchronize()
+            assert mp.weight_norm_cast.bwd_launches == before + 1
+            check_bwd_against_plain(out, mp.weight_norm_cast_bwd_plain(w, g, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 1), (5, 3), (7, 45), (6, 257, 1, 1), (4, 769), (4, 20000), (2, 3000, 3, 3)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_cuda_bwd_kernel_odd_layouts(shape, offset):
+    """Odd rows (45, 257, 769 values) and long ones, with the weight and
+    the gradient views one element into their storage (no vector loads)."""
+    _needs_card()
+    w = _weight(shape, seed=len(shape), device="cuda")
+    flat = torch.empty(w.numel() + offset, device="cuda")
+    view = flat[offset:].view(shape)
+    view.copy_(w)
+    for dtype in DTYPES:
+        g = _cotangent(shape, dtype, seed=3).cuda()
+        gflat = torch.empty(g.numel() + offset, dtype=dtype, device="cuda")
+        gview = gflat[offset:].view(shape)
+        gview.copy_(g)
+        out = mp.weight_norm_cast_bwd(view, gview, 0.37)
+        torch.cuda.synchronize()
+        check_bwd_against_plain(out, mp.weight_norm_cast_bwd_plain(w, g, 0.37))
+
+
 @pytest.mark.cuda
 def test_cuda_launches_once_a_layer_without_gradients():
     """The smoke model on the card: one launch for each weight-normed layer
-    of a no-gradient forward, none in a forward that wants gradients."""
+    of a no-gradient forward, and no backward launch."""
     _needs_card()
     model = build_model("smoke", "cuda", seed=0)
     run = sum(isinstance(m, layers._WeightNormed) for name, m in model.named_modules() if not name.startswith("u."))
     x, sigma = torch.randn(2, 3, 16, 16, device="cuda"), torch.ones(2, device="cuda")
     labels = torch.tensor([1, 7], device="cuda")
-    before = mp.weight_norm_cast.launches
+    before = mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches
     with torch.inference_mode():
         model(x, sigma, labels)
-    assert mp.weight_norm_cast.launches == before + run
-    model(x, sigma, labels).float().sum().backward()
-    assert mp.weight_norm_cast.launches == before + run
+    assert (mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches) == (before[0] + run, before[1])
+
+
+@pytest.mark.cuda
+def test_cuda_launches_once_each_way_a_layer_with_gradients(monkeypatch):
+    """The smoke model on the card in a forward and backward that want
+    gradients: one forward and one backward launch a weight-normed layer,
+    and each weight's gradient within 2^-20 (of its row's largest value) of
+    the plain backward from the gradient its effective weight received."""
+    _needs_card()
+    model = build_model("smoke", "cuda", seed=0)
+    with torch.no_grad():
+        model.denoiser.gain_out.fill_(1.0)
+    run = sum(isinstance(m, layers._WeightNormed) for name, m in model.named_modules() if not name.startswith("u."))
+    x, sigma = torch.randn(2, 3, 16, 16, device="cuda"), torch.ones(2, device="cuda")
+    labels = torch.tensor([1, 7], device="cuda")
+    effective, compute_weight = [], layers._WeightNormed.compute_weight
+
+    def kept(self):
+        y = compute_weight(self)
+        y.retain_grad()
+        effective.append((self, y))
+        return y
+
+    monkeypatch.setattr(layers._WeightNormed, "compute_weight", kept)
+    before = mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches
+    model(x, sigma, labels).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches) == (before[0] + run, before[1] + run)
+    assert len(effective) == run
+    for m, y in effective:
+        check_bwd_against_plain(m.weight.grad, mp.weight_norm_cast_bwd_plain(m.weight.detach(), y.grad, m.scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config, per_step", [("cifar10", 115), ("imagenet512", 4 * 197)])
+def test_cuda_train_step_launches_each_way(config, per_step):
+    """The recipe's train step (its microbatches at 2 samples each): one
+    forward and one backward launch a weight-normed layer a microbatch."""
+    _needs_card()
+    from tinyedm_tpu_torch.configs import build_training
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    model, diffuser, opt_cfg, ema_cfg, _, _ = build_training(config, "cuda", seed=0)
+    state = init_train_state(model, opt_cfg, ema_cfg)
+    step = make_train_step(model, diffuser, opt_cfg, ema_cfg)
+    channels = model.denoiser.conv_in.weight.shape[1] - 1
+    side = 32 if config == "cifar10" else 64
+    batch = 2 * opt_cfg.accum_steps
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn((batch, channels, side, side), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device="cuda") if config == "imagenet512" else None
+    before = mp.weight_norm_cast.launches, mp.weight_norm_cast.bwd_launches
+    state, metrics = step(state, (images, labels), gen, 0)
+    torch.cuda.synchronize()
+    assert (mp.weight_norm_cast.launches - before[0], mp.weight_norm_cast.bwd_launches - before[1]) == (
+        per_step, per_step)
+    assert math.isfinite(float(metrics["train_loss"]))

@@ -3,9 +3,11 @@
 Counterpart of ``tinyedm_tpu/models/layers.py``. Activations are NCHW and
 conv weights OIHW; stored weights are fp32 and every forward recomputes the
 effective weight ``normalize(w) / sqrt(fan_in)`` in fp32 and casts it to the
-compute dtype, as the JAX package does (``compute_weight``): where a gradient
-is wanted, through the eager autograd composite; where none is, with one
-``weight_norm_cast``, on the card one launch of its CUDA kernel. Parameters
+compute dtype, as the JAX package does (``compute_weight``): where none is
+wanted, with one ``weight_norm_cast``, on the card one launch of its CUDA
+kernel; where a gradient is wanted, with the autograd Function
+``_WeightNormCast``, on the card one launch of that kernel forward and one
+of its backward kernel, on the CPU the composite's ops. Parameters
 are made empty and filled by ``reset_parameters(generator)`` (see
 ``models/edm.py::init_weights``) or by a loaded state dict.
 
@@ -33,11 +35,11 @@ from tinyedm_tpu_torch.ops.fused_attention import (
     cosine_attention_qkv,
 )
 from tinyedm_tpu_torch.ops.mp import (
+    _WeightNormCast,
     mp_add,
     mp_silu,
     pixel_norm,
     weight_norm_cast,
-    weight_norm_cast_plain,
     weight_normalize,
 )
 from tinyedm_tpu_torch.parallel.tensor import gather, local
@@ -62,12 +64,12 @@ class _WeightNormed(nn.Module):
         return weight_normalize(self.weight) * self.scale
 
     def compute_weight(self) -> torch.Tensor:
-        """The effective weight in ``dtype``: the autograd composite where a
+        """The effective weight in ``dtype``: ``_WeightNormCast`` where a
         gradient is wanted, else one ``weight_norm_cast`` (as ``pixel_norm``
         routes)."""
         w = self.weight
         if torch.is_grad_enabled() and w.requires_grad:
-            return weight_norm_cast_plain(w, self.scale, self.dtype)
+            return _WeightNormCast.apply(w, self.scale, self.dtype)
         return weight_norm_cast(w, self.scale, self.dtype)
 
 

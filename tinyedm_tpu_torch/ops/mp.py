@@ -10,6 +10,10 @@ input-dtype tensor and the reduced norms, not an fp32 copy of the input.
 ``weight_norm_cast`` is a layer's effective weight in its compute dtype
 where no gradient is wanted: on the card one launch of the hand-written
 kernel in ``csrc/weight_norm.cu``, on the CPU the composite it replaces.
+``_WeightNormCast`` is the same weight where a gradient is wanted, an
+autograd Function: on the card one launch of that kernel forward and one of
+its backward kernel, on the CPU the composite's forward and its gradient,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -114,6 +118,9 @@ def _weight_norm_library() -> ctypes.CDLL:
     lib.weight_norm_cast.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                      ctypes.c_int, ctypes.c_void_p]
     lib.weight_norm_cast.restype = ctypes.c_int
+    lib.weight_norm_cast_bwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.weight_norm_cast_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -158,6 +165,81 @@ def weight_norm_cast(w: torch.Tensor, scale: float, dtype: torch.dtype) -> torch
 
 
 weight_norm_cast.launches = 0
+weight_norm_cast.bwd_launches = 0
+
+
+def weight_norm_cast_bwd_plain(w: torch.Tensor, g: torch.Tensor, scale: float) -> torch.Tensor:
+    """The gradient of ``w`` that autograd takes through the composite from
+    ``g``, the gradient of its output: the cast's node, the scale's, then
+    ``_PixelNorm.backward`` with the divisor recomputed, op for op."""
+    dims = tuple(range(1, w.ndim))
+    ga = g.to(w.dtype) * scale
+    norm = torch.sqrt(torch.sum(w * w, dim=dims, keepdim=True))
+    c = 1.0 / math.sqrt(math.prod(w.shape[1:]))
+    denom = 1e-4 + norm * c
+    inner = torch.sum(ga * w, dim=dims, keepdim=True)
+    return ga / denom - w * (inner * c / (denom * denom * torch.clamp(norm, min=1e-30)))
+
+
+def weight_norm_cast_bwd_cuda(w: torch.Tensor, g: torch.Tensor, scale: float) -> torch.Tensor:
+    """One launch of the backward kernel on the current stream: the fp32
+    gradient of a stored fp32 weight, 2-D or 4-D on a CUDA device, from the
+    bf16 or fp32 gradient ``g`` of its effective weight. It runs once a
+    layer a backward: the host path is ``weight_norm_cast_cuda``'s."""
+    if w.ndim not in (2, 4) or g.shape != w.shape:
+        raise ValueError(f"weight_norm_cast_bwd expects a 2D or 4D weight and a gradient of its shape, got "
+                         f"{tuple(w.shape)} and {tuple(g.shape)}")
+    if not w.is_cuda or w.dtype != torch.float32 or g.device != w.device \
+            or g.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernel takes an fp32 weight on a CUDA device and a bf16 or fp32 gradient on "
+                         f"the same device, got {w.dtype} on {w.device} and {g.dtype} on {g.device}")
+    device = w.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return weight_norm_cast_bwd_cuda(w, g, scale)
+    if not w.is_contiguous():
+        w = w.contiguous()
+    if not g.is_contiguous():
+        g = g.contiguous()
+    dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    if dw.numel() == 0:
+        return dw
+    rows = w.shape[0]
+    lib = _weight_norm_library()
+    err = lib.weight_norm_cast_bwd(w.data_ptr(), g.data_ptr(), dw.data_ptr(), rows, w.numel() // rows, scale,
+                                   g.dtype == torch.bfloat16, torch._C._cuda_getCurrentRawStream(device))
+    raise_on_error(lib, err, "weight_norm_cast_bwd")
+    weight_norm_cast.bwd_launches += 1
+    return dw
+
+
+def weight_norm_cast_bwd(w: torch.Tensor, g: torch.Tensor, scale: float) -> torch.Tensor:
+    """The gradient of the stored weight from ``g``: the plain version for a
+    CPU tensor, else the CUDA kernel or a raise. The kernel takes the
+    plain version's fp32 steps in its order, so only the order of its two
+    sums differs. ``weight_norm_cast.bwd_launches`` counts its launches."""
+    if w.device.type == "cpu":
+        return weight_norm_cast_bwd_plain(w, g, scale)
+    return weight_norm_cast_bwd_cuda(w, g, scale)
+
+
+class _WeightNormCast(torch.autograd.Function):
+    """``weight_norm_cast`` with a backward: ``T((w / denom) * s)`` forward,
+    ``weight_norm_cast_bwd`` backward, each one launch on the card and the
+    plain version on the CPU (the composite's output and gradient, bit for
+    bit). It saves only ``w``, the parameter itself; the backward recomputes
+    the divisor."""
+
+    @staticmethod
+    def forward(ctx, w: torch.Tensor, scale: float, dtype: torch.dtype) -> torch.Tensor:
+        ctx.save_for_backward(w)
+        ctx.scale = scale
+        return weight_norm_cast(w, scale, dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (w,) = ctx.saved_tensors
+        return weight_norm_cast_bwd(w, g, ctx.scale), None, None
 
 
 def mp_silu(x: torch.Tensor) -> torch.Tensor:
