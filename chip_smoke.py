@@ -375,6 +375,21 @@ with a non-zero exit code:
     microbatch on seeded latents and labels: a finite loss and one flash
     forward and one flash backward a block at n = 1024: the model path's
     launches in phase 42's entries and phase 5's.
+43. the flash kernels at FLUX.1-dev's joint attention (the flux_dev_1024
+    recipe: a microbatch of 1, 512 text and 4096 image tokens, 24 heads of
+    128, the q, k, v views of one qkv tensor), bf16: the forward and
+    backward against the plain versions (phase 5's limits), two backward
+    calls on the same inputs bit for bit equal, their times on the 128
+    bucket (the backward's two passes apart, by the profiler) beside the
+    plain versions, SDPA and the bound by edmbench/work.py's formulas
+    (forward 4 b h n^2 hd operations and 4 b n C bf16 values, backward
+    10 b h n^2 hd and 8 b n C); then one make_train_step step of
+    configs.build_training("flux_dev_1024") at full width on seeded
+    latents, text tokens and pooled vectors, the flash and QK-norm-RoPE
+    counters zeroed just before it: a finite loss, and exactly depth +
+    depth_single_blocks (9) flash calls and as many ops/rope.py
+    qk_norm_rope calls each way at n = 4608: the model path's launches in
+    phase 43's entries and phase 5's.
 
 Phases 34 (a), (b) and 36 (a), (b) also print their last step's collectives
 as the audit does (payload, ring wire bytes a rank, one row per collective),
@@ -460,6 +475,12 @@ FLASH_REPLACES = {"fwd": "tinyedm_tpu/ops/attention.py:38", "bwd": "tinyedm_tpu/
 # microbatch of the dit_xl2_512 recipe
 DIT_FLASH = (32, 1024, 16, 72)
 DIT_STEP_PATH = "dit_xl2_512 train step, a microbatch of 32 (edmbench cell dit_xl2_512.train.b32)"
+# phase 43: (batch, n, heads, hd) of FLUX.1-dev's joint attention at the
+# flux_dev_1024 recipe's microbatch: FLUX_TXT text tokens and the 2 x 2
+# packed tokens of (FLUX_LATENT_SIDE)^2 latents
+FLUX_FLASH = (1, 4608, 24, 128)
+FLUX_TXT, FLUX_LATENT_SIDE = 512, 128
+FLUX_STEP_PATH = "flux_dev_1024 train step, a microbatch of 1 (edmbench cell flux_dev_1024.train.b1)"
 TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 BWD_TOL = {"bfloat16": 1e-3, "float32": 1e-5}  # relative L2
 # (batch, n, heads, hd): every head-dim bucket, ragged token counts (tails of
@@ -1091,6 +1112,112 @@ def phase_flash_dit() -> tuple[list[dict], dict]:
     return entries, calls
 
 
+
+def _flux_step_calls(b: int) -> tuple[dict, dict]:
+    """The flash calls and the QK-norm-RoPE calls of one make_train_step
+    step of the flux_dev_1024 recipe at its microbatch ``b`` (a forward and
+    a backward at full width), on seeded weights, latents, text tokens and
+    pooled vectors, the counters zeroed just before it."""
+    import torch
+
+    from tinyedm_tpu_torch.configs import CONFIGS, build_training
+    from tinyedm_tpu_torch.diffusion.protocols import TextConditioning
+    from tinyedm_tpu_torch.ops import rope
+    from tinyedm_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    model, diffuser, opt_cfg, ema_cfg, batch, _ = build_training("flux_dev_1024", "cuda", seed=0)
+    if batch // opt_cfg.accum_steps != b:
+        fail(f"the flux_dev_1024 recipe's microbatch is {batch // opt_cfg.accum_steps}, phase 43 runs {b}")
+    opt_cfg = dataclasses.replace(opt_cfg, accum_steps=1)
+    d, e = CONFIGS["flux_dev_1024"]["denoiser"], CONFIGS["flux_dev_1024"]["embedding"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    side = FLUX_LATENT_SIDE
+    x = torch.randn((b, d["in_channels"] // 4, side, side), generator=gen, device="cuda")
+    cond = TextConditioning(torch.randn((b, FLUX_TXT, d["context_in_dim"]), generator=gen, device="cuda"),
+                            torch.randn((b, e["vec_in_dim"]), generator=gen, device="cuda"),
+                            torch.ones((b,), device="cuda"))
+    state = init_train_state(model, opt_cfg, ema_cfg)
+    step = make_train_step(model, diffuser, opt_cfg, ema_cfg)
+    torch.cuda.synchronize()
+    _clear_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, (x, cond), gen, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    calls, loss = _flash_calls(), float(metrics["train_loss"])
+    rope_calls = {k: v for k, v in rope.call_counts.items() if v}
+    n, blocks = FLUX_TXT + (side // 2) ** 2, d["depth"] + d["depth_single_blocks"]
+    expected = {("flash_fwd", n): blocks, ("flash_bwd", n): blocks}
+    expected_rope = {("qk_norm_rope", n): blocks, ("qk_norm_rope_bwd", n): blocks}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[43 flash at FLUX.1-dev] one flux_dev_1024 train step at {b} ({d['depth']} double + "
+          f"{d['depth_single_blocks']} single blocks): loss {loss:.4f}, {seconds:.2f} s (the first), flash calls "
+          f"{_fmt(calls)}, qk_norm_rope calls {_fmt(rope_calls)}, allocator peak so far {peak:.2f} GiB", flush=True)
+    if calls != expected or rope_calls != expected_rope or not math.isfinite(loss):
+        fail(f"a flux_dev_1024 train step made flash calls {calls} (expected {expected}), qk_norm_rope calls "
+             f"{rope_calls} (expected {expected_rope}), loss {loss}")
+    del model, state, step, metrics, x, cond
+    torch.cuda.empty_cache()
+    return calls, rope_calls
+
+
+def phase_flash_flux() -> tuple[list[dict], dict]:
+    """43: the flash kernels at FLUX.1-dev's joint attention (hd 128, the
+    128 bucket, n 4608) against the plain versions, timed, and the flash and
+    QK-norm-RoPE calls of a flux_dev_1024 train step (``_flux_step_calls``):
+    returns the kernels' entries and the flash calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from tinyedm_tpu_torch.ops import attention as fl
+
+    b, n, heads, hd = FLUX_FLASH
+    if n != FLUX_TXT + (FLUX_LATENT_SIDE // 2) ** 2:
+        fail(f"FLUX_FLASH's n {n} is not {FLUX_TXT} text tokens and the packed {FLUX_LATENT_SIDE}^2 latents")
+    name = "bfloat16"
+    q, k, v, g = _flash_inputs(b, n, heads, hd, torch.bfloat16, seed=hd + 1)
+    what = f"b={b} n={n} heads={heads} hd={hd} {name}"
+    fwd_err, bwd_err, bwd_rel = _check_flash(q, k, v, g, name, what)
+    out, stats = fl.flash_attention_fwd_cuda(q, k, v)
+    twice = [fl.flash_attention_bwd_cuda(q, k, v, g, stats) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(*twice)):
+        fail(f"flash bwd {what}: two calls on the same inputs differ")
+    del twice
+    fwd_ms = time_ms(lambda: fl.flash_attention_fwd_cuda(q, k, v), iters=3, reps=3)
+    bwd_ms = time_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats), iters=3, reps=3)
+    pass_a, pass_b = _kernel_ms(lambda: fl.flash_attention_bwd_cuda(q, k, v, g, stats),
+                                ("flash_bwd_dq_", "flash_bwd_dkv_"))
+    fwd_plain = time_ms(lambda: fl.flash_attention_plain(q, k, v), iters=1, reps=3)
+    bwd_plain = time_ms(lambda: fl.flash_attention_bwd_plain(q, k, v, g), iters=1, reps=3)
+    qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    fwd_sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5, reps=3)
+    bwd_sdpa, _, _ = _sdpa_bwd_ms(qh, kh, vh, gh)
+    del qh, kh, vh, gh, out, stats, q, k, v, g
+    torch.cuda.empty_cache()
+    io = b * n * heads * hd * 2  # one of q, k, v, o or g in bf16
+    fwd_bound, fwd_by = _bound(4 * io, 4 * b * heads * n * n * hd, name)
+    bwd_bound, bwd_by = _bound(8 * io, 10 * b * heads * n * n * hd, name)
+    print(f"[43 flash at FLUX.1-dev] {what} (bucket 128): forward max_abs {fwd_err:.3g}, kernel {fwd_ms:.4f} ms, "
+          f"plain {fwd_plain:.4f} ms, sdpa {fwd_sdpa:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); backward max_abs "
+          f"{bwd_err:.3g} worst rel_l2 {bwd_rel:.3g}, two calls bit-identical, kernels {bwd_ms:.4f} ms (profiled: "
+          f"pass (a) {pass_a:.4f} ms, pass (b) {pass_b:.4f} ms), plain {bwd_plain:.4f} ms, sdpa bwd "
+          f"{bwd_sdpa:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by})", flush=True)
+    calls, rope_calls = _flux_step_calls(b)
+    entries = []
+    for d, err, ms, plain_ms, bound_ms, bound_by, lib_ms, extra in (
+        ("fwd", fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_sdpa, {}),
+        ("bwd", bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_by, bwd_sdpa,
+         {"pass_a_ms": pass_a, "pass_b_ms": pass_b}),
+    ):
+        entries.append(_entry(
+            f"flash_attention_{d}[b={b} n={n} heads={heads} hd={hd}]", f"flash_attention_{d}.cu", FLASH_REPLACES[d],
+            err, ms, plain_ms, bound_ms, bound_by, lib_ms, launches=calls[f"flash_{d}", n],
+            launches_per_train_step=calls[f"flash_{d}", n], path=FLUX_STEP_PATH,
+            qk_norm_rope_calls_per_train_step=rope_calls["qk_norm_rope" if d == "fwd" else "qk_norm_rope_bwd", n],
+            **extra))
+    return entries, calls
+
 def phase_flash_layer() -> dict[tuple[str, int], int]:
     """CosineAttention(use_pallas=True) against use_pallas=False on the same
     weights, forward and backward; returns the flash calls of the layers'
@@ -1178,8 +1305,11 @@ def _clear_counts() -> None:
     from tinyedm_tpu_torch.ops import fused_attention as fa
     from tinyedm_tpu_torch.ops import mp
 
+    from tinyedm_tpu_torch.ops import rope
+
     fa.launch_counts.clear()
     fl.launch_counts.clear()
+    rope.call_counts.clear()
     mp.weight_norm_cast.launches = mp.weight_norm_cast.bwd_launches = 0
 
 
@@ -4744,6 +4874,8 @@ def main() -> int:
     lap("41")
     dit_entries, dit_calls = phase_flash_dit()
     lap("42")
+    flux_entries, flux_calls = phase_flash_flux()
+    lap("43")
 
     # fused kernels: launches of one sampling batch of their path (forward)
     # or of the training run of their config (backward), with the calls per
@@ -4770,14 +4902,16 @@ def main() -> int:
             e["launches_per_train_step"] = train_counts[key][direction, n] // steps
         if key in loop_per_step:
             e["launches_per_loop_step"] = loop_per_step[key][direction, n]
-    # flash kernels: the layer check's calls, and a model path's: phase 42's
-    # dit_xl2_512 train step (at n = 1024, hd 72)
+    # flash kernels: the layer check's calls, and the model paths': phase
+    # 42's dit_xl2_512 train step (n = 1024, hd 72) and phase 43's
+    # flux_dev_1024 train step (n = 4608, hd 128)
     for e in flash_entries:
         direction = "flash_bwd" if "bwd" in e["name"] else "flash_fwd"
         e["launches"] = layer_calls[direction, e.pop("n")]
-        e["launches_model_paths"] = sum(v for (kind, _), v in dit_calls.items() if kind == direction)
+        e["launches_model_paths"] = sum(v for calls in (dit_calls, flux_calls)
+                                        for (kind, _), v in calls.items() if kind == direction)
         e["path"] = "flash layer check (CosineAttention use_pallas=True)"
-        e["model_path"] = DIT_STEP_PATH
+        e["model_path"] = f"{DIT_STEP_PATH}; {FLUX_STEP_PATH}"
     # block kernels: launches of the CIFAR-10 training run with fused="block"
     block_steps = PATHS["cifar10"]["warmup"] + PATHS["cifar10"]["timed"]
     for e in block_entries:
@@ -4799,7 +4933,7 @@ def main() -> int:
             e["path"] = run["what"]
         e["launches_per_train_step"] = train_results[config]["wn_per_step"]
     entries = (fwd_entries + bwd_entries + flash_entries + block_entries + wino_entries + knob_entries + vl_entries
-               + wn_entries + dit_entries)
+               + wn_entries + dit_entries + flux_entries)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

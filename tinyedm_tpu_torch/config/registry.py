@@ -60,6 +60,9 @@ TARGET_ALIASES = {
     # the port's transformer denoiser (models/dit.py), which the JAX package lacks
     "tinyedm.DiTEmbedding": "tinyedm_tpu.models.dit.DiTEmbedding",
     "tinyedm.DiTDenoiser": "tinyedm_tpu.models.dit.DiTDenoiser",
+    # and the text-to-image transformer (models/flux.py), which it lacks too
+    "tinyedm.FluxEmbedding": "tinyedm_tpu.models.flux.FluxEmbedding",
+    "tinyedm.FluxDenoiser": "tinyedm_tpu.models.flux.FluxDenoiser",
     "tinyedm.DeterministicSolver": "tinyedm_tpu.diffusion.solver.DeterministicSolver",
     "tinyedm.callbacks.GenerateCallback": "tinyedm_tpu.training.callbacks.GenerateCallback",
     "tinyedm.callbacks.LatentsGenerateCallback": "tinyedm_tpu.training.callbacks.LatentsGenerateCallback",

@@ -25,6 +25,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from tinyedm_tpu_torch.diffusion.protocols import Conditioning, TextConditioning
+
 NULL_LABEL = -1  # the class embedding's zero row: EDM2's unconditional form
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
@@ -94,8 +96,11 @@ def autoguidance_denoise_fn(
     return _interval_gate(main_fn, guided, interval)
 
 
-def drop_labels(labels: torch.Tensor, p: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def drop_labels(labels: Conditioning, p: float, generator: Optional[torch.Generator] = None) -> Conditioning:
     """Label dropout for CFG training: each label becomes ``NULL_LABEL`` with
-    probability ``p`` (one uniform draw per label from ``generator``)."""
+    probability ``p`` (one uniform draw per label from ``generator``). A
+    ``TextConditioning`` drops its captions instead (``dropped``)."""
+    if isinstance(labels, TextConditioning):
+        return labels.dropped(p, generator)
     drop = torch.rand(labels.shape, generator=generator, device=labels.device) < p
     return torch.where(drop, torch.full_like(labels, NULL_LABEL), labels)

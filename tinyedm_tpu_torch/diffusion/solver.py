@@ -27,9 +27,10 @@ import numpy as np
 import torch
 
 from tinyedm_tpu_torch.diffusion.guidance import IntervalGate
+from tinyedm_tpu_torch.diffusion.protocols import Conditioning
 from tinyedm_tpu_torch.utils.profiling import span
 
-DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Optional[Conditioning]], torch.Tensor]
 
 _DTYPES = {
     None: torch.float32,
@@ -86,12 +87,14 @@ class DeterministicSolver:
         self,
         denoise_fn: DenoiseFn,
         x0: torch.Tensor,
-        class_labels: Optional[torch.Tensor] = None,
+        class_labels: Optional[Conditioning] = None,
     ) -> torch.Tensor:
         """Integrate the probability-flow ODE from sigma_max down to 0.
 
-        denoise_fn(x, sigma_batch, class_labels) -> D(x; sigma). x0: standard
-        normal noise. Returns the final sample in the solver dtype."""
+        denoise_fn(x, sigma_batch, class_labels) -> D(x; sigma), the
+        conditioning (labels or a ``TextConditioning``) handed to every
+        forward as given. x0: standard normal noise. Returns the final sample
+        in the solver dtype."""
         t = self.t_steps
         with span("tinyedm.solve"):
             return _heun(denoise_fn, x0, class_labels, self.torch_dtype, t, t[:-1], None, None)
@@ -123,7 +126,7 @@ def churn_noise(
 def _heun(
     denoise_fn: DenoiseFn,
     x0: torch.Tensor,
-    class_labels: Optional[torch.Tensor],
+    class_labels: Optional[Conditioning],
     dtype: torch.dtype,
     t: np.ndarray,
     t_hat: Sequence[float],
@@ -218,7 +221,7 @@ class MultistepSolver:
         self,
         denoise_fn: DenoiseFn,
         x0: torch.Tensor,
-        class_labels: Optional[torch.Tensor] = None,
+        class_labels: Optional[Conditioning] = None,
     ) -> torch.Tensor:
         dtype = self.torch_dtype
         b = x0.shape[0]
@@ -281,7 +284,7 @@ class StochasticSolver:
         self,
         denoise_fn: DenoiseFn,
         x0: torch.Tensor,
-        class_labels: Optional[torch.Tensor] = None,
+        class_labels: Optional[Conditioning] = None,
         generator: Optional[torch.Generator] = None,
         rows: Optional[tuple[int, int]] = None,
     ) -> torch.Tensor:

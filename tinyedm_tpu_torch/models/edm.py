@@ -5,8 +5,12 @@ Counterpart of ``tinyedm_tpu/models/edm.py``: ``forward`` is
 ``denoise_with_aux`` the training forward, which also returns the
 uncertainty head's output. The two halves are any modules of the
 ``EDMEmbedding`` and ``EDMDenoiser`` protocols: the U-Net's ``Embedding``
-and ``Denoiser``, or the DiT's ``DiTEmbedding`` and ``DiTDenoiser``
-(``models/dit.py``).
+and ``Denoiser``, the DiT's ``DiTEmbedding`` and ``DiTDenoiser``
+(``models/dit.py``), or FLUX's ``FluxEmbedding`` and ``FluxDenoiser``
+(``models/flux.py``). The conditioning (``class_labels``) is class labels,
+or a text-conditioned model's ``TextConditioning``
+(``diffusion/protocols.py``): the embedding reads it and hands the denoiser
+what it needs of it.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tinyedm_tpu_torch.diffusion.protocols import EDMDenoiser, EDMEmbedding
+from tinyedm_tpu_torch.diffusion.protocols import Conditioning, EDMDenoiser, EDMEmbedding, is_conditional
 from tinyedm_tpu_torch.models.layers import UncertaintyNet
 
 
@@ -25,6 +29,7 @@ class EDM(nn.Module):
         super().__init__()
         self.embedding = embedding
         self.denoiser = denoiser
+        self._conditional = is_conditional(embedding)
         # the reference's UncertaintyNet(fourier_dim, fourier_dim)
         self.u = (
             UncertaintyNet(embedding.fourier_dim, embedding.fourier_dim)
@@ -34,9 +39,8 @@ class EDM(nn.Module):
 
     @property
     def conditional(self) -> bool:
-        # -1 is the Embedding's unconditional sentinel
-        n = self.embedding.num_classes
-        return n is not None and n != -1
+        """Whether the embedding reads a conditioning (``is_conditional``)."""
+        return self._conditional
 
     @property
     def sigma_data(self) -> float:
@@ -46,7 +50,7 @@ class EDM(nn.Module):
         self,
         noisy_image: torch.Tensor,
         sigma: torch.Tensor,
-        class_labels: Optional[torch.Tensor] = None,
+        class_labels: Optional[Conditioning] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
@@ -60,7 +64,7 @@ class EDM(nn.Module):
         self,
         noisy_image: torch.Tensor,
         sigma: torch.Tensor,
-        class_labels: Optional[torch.Tensor] = None,
+        class_labels: Optional[Conditioning] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:

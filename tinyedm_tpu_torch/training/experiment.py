@@ -23,6 +23,7 @@ import torch
 
 from tinyedm_tpu_torch.config.registry import ModuleSpec
 from tinyedm_tpu_torch.diffusion.diffuser import Diffuser
+from tinyedm_tpu_torch.diffusion.protocols import is_conditional
 from tinyedm_tpu_torch.models.edm import EDM
 from tinyedm_tpu_torch.training.ema import EMAConfig
 from tinyedm_tpu_torch.training.train_step import OptimizerConfig
@@ -35,7 +36,7 @@ def build_edm(embedding: ModuleSpec, denoiser: ModuleSpec, *, use_uncertainty: b
     not drawn. ``fused`` picks the denoiser's attention route and ``dtype``
     its compute dtype (None: the spec's own); ``knobs`` adds Denoiser
     keywords (``remat``, ``remat_policy``, ``mod_fp32``, ``scan_blocks``).
-    A denoiser without a ``fused`` parameter, the DiT's, has one attention
+    A denoiser without a ``fused`` parameter, the DiT's or FLUX's, has one attention
     route and no U-Net knobs: it takes no ``fused``, and knobs raise, naming
     the recipe ``name``."""
     overrides = {} if dtype is None else {"dtype": dtype}
@@ -44,15 +45,15 @@ def build_edm(embedding: ModuleSpec, denoiser: ModuleSpec, *, use_uncertainty: b
         if fused is not None:
             overrides["fused"] = fused
     elif knobs:
-        raise ValueError(f"the {name} DiT takes no U-Net knobs, got {sorted(knobs)}")
+        raise ValueError(f"the {name} transformer takes no U-Net knobs, got {sorted(knobs)}")
     return EDM(embedding.build(), denoiser.build(**overrides), use_uncertainty=use_uncertainty)
 
 
 @dataclasses.dataclass
 class EDMSpec:
     diffuser: Diffuser
-    embedding: ModuleSpec  # of models.layers.Embedding (models.dit.DiTEmbedding)
-    denoiser: ModuleSpec  # of models.unet.Denoiser (models.dit.DiTDenoiser)
+    embedding: ModuleSpec  # of models.layers.Embedding (models.dit.DiTEmbedding, models.flux.FluxEmbedding)
+    denoiser: ModuleSpec  # of models.unet.Denoiser (models.dit.DiTDenoiser, models.flux.FluxDenoiser)
     use_ema: bool = False
     use_uncertainty: bool = False
     steady_steps: int = 1
@@ -88,16 +89,14 @@ class EDMSpec:
         if not 0.0 <= self.label_dropout < 1.0:
             raise ValueError(f"label_dropout must be in [0, 1), got {self.label_dropout}")
         if self.label_dropout > 0.0 and not self.conditional:
-            raise ValueError("label_dropout needs a conditional model (num_classes set)")
+            raise ValueError("label_dropout needs a conditional model (num_classes set, or text-conditioned)")
         if self.sigma_data is not None and self.sigma_data != self.denoiser.sigma_data:
             # one source of truth, as the JAX spec keeps it
             self.denoiser = self.denoiser.replace(sigma_data=self.sigma_data)
 
     @property
     def conditional(self) -> bool:
-        # -1 is the Embedding's unconditional sentinel
-        n = self.embedding.num_classes
-        return n is not None and n != -1
+        return is_conditional(self.embedding)
 
     def build_model(self, inference_fast: bool = False, *, fused: Optional[str] = None) -> EDM:
         """The spec's EDM, parameters allocated but not drawn; ``fused``

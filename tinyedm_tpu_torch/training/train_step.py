@@ -60,7 +60,8 @@ class OptimizerConfig:
     log_norms_per_layer: bool = False
     grad_clip_norm: Optional[float] = None  # global-norm clipping; None = off
     # CFG training: per-sample probability that a label becomes the null
-    # label -1 (conditional models only; 0 draws nothing)
+    # label -1, or that a text-conditioned sample's caption is zeroed
+    # (conditional models only; 0 draws nothing)
     label_dropout: float = 0.0
 
 
@@ -142,7 +143,9 @@ def _global_norm(tensors: list[torch.Tensor], plan: Optional[ParallelPlan] = Non
 
 def make_grad_fn(model: EDM, diffuser: Diffuser, opt_cfg: OptimizerConfig, model_size: int = 1) -> Callable:
     """grad_fn(state, images, labels, generator) -> (loss, metrics, grads):
-    the step's loss and fp32 gradients in ``state.params`` order, averaged
+    ``labels`` the conditioning (class labels, a ``TextConditioning`` or
+    None), sliced with the images into microbatches; the step's loss and fp32
+    gradients in ``state.params`` order, averaged
     over ``opt_cfg.accum_steps`` equal microbatches (a batch they do not
     divide raises, as the JAX step's reshape does). Over a model group of
     ``model_size`` ranks the backward is seeded with ``1 / model_size``: a
@@ -204,8 +207,8 @@ def make_train_step(
     plan: Optional[ParallelPlan] = None,
 ) -> Callable:
     """train_step(state, batch, generator, sched_count, interrupt=False) ->
-    (state, metrics), ``batch`` = (images NCHW fp32 normalized, labels or
-    None), ``sched_count`` the count the lr schedule reads (the epoch, in
+    (state, metrics), ``batch`` = (images NCHW fp32 normalized, labels, a
+    ``TextConditioning`` or None), ``sched_count`` the count the lr schedule reads (the epoch, in
     the CIFAR-10 recipe: the caller ticks it). Updates ``state`` in place and
     returns it.
 

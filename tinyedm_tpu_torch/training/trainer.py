@@ -120,6 +120,9 @@ class Trainer:
         self.ema_cfg = spec.build_ema_config()
         self.use_ema = self.ema_cfg is not None
         self.datamodule = datamodule
+        # a host batch's conversion: the data module's own where it has one
+        # (a text-conditioned module's conditioning), else images and labels
+        self._batch_to_device = getattr(datamodule, "to_device", to_device)
         self.max_epochs = max_epochs
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.callbacks = list(callbacks)
@@ -245,11 +248,12 @@ class Trainer:
         finally:
             self._whole_ema = None
 
-    def _to_device(self, batch_np) -> tuple[torch.Tensor, torch.Tensor]:
-        """A host batch as (NCHW fp32 images, labels) on the device; the raw
-        form (uint8, flip flags, labels) is normalized and flipped there."""
+    def _to_device(self, batch_np) -> tuple:
+        """A host batch as (NCHW fp32 images, labels or conditioning) on the
+        device; the raw form (uint8, flip flags, labels) is normalized and
+        flipped there."""
         if not self.device_preprocess:
-            return to_device(batch_np[0], batch_np[1], self.device)
+            return self._batch_to_device(batch_np[0], batch_np[1], self.device)
         u8, flags, labels = batch_np
         x = torch.from_numpy(u8).to(self.device).float()
         x = (x / 255.0 - 0.5) / 0.5
@@ -393,7 +397,7 @@ class Trainer:
         for i, (images, labels) in enumerate(self.datamodule.val_batches()):
             seed = fold_seed(self.seed + VAL_SEED_OFFSET, i) % 2**32
             if size == 1:
-                out = self._eval_step(state, to_device(images, labels, self.device), seed)
+                out = self._eval_step(state, self._batch_to_device(images, labels, self.device), seed)
             else:
                 n = len(images)
                 pad = (-n) % size
@@ -403,7 +407,7 @@ class Trainer:
                 if labels is not None:
                     labels = np.concatenate([labels, np.zeros((pad, *np.shape(labels)[1:]), np.asarray(labels).dtype)])
                 images, labels, mask = shard_batch((images, labels, mask))
-                x, y = to_device(images, labels, self.device)
+                x, y = self._batch_to_device(images, labels, self.device)
                 out = self._eval_step(state, (x, y, torch.from_numpy(mask).to(self.device)), seed,
                                       row_offset=rank * len(mask))
             row = torch.stack([out["sse"], out["count"], *(out[f"sse_ema{j}"] for j in range(n_profiles))]).double()
